@@ -1,0 +1,16 @@
+"""PyTorch + CUDA port of ``repro``, the sampled, gap-inserted learned
+index (A Pluggable Learned Index Method via Sampling and Gap Insertion).
+
+The layout mirrors ``repro``: ``core/`` holds the host build (copies of
+the reference's numpy modules) and the ``Index`` handle; ``kernels/``
+holds the freeze, the lookup engine and the hand-written CUDA kernel
+that answers batched lookups on an NVIDIA Hopper card.
+
+This package imports ``torch`` and never ``jax``, and nothing of
+``repro``.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"`` (see ``device.resolve_device``).
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

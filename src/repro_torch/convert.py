@@ -1,0 +1,58 @@
+"""Carry a reference index across into the port.
+
+``index_from_state`` takes the leaves that ``repro.core.Index
+.save_snapshot`` writes (``keys``, ``slot_key``, ``occupied``,
+``payload``, ``offsets``, ``chain_keys``, ``chain_payloads``; meta
+``method``, ``n_keys``, ``rho``, ``epoch``, ``gap_rho``,
+``sample_rate``).  In place of the snapshot's pickled mechanism, which
+would unpickle into ``repro`` classes, it takes the piecewise linear
+model as arrays: ``seg_first_key``, ``slope``, ``icept``, ``err_lo``,
+``err_hi`` (and optionally meta ``plm_n_keys``, the keys the model was
+fit on).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core.gaps import GappedArray
+from .core.handle import Index
+from .core.links import CSRLinks
+from .core.mechanisms import MECHANISMS, PiecewiseLinearModel
+from .device import resolve_device
+
+__all__ = ["index_from_state", "PLM_LEAVES"]
+
+PLM_LEAVES = ("seg_first_key", "slope", "icept", "err_lo", "err_hi")
+
+
+def index_from_state(state: dict, meta: dict, device=None) -> Index:
+    """Build the port's gapped ``Index`` from snapshot leaves + PLM
+    arrays, with its device state on ``device`` (cuda by default)."""
+    dev = resolve_device(device)
+    method = meta["method"]
+    if method not in ("pgm", "fiting"):
+        raise ValueError(f"method {method!r}: only pgm and fiting predict "
+                         "through their piecewise linear model alone")
+    keys = np.asarray(state["keys"], np.float64)
+    plm = PiecewiseLinearModel(
+        **{f: np.asarray(state[f], np.float64) for f in PLM_LEAVES},
+        n_keys=int(meta.get("plm_n_keys", keys.shape[0])))
+    mech = MECHANISMS[method]()
+    mech.plm = plm
+    slot_key = np.asarray(state["slot_key"], np.float64)
+    gapped = GappedArray(
+        slot_key=slot_key,
+        occupied=np.asarray(state["occupied"], bool),
+        payload=np.asarray(state["payload"], np.int64),
+        links=CSRLinks(int(slot_key.shape[0]),
+                       np.asarray(state["offsets"], np.int64),
+                       np.asarray(state["chain_keys"], np.float64),
+                       np.asarray(state["chain_payloads"], np.int64)),
+        mech=mech,
+        n_keys=int(meta["n_keys"]),
+        rho=float(meta["rho"]),
+        version=int(meta["epoch"]))
+    return Index(keys=keys, mech=mech, method=method, gapped=gapped,
+                 sample_rate=float(meta["sample_rate"]),
+                 gap_rho=float(meta["gap_rho"]), device=dev)

@@ -1,0 +1,97 @@
+"""Build and load the hand-written CUDA kernels (nvcc + ctypes).
+
+Each ``csrc/<name>.cu`` has a plain C entry point.  It is compiled at
+first use into ``build/repro_torch/`` at the repository root, into a
+file named by a hash of its source and flags, and loaded with
+``ctypes``.  Only sources in the repository are built.  ``build()``
+starts one ``nvcc`` per source, all at once, and waits for them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+__all__ = ["NVCC_FLAGS", "SOURCES", "build", "load", "ptxas_report"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+SOURCES = ("fused_lookup",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+_reports: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _target(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return _BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile the named sources (all by default) that are not built
+    yet, in parallel.  Returns ``{name: shared library path}``; raises
+    ``RuntimeError`` with nvcc's output when a build fails."""
+    names = tuple(SOURCES if names is None else names)
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    for n, tgt in targets.items():
+        if tgt.exists():
+            continue
+        tmp = tgt.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp)
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        _reports[n] = log
+        if proc.returncode != 0:
+            failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, targets[n])
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return targets
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's ``-Xptxas -v`` output from this process's build of
+    ``name`` ('' when the library was already built)."""
+    return _reports.get(name, "")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _libs[name] = lib
+        return lib

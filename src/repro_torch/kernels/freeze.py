@@ -1,0 +1,294 @@
+"""Freeze: host index state -> padded f32/i32 device images.
+
+Counterpart of the freeze half of ``repro.kernels.ops``.  The numpy
+helpers (``_pad_pow`` .. ``_freeze_numpy``) are copies of the
+reference's and must stay array-for-array equal to it
+(tests/test_torch_freeze.py holds them so).  ``IndexArrays`` holds the
+images as torch tensors on one device.
+
+Keys that exceed f32 exactness (> 2^24) ride an (hi, lo) f32 pair with
+``lo = key - f64(hi)``: lexicographic pair order is numeric order, and
+the pair is exact for integer keys below 2^48.  Payloads wider than
+int32 ride an i32 (lo, hi) pair.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+__all__ = ["IndexArrays", "freeze_index", "keys_need_pair",
+           "keys_pair_exact", "pair_alias_free", "split_key_pair"]
+
+_I32_MIN = np.iinfo(np.int32).min
+_I32_MAX = np.iinfo(np.int32).max
+
+
+def _pad_pow(a: np.ndarray, multiple: int, fill) -> np.ndarray:
+    n = a.shape[0]
+    m = ((n + multiple - 1) // multiple) * multiple
+    if m == n:
+        return a
+    return np.concatenate([a, np.full(m - n, fill, a.dtype)])
+
+
+def keys_need_pair(keys) -> bool:
+    """True when the keys exceed f32 exactness (need the hi/lo pair)."""
+    k = np.asarray(keys, np.float64)
+    f = k[np.isfinite(k)]
+    if f.size == 0:
+        return False
+    return not bool(np.all(f.astype(np.float32).astype(np.float64) == f))
+
+
+def keys_pair_exact(keys) -> bool:
+    """True when every key is represented EXACTLY by its f32 hi/lo pair
+    (hi + lo == key in f64 — holds e.g. for all integer keys < 2^48)."""
+    k = np.asarray(keys, np.float64)
+    f = k[np.isfinite(k)]
+    if f.size == 0:
+        return True
+    hi, lo = split_key_pair(f)
+    return bool(np.all(hi.astype(np.float64) + lo.astype(np.float64) == f))
+
+
+def pair_alias_free(sorted_keys) -> bool:
+    """True when no two DISTINCT keys of this sorted array share an f32
+    hi/lo pair (the device search then never conflates stored keys)."""
+    k = np.asarray(sorted_keys, np.float64)
+    f = k[np.isfinite(k)]
+    if f.size < 2:
+        return True
+    hi, lo = split_key_pair(f)
+    same_pair = (hi[1:] == hi[:-1]) & (lo[1:] == lo[:-1])
+    distinct = f[1:] != f[:-1]
+    return not bool(np.any(same_pair & distinct))
+
+
+def split_key_pair(keys):
+    """(hi, lo) f32 pair with ``lo = key - f64(hi)``; non-finite keys
+    get lo = 0."""
+    k = np.asarray(keys, np.float64)
+    hi = k.astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        lo = k - hi.astype(np.float64)
+    lo = np.where(np.isfinite(k), lo, 0.0)
+    return hi, lo.astype(np.float32)
+
+
+def _split_i64(a: np.ndarray):
+    """(lo32, hi32) two's-complement split of an int64 array."""
+    a = np.asarray(a, np.int64)
+    return a.astype(np.int32), (a >> 32).astype(np.int32)
+
+
+class _CapacityError(Exception):
+    """A forced static (chain bound, link capacity, width) cannot hold
+    the current state."""
+
+
+_NP_FIELDS = ("seg_first_key", "seg_first_key_lo", "seg_slope",
+              "seg_icept", "seg_slope_lo", "seg_icept_lo",
+              "slot_key", "slot_key_lo", "payload", "payload_hi",
+              "link_offsets", "link_keys", "link_keys_lo", "link_payloads",
+              "link_payload_hi")
+
+
+def _freeze_numpy(index, *, w_tile: int = 2048, seg_chunk: int = 512,
+                  max_chain: Optional[int] = None,
+                  link_cap: Optional[int] = None,
+                  force_wide: Optional[bool] = None,
+                  force_key_wide: Optional[bool] = None):
+    """Derive the padded numpy device images from host state.
+
+    Returns ``(arrays: dict[str, np.ndarray], statics: dict)``.
+    """
+    plm = getattr(index.mech, "plm", None)
+    if plm is None:
+        raise ValueError("mechanism does not export a piecewise linear model")
+    if index.gapped is not None:
+        ga = index.gapped
+        slot_key = np.asarray(ga.slot_key, np.float64)
+        payload = np.asarray(ga.payload, np.int64)
+        offsets, lkeys, lpay = ga.export_csr_links()
+        chain = ga.links.max_chain
+        live = payload[np.asarray(ga.occupied, bool)]
+    else:
+        slot_key = np.asarray(index.keys, np.float64)
+        payload = np.arange(slot_key.shape[0], dtype=np.int64)
+        offsets = np.zeros(slot_key.shape[0] + 1, np.int64)
+        lkeys = np.zeros(0, np.float64)
+        lpay = np.zeros(0, np.int64)
+        chain = 0
+        live = payload
+    if max_chain is None:
+        max_chain = int(chain)
+    elif chain > max_chain:
+        raise _CapacityError(f"max_chain {chain} > frozen {max_chain}")
+
+    wide = bool(
+        (live.size and (live.min() < _I32_MIN or live.max() > _I32_MAX))
+        or (lpay.size and (lpay.min() < _I32_MIN or lpay.max() > _I32_MAX))
+    )
+    if force_wide is not None:
+        if wide and not force_wide:
+            raise _CapacityError("payloads outgrew the narrow i32 freeze")
+        wide = force_wide
+    key_wide = keys_need_pair(slot_key) or keys_need_pair(lkeys)
+    if force_key_wide is not None:
+        if key_wide and not force_key_wide:
+            raise _CapacityError("keys outgrew the narrow f32 freeze")
+        key_wide = force_key_wide
+
+    n_slots = slot_key.shape[0]
+    sk_hi, sk_lo = split_key_pair(slot_key)
+    skp = _pad_pow(sk_hi, w_tile, np.float32(np.inf))
+    # one extra +inf block so the (b, b+1) window pair is always valid
+    skp = np.concatenate([skp, np.full(w_tile, np.inf, np.float32)])
+    sklp = np.concatenate(
+        [_pad_pow(sk_lo, w_tile, np.float32(0)),
+         np.zeros(w_tile, np.float32)])
+    pay_lo, pay_hi = _split_i64(payload)
+    m_extra = skp.shape[0] - pay_lo.shape[0]
+    pay_lo = np.concatenate([pay_lo, np.full(m_extra, -1, np.int32)])
+    pay_hi = np.concatenate([pay_hi, np.full(m_extra, -1, np.int32)])
+
+    if link_cap is None:
+        link_cap = int(lkeys.shape[0])
+    elif lkeys.shape[0] > link_cap:
+        raise _CapacityError(
+            f"links {lkeys.shape[0]} > frozen capacity {link_cap}")
+    lk_hi, lk_lo = split_key_pair(lkeys)
+    l_extra = link_cap - lkeys.shape[0]
+    lk_hi = np.concatenate([lk_hi, np.full(l_extra, np.inf, np.float32)])
+    lk_lo = np.concatenate([lk_lo, np.zeros(l_extra, np.float32)])
+    lpay_lo, lpay_hi = _split_i64(lpay)
+    lpay_lo = np.concatenate([lpay_lo, np.full(l_extra, -1, np.int32)])
+    lpay_hi = np.concatenate([lpay_hi, np.full(l_extra, -1, np.int32)])
+    # offsets padded past the slot blocks so the three offset blocks a
+    # tile reads (b, b+1, b+2 — slot+1 can land one element past the
+    # 2*w_tile window) are always in range
+    offp = np.concatenate(
+        [offsets, np.full(skp.shape[0] + w_tile - offsets.shape[0],
+                          offsets[-1])]
+    ).astype(np.int32)
+    none32f = np.zeros(0, np.float32)
+    none32i = np.zeros(0, np.int32)
+
+    sfk = np.asarray(plm.seg_first_key, np.float64)
+    sfk_hi, sfk_lo = split_key_pair(sfk)
+    arrays = {
+        "seg_first_key": _pad_pow(sfk_hi, seg_chunk, np.float32(np.inf)),
+        "seg_first_key_lo": (
+            np.concatenate([sfk_lo,
+                            np.zeros(_pad_pow(sfk_hi, seg_chunk,
+                                              np.float32(np.inf)).shape[0]
+                                     - sfk_lo.shape[0], np.float32)])
+            if key_wide else none32f),
+        "seg_slope": _pad_pow(np.asarray(plm.slope, np.float32), seg_chunk,
+                              np.float32(0)),
+        "seg_icept": _pad_pow(np.asarray(plm.icept, np.float32), seg_chunk,
+                              np.float32(n_slots - 1)),
+        # double-f32 residuals (slope - f32(slope), icept - f32(icept))
+        # for the ingest-place path's on-device slot prediction
+        "seg_slope_lo": _pad_pow(
+            (np.asarray(plm.slope, np.float64)
+             - np.asarray(plm.slope, np.float32).astype(np.float64)
+             ).astype(np.float32), seg_chunk, np.float32(0)),
+        "seg_icept_lo": _pad_pow(
+            (np.asarray(plm.icept, np.float64)
+             - np.asarray(plm.icept, np.float32).astype(np.float64)
+             ).astype(np.float32), seg_chunk, np.float32(0)),
+        "slot_key": skp,
+        "slot_key_lo": sklp if key_wide else none32f,
+        "payload": pay_lo,
+        "payload_hi": pay_hi if wide else none32i,
+        "link_offsets": offp,
+        "link_keys": lk_hi,
+        "link_keys_lo": lk_lo if key_wide else none32f,
+        "link_payloads": lpay_lo,
+        "link_payload_hi": lpay_hi if wide else none32i,
+    }
+    statics = {"n_slots": n_slots, "max_chain": int(max_chain),
+               "wide": wide, "key_wide": key_wide, "w_tile": w_tile,
+               "seg_chunk": seg_chunk, "link_cap": int(link_cap)}
+    return arrays, statics
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexArrays:
+    """Frozen device-side index state: f32/i32 tensors on one device.
+
+    Narrow builds keep the ``*_lo`` / ``*_hi`` tensors zero-length.
+    """
+
+    seg_first_key: torch.Tensor     # (Kpad,) f32, +inf padded
+    seg_first_key_lo: torch.Tensor  # (Kpad,) f32 when key_wide else (0,)
+    seg_slope: torch.Tensor         # (Kpad,) f32
+    seg_icept: torch.Tensor         # (Kpad,) f32
+    seg_slope_lo: torch.Tensor      # (Kpad,) f32
+    seg_icept_lo: torch.Tensor      # (Kpad,) f32
+    slot_key: torch.Tensor          # (Mpad,) f32, +inf padded
+    slot_key_lo: torch.Tensor       # (Mpad,) f32 when key_wide else (0,)
+    payload: torch.Tensor           # (Mpad,) i32 — low 32 payload bits
+    payload_hi: torch.Tensor        # (Mpad,) i32 when wide else (0,)
+    link_offsets: torch.Tensor      # (Mpad + w_tile,) i32
+    link_keys: torch.Tensor         # (Lpad,) f32
+    link_keys_lo: torch.Tensor      # (Lpad,) f32 when key_wide else (0,)
+    link_payloads: torch.Tensor     # (Lpad,) i32
+    link_payload_hi: torch.Tensor   # (Lpad,) i32 when wide else (0,)
+    n_slots: int
+    max_chain: int
+    wide: bool
+    key_wide: bool
+
+    @property
+    def device(self) -> torch.device:
+        return self.slot_key.device
+
+    def nbytes(self) -> int:
+        return sum(getattr(self, f).numel() * getattr(self, f).element_size()
+                   for f in _NP_FIELDS)
+
+
+def to_device(arrays: dict, statics: dict, device) -> IndexArrays:
+    """Upload the numpy images (the ``_to_device`` counterpart)."""
+    return IndexArrays(
+        **{f: torch.from_numpy(np.ascontiguousarray(arrays[f])).to(device)
+           for f in _NP_FIELDS},
+        n_slots=statics["n_slots"], max_chain=statics["max_chain"],
+        wide=statics["wide"], key_wide=statics["key_wide"],
+    )
+
+
+def from_learned_index(index, device, *, w_tile: int = 2048,
+                       seg_chunk: int = 512,
+                       max_chain: Optional[int] = None) -> IndexArrays:
+    """Freeze an index at its current capacities (no headroom)."""
+    arrays, statics = _freeze_numpy(index, w_tile=w_tile,
+                                    seg_chunk=seg_chunk, max_chain=max_chain)
+    return to_device(arrays, statics, device)
+
+
+def _round_pow2(n: int) -> int:
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+def freeze_index(index, device, *, w_tile: int = 2048, seg_chunk: int = 512,
+                 chain_headroom: int = 2, link_headroom: float = 2.0):
+    """The freeze half of the reference's ``freeze_state``: capacities
+    frozen WITH headroom (max chain x``chain_headroom``, link storage
+    x``link_headroom``, power of two).  Returns ``(IndexArrays,
+    statics)``."""
+    ga = getattr(index, "gapped", None)
+    chain = ga.links.max_chain if ga is not None else 0
+    total = ga.links.total if ga is not None else 0
+    max_chain = max(4, chain_headroom * max(chain, 1))
+    link_cap = _round_pow2(max(64, int(link_headroom * max(total, 1))))
+    np_arrays, statics = _freeze_numpy(
+        index, w_tile=w_tile, seg_chunk=seg_chunk, max_chain=max_chain,
+        link_cap=link_cap)
+    return to_device(np_arrays, statics, device), statics

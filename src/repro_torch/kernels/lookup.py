@@ -1,0 +1,315 @@
+"""Fused learned-index lookup: the CUDA kernel's wrapper and its plain
+torch version.
+
+Counterpart of ``repro.kernels.lookup.fused_lookup_call`` (the TPU
+kernel ``_fused_kernel``).  One launch per batch takes ``q_tile`` sorted
+queries per tile against the two adjacent ``w_tile`` slot-key blocks
+that ``tile_block[i]`` names, and returns ``(slot, resolved_i32,
+out_lo, out_hi, fb_bool, fb_loc, fb_cnt)`` — ``out_hi`` zero-length
+unless ``wide``; ``fb_loc`` / ``fb_cnt`` are the per-tile compacted
+escape lists (local indices in ascending order, padded with
+``q_tile``).
+
+``fused_lookup`` launches ``csrc/fused_lookup.cu`` for CUDA tensors and
+raises on anything the kernel does not take; for CPU tensors it runs
+``fused_lookup_plain``, which computes the same function with torch
+ops.  ``fused_lookup.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build
+from .ref import _bisect, _ple
+
+__all__ = ["fused_lookup", "fused_lookup_plain", "window_base"]
+
+_ARG_NAMES = ("queries_sorted", "queries_lo", "tile_block", "radix_table",
+              "radix_scale", "seg_first_key", "seg_first_key_lo",
+              "seg_slope", "icept_lo_fold", "slot_key_padded",
+              "slot_key_lo", "payload", "payload_hi", "link_offsets",
+              "link_keys", "link_keys_lo", "link_payloads",
+              "link_payload_hi")
+_ARG_DTYPES = (torch.float32, torch.float32, torch.int32, torch.int32,
+               torch.float32, torch.float32, torch.float32, torch.float32,
+               torch.float32, torch.float32, torch.float32, torch.int32,
+               torch.int32, torch.int32, torch.float32, torch.float32,
+               torch.int32, torch.int32)
+_WHOLE_WINDOW_ELEMS = 1 << 24  # (rows x 2*w_tile) compare chunk, plain
+
+
+def _slot_clip_hi(n_slots: int) -> float:
+    """The window-base clip bound as the f32 value the reference uses
+    (``float(n_slots - 1)`` meets an f32 operand and rounds to f32)."""
+    return float(np.float32(n_slots - 1))
+
+
+def _clip(v: torch.Tensor, hi: float) -> torch.Tensor:
+    """clip to [0, hi] with NaN -> 0 (fminf(fmaxf(v, 0), hi) in CUDA)."""
+    return torch.nan_to_num(torch.clamp(v, 0.0, hi), nan=0.0)
+
+
+def route_segment(q, ql, radix_table, radix_scale, key_wide: bool):
+    """Approximate radix segment routing: one multiply + one gather.
+    Mis-routes near bucket boundaries only shift the window; the
+    kernel's escape flags catch them."""
+    x = q - radix_scale[0]
+    if key_wide:
+        x = x + (ql - radix_scale[1])
+    bkt = _clip(x * radix_scale[2], float(radix_table.shape[0] - 1)).long()
+    return radix_table[bkt].long()
+
+
+def window_base(q, ql, radix_table, radix_scale, seg_first_key,
+                seg_first_key_lo, seg_slope, icept_lo_fold, *, n_slots: int,
+                key_wide: bool) -> torch.Tensor:
+    """Flat-mode window base per query (int64): radix route, then
+    ``lo0 = clip(floor(slope * dx + icept_fold))`` — the kernel's
+    arithmetic, one separate torch op per step (no FMA)."""
+    seg = route_segment(q, ql, radix_table, radix_scale, key_wide)
+    dx = q - seg_first_key[seg]
+    if key_wide:
+        dx = dx + (ql - seg_first_key_lo[seg])
+    return _clip(torch.floor(seg_slope[seg] * dx + icept_lo_fold[seg]),
+                 _slot_clip_hi(n_slots)).long()
+
+
+def _check(args, *, q_tile, w_tile, flat_w, key_wide, wide):
+    dev = args[0].device
+    for name, t, dt in zip(_ARG_NAMES, args, _ARG_DTYPES):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be 1-D and contiguous")
+    (q, ql, tile_block, radix_table, radix_scale, segk, segkl, slope, iclo,
+     sk, skl, pay, payhi, off, lk, lkl, lp, lph) = args
+    n_q, m_pad = q.shape[0], sk.shape[0]
+    if q_tile < 32 or q_tile > 1024 or q_tile % 32:
+        raise ValueError(f"q_tile {q_tile} must be a multiple of 32 in "
+                         "[32, 1024]")
+    if n_q % q_tile:
+        raise ValueError("pad queries to a multiple of q_tile")
+    if m_pad % w_tile or m_pad < 2 * w_tile:
+        raise ValueError("slot keys must be padded to >= 2 w_tile blocks")
+    if tile_block.shape[0] != n_q // q_tile:
+        raise ValueError("tile_block needs one entry per tile")
+    if pay.shape[0] != m_pad or off.shape[0] < m_pad + w_tile:
+        raise ValueError("payload / link_offsets do not match slot_key")
+    if key_wide and (ql.shape[0] != n_q or skl.shape[0] != m_pad
+                     or lkl.shape[0] != lk.shape[0]):
+        raise ValueError("key_wide needs the lo half of every key array")
+    if wide and (payhi.shape[0] != m_pad or lph.shape[0] != lp.shape[0]):
+        raise ValueError("wide needs the hi half of every payload array")
+    if lp.shape[0] != lk.shape[0]:
+        raise ValueError("link_payloads must match link_keys")
+    if flat_w:
+        if radix_scale.shape[0] != 3 or radix_table.shape[0] < 1:
+            raise ValueError("flat mode needs the radix table and scale")
+        if slope.shape[0] != segk.shape[0] or iclo.shape[0] != segk.shape[0]:
+            raise ValueError("segment tables differ in length")
+        if key_wide and segkl.shape[0] != segk.shape[0]:
+            raise ValueError("key_wide needs seg_first_key_lo")
+    return dev
+
+
+def fused_lookup(
+    queries_sorted,    # (Qpad,) f32 hi, sorted ascending, +inf padded
+    queries_lo,        # (Qpad,) f32 lo when key_wide else (0,)
+    tile_block,        # (Qpad // q_tile,) i32 window block per tile
+    radix_table,       # (R,) i32 bucket -> segment (flat mode)
+    radix_scale,       # (3,) f32 [kmin_hi, kmin_lo, scale]
+    seg_first_key,     # (Kpad,) f32, +inf padded
+    seg_first_key_lo,  # (Kpad,) f32 when key_wide else (0,)
+    seg_slope,         # (Kpad,) f32
+    icept_lo_fold,     # (Kpad,) f32 — icept + err_lo - 1 pre-folded
+    slot_key_padded,   # (Mpad,) f32, Mpad % w_tile == 0
+    slot_key_lo,       # (Mpad,) f32 when key_wide else (0,)
+    payload,           # (Mpad,) i32
+    payload_hi,        # (Mpad,) i32 when wide else (0,)
+    link_offsets,      # (Mpad + w_tile,) i32
+    link_keys,         # (Lpad,) f32
+    link_keys_lo,      # (Lpad,) f32 when key_wide else (0,)
+    link_payloads,     # (Lpad,) i32
+    link_payload_hi,   # (Lpad,) i32 when wide else (0,)
+    *,
+    q_tile: int,
+    w_tile: int,
+    win_chunk: int = 512,
+    flat_w: int,
+    max_chain: int,
+    n_slots: int,
+    key_wide: bool,
+    wide: bool,
+):
+    """One launch of the fused lookup kernel (``win_chunk`` is accepted
+    for the reference's signature and ignored).  CPU tensors run
+    ``fused_lookup_plain``; CUDA tensors launch the kernel or raise."""
+    del win_chunk
+    args = (queries_sorted, queries_lo, tile_block, radix_table,
+            radix_scale, seg_first_key, seg_first_key_lo, seg_slope,
+            icept_lo_fold, slot_key_padded, slot_key_lo, payload,
+            payload_hi, link_offsets, link_keys, link_keys_lo,
+            link_payloads, link_payload_hi)
+    statics = dict(q_tile=q_tile, w_tile=w_tile, flat_w=flat_w,
+                   max_chain=max_chain, n_slots=n_slots,
+                   key_wide=key_wide, wide=wide)
+    dev = _check(args, q_tile=q_tile, w_tile=w_tile, flat_w=flat_w,
+                 key_wide=key_wide, wide=wide)
+    if dev.type == "cpu":
+        return fused_lookup_plain(*args, **statics)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_lookup runs on cuda or cpu, not {dev}")
+    return _launch(args, dev, **statics)
+
+
+fused_lookup.launches = 0
+
+
+def _launch(args, dev, *, q_tile, w_tile, flat_w, max_chain, n_slots,
+            key_wide, wide):
+    lib = _build.load("fused_lookup")
+    fn = lib.fused_lookup_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+    n_q = args[0].shape[0]
+    num_tiles = n_q // q_tile
+    link_keys = args[14]
+    has_links = link_keys.shape[0] > 0 and max_chain > 0
+    i32 = dict(dtype=torch.int32, device=dev)
+    slot = torch.empty(n_q, **i32)
+    res = torch.empty(n_q, **i32)
+    out = torch.empty(n_q, **i32)
+    out_hi = torch.empty(n_q if wide else 0, **i32)
+    fb = torch.empty(n_q, dtype=torch.bool, device=dev)
+    fb_loc = torch.empty(n_q, **i32)
+    fb_cnt = torch.empty(num_tiles, **i32)
+    outs = (slot, res, out, out_hi, fb, fb_loc, fb_cnt)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[t.data_ptr() for t in args], *[t.data_ptr() for t in outs],
+                 num_tiles, q_tile, int(args[3].shape[0]),
+                 int(link_keys.shape[0]), w_tile, flat_w,
+                 int(max_chain).bit_length() if has_links else 0,
+                 _slot_clip_hi(n_slots), int(key_wide), int(wide), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_lookup kernel launch failed: CUDA error "
+                           f"{err}")
+    fused_lookup.launches += 1
+    return outs
+
+
+def fused_lookup_plain(
+    queries_sorted, queries_lo, tile_block, radix_table, radix_scale,
+    seg_first_key, seg_first_key_lo, seg_slope, icept_lo_fold,
+    slot_key_padded, slot_key_lo, payload, payload_hi, link_offsets,
+    link_keys, link_keys_lo, link_payloads, link_payload_hi,
+    *, q_tile: int, w_tile: int, win_chunk: int = 512, flat_w: int,
+    max_chain: int, n_slots: int, key_wide: bool, wide: bool,
+):
+    """The kernel's function in plain torch ops on any device: the
+    same arithmetic in the same order, one query per row."""
+    del win_chunk
+    q, ql = queries_sorted, queries_lo
+    sk, skl = slot_key_padded, slot_key_lo
+    dev = q.device
+    n_q = q.shape[0]
+    num_tiles = n_q // q_tile
+    two_w = 2 * w_tile
+    base = (tile_block.long() * w_tile).repeat_interleave(q_tile)
+    finite = torch.isfinite(q)
+
+    def wgather(arr, loc):
+        """Gather at window-local ``loc`` (pre-clipped to [0, 2w))."""
+        return arr[base.view(-1, *([1] * (loc.dim() - 1))) + loc]
+
+    if flat_w:
+        lo0 = window_base(q, ql, radix_table, radix_scale, seg_first_key,
+                          seg_first_key_lo, seg_slope, icept_lo_fold,
+                          n_slots=n_slots, key_wide=key_wide)
+        loc0 = lo0 - base
+        idxl = loc0[:, None] + torch.arange(flat_w + 1, device=dev)
+        inb = (idxl >= 0) & (idxl < two_w)
+        idxc = idxl.clamp(0, two_w - 1)
+        ks = wgather(sk, idxc)
+        if key_wide:
+            le = _ple(ks, wgather(skl, idxc), q[:, None], ql[:, None]) & inb
+        else:
+            le = (ks <= q[:, None]) & inb
+        rank = le.sum(dim=1)
+        slot = lo0 - 1 + torch.clamp(rank, max=flat_w)
+        window_ok = (loc0 >= 0) & (loc0 + flat_w + 1 <= two_w)
+        fb = ((rank == 0) & (lo0 > 0)) | (rank == flat_w + 1) | ~window_ok
+    else:
+        rank = torch.empty(n_q, dtype=torch.long, device=dev)
+        rows = max(1, _WHOLE_WINDOW_ELEMS // two_w)
+        offs = torch.arange(two_w, device=dev)
+        for r0 in range(0, n_q, rows):
+            b = base[r0:r0 + rows, None] + offs
+            qc = q[r0:r0 + rows, None]
+            if key_wide:
+                le = _ple(sk[b], skl[b], qc, ql[r0:r0 + rows, None])
+            else:
+                le = sk[b] <= qc
+            rank[r0:r0 + rows] = le.sum(dim=1)
+        slot = base + rank - 1
+        fb = ((rank == 0) & (base > 0)) | (rank == two_w)
+    fb = fb & finite
+
+    # ---- epilogue: found + payload + CSR chain bisect -----------------
+    sloc = slot - base
+    okx = (slot >= 0) & (sloc >= 0) & (sloc < two_w)
+    slc = sloc.clamp(0, two_w - 1)
+    found = okx & (wgather(sk, slc) == q)
+    if key_wide:
+        found = found & (wgather(skl, slc) == ql)
+    neg = torch.full((n_q,), -1, dtype=torch.int32, device=dev)
+    out = torch.where(found, wgather(payload, slc), neg)
+    out_hi = (torch.where(found, wgather(payload_hi, slc), neg) if wide
+              else torch.zeros(0, dtype=torch.int32, device=dev))
+    resolved = found
+    if link_keys.shape[0] > 0 and max_chain > 0:
+        start = wgather(link_offsets, slc).long()
+        end = wgather(link_offsets, slc + 1).long()
+        scan = okx & ~found & (end > start)
+        l_max = link_keys.shape[0] - 1
+
+        def go_at(mid):
+            midc = mid.clamp(0, l_max)
+            if key_wide:
+                return _ple(link_keys[midc], link_keys_lo[midc], q, ql)
+            return link_keys[midc] <= q
+
+        lo_c = _bisect(start - 1, end - 1, int(max_chain).bit_length(),
+                       go_at)
+        locc = lo_c.clamp(0, l_max)
+        eq = link_keys[locc] == q
+        if key_wide:
+            eq = eq & (link_keys_lo[locc] == ql)
+        hit = scan & (lo_c >= start) & eq
+        out = torch.where(hit, link_payloads[locc], out)
+        if wide:
+            out_hi = torch.where(hit, link_payload_hi[locc], out_hi)
+        resolved = resolved | hit
+
+    # ---- per-tile compaction: fb_loc[d] = local index of the d-th
+    # flagged query of the tile, q_tile past the tile's count ----------
+    fbm = fb.view(num_tiles, q_tile)
+    pos = torch.cumsum(fbm.int(), dim=1) - 1
+    fb_cnt = fbm.sum(dim=1).int()
+    fb_loc = torch.full((num_tiles, q_tile), q_tile, dtype=torch.int32,
+                        device=dev)
+    t_idx, j_idx = torch.nonzero(fbm, as_tuple=True)
+    fb_loc[t_idx, pos[t_idx, j_idx]] = j_idx.int()
+    return (slot.int(), resolved.int(), out, out_hi, fb, fb_loc.view(-1),
+            fb_cnt)

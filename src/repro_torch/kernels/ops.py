@@ -1,0 +1,345 @@
+"""Lookup engine: the torch code around the fused CUDA kernel.
+
+Counterpart of the ``"fused-pallas"`` and ``"oracle"`` stages of
+``repro.kernels.ops._pipeline``, of ``_route_segment`` (radix form),
+``_fused_fixup`` and ``batched_lookup``, and of the lookup side of
+``QueryEngine``.  One batch on the fused stage is:
+
+    sort -> radix route + window base per query -> tile schedule
+    (``tile_block``) -> ONE kernel launch -> fixup of the escaped
+    queries by the full-array oracle -> unsort
+
+The fixup re-resolves only the queries the kernel flagged, gathered
+from its per-tile compacted lists into one buffer of at most
+``fb_cap`` queries; when more escape, the batch is overflowed and the
+engine re-dispatches it to the oracle stage (counted in ``stats``, with
+a sticky per-bucket capacity boost).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .bounds import (_flat_width, _fused_flat_width, auto_q_tile,
+                     build_radix_router, query_window_bounds)
+from .freeze import IndexArrays, _pad_pow, split_key_pair
+from .lookup import _clip, _slot_clip_hi, fused_lookup, route_segment
+from .ref import epilogue, oracle_search
+
+__all__ = ["QueryEngine", "batched_lookup", "FB_FRAC"]
+
+FB_FRAC = 0.02  # compaction buffer sizing: ~2% of the batch
+_NO_F32 = np.zeros(0, np.float32)
+
+
+def split_queries(queries, key_wide: bool):
+    """Host-side query split matching the frozen key representation."""
+    q64 = np.asarray(queries, np.float64)
+    if key_wide:
+        return split_key_pair(q64)
+    return q64.astype(np.float32), _NO_F32
+
+
+def recombine_i64(out, out_hi, n_q: int, wide: bool) -> np.ndarray:
+    """(lo, hi) i32 pair tensors -> host int64 payloads."""
+    lo = out[:n_q].cpu().numpy().astype(np.int64)
+    if not wide:
+        return lo
+    hi = out_hi[:n_q].cpu().numpy().astype(np.int64)
+    return (hi << 32) | (lo & 0xFFFFFFFF)
+
+
+def tile_schedule(qs, qls, a: IndexArrays, icept_fold, radix_table,
+                  radix_scale, *, q_tile: int, w_tile: int):
+    """Per-tile window block: the lowest window base among the tile's
+    sorted queries, quantized to ``w_tile`` and clipped so the (b, b+1)
+    block pair stays inside the padded slot keys."""
+    seg = route_segment(qs, qls, radix_table, radix_scale, a.key_wide)
+    dx = qs - a.seg_first_key[seg]
+    if a.key_wide:
+        dx = dx + (qls - a.seg_first_key_lo[seg])
+    lo = _clip(a.seg_slope[seg] * dx + icept_fold[seg],
+               _slot_clip_hi(a.n_slots))
+    tile_lo = lo.view(-1, q_tile).amin(dim=1)
+    m_pad = a.slot_key.shape[0]
+    return torch.clamp(torch.floor(tile_lo / w_tile).int(),
+                       0, m_pad // w_tile - 2)
+
+
+def fused_args(qs, qls, a: IndexArrays, err_lo_pad, radix_table,
+               radix_scale, *, q_tile: int, w_tile: int) -> tuple:
+    """The kernel's 18 tensor arguments for a sorted, tile-padded batch:
+    the folded intercepts, the tile schedule and the frozen images."""
+    icept_fold = a.seg_icept + err_lo_pad - 1.0
+    tile_block = tile_schedule(qs, qls, a, icept_fold, radix_table,
+                               radix_scale, q_tile=q_tile, w_tile=w_tile)
+    return (qs, qls, tile_block, radix_table, radix_scale,
+            a.seg_first_key, a.seg_first_key_lo, a.seg_slope, icept_fold,
+            a.slot_key, a.slot_key_lo, a.payload, a.payload_hi,
+            a.link_offsets, a.link_keys, a.link_keys_lo, a.link_payloads,
+            a.link_payload_hi)
+
+
+def fused_statics(a: IndexArrays, *, q_tile: int, w_tile: int,
+                  flat_w: int) -> dict:
+    """The kernel's static arguments for the frozen images ``a``."""
+    return dict(q_tile=q_tile, w_tile=w_tile, flat_w=flat_w,
+                max_chain=a.max_chain, n_slots=a.n_slots,
+                key_wide=a.key_wide, wide=a.wide)
+
+
+def fused_fixup(qs, qls, slot, resolved, out, out_hi, fb_loc, fb_cnt,
+                a: IndexArrays, *, q_tile: int, fb_cap: int):
+    """Re-resolve the kernel's escaped queries with the full-array
+    oracle and the epilogue, in place.  Returns ``(fb_count,
+    overflow)``; on overflow (more than ``fb_cap`` escapes) nothing is
+    patched — the caller re-dispatches the batch to the oracle stage."""
+    fb_count = int(fb_cnt.sum().item())
+    if fb_count == 0 or fb_count > fb_cap:
+        return fb_count, fb_count > fb_cap
+    t = fb_cnt.shape[0]
+    jj = torch.arange(q_tile, device=qs.device)
+    valid = jj[None, :] < fb_cnt[:, None]
+    qid = (torch.arange(t, device=qs.device)[:, None] * q_tile
+           + fb_loc.view(t, q_tile).long())
+    idx = qid[valid]                      # tile order, then local order
+    q_fb = qs[idx]
+    ql_fb = qls[idx] if a.key_wide else qls
+    slot_f, found_f = oracle_search(q_fb, ql_fb, a.slot_key, a.slot_key_lo,
+                                    a.key_wide)
+    out_f, out_hi_f, res_f = epilogue(q_fb, ql_fb, slot_f, found_f, a,
+                                      a.max_chain)
+    slot[idx] = slot_f
+    resolved[idx] = res_f
+    out[idx] = out_f
+    if a.wide:
+        out_hi[idx] = out_hi_f
+    return fb_count, False
+
+
+def pipeline(qh, ql, a: IndexArrays, err_lo_pad, radix_table, radix_scale,
+             *, stage: str, q_tile: int, w_tile: int, flat_w: int,
+             fb_cap: int, assume_sorted: bool):
+    """One batch through ``stage`` ("fused" or "oracle").  Returns
+    ``(out, out_hi, slot, resolved, fb_count, overflow)`` as tensors on
+    the index's device (counts as ints)."""
+    if stage == "oracle":
+        slot, found = oracle_search(qh, ql, a.slot_key, a.slot_key_lo,
+                                    a.key_wide)
+        out, out_hi, resolved = epilogue(qh, ql, slot, found, a,
+                                         a.max_chain)
+        return out, out_hi, slot, resolved, 0, False
+    if stage != "fused":
+        raise ValueError(f"unknown stage {stage!r}")
+    if assume_sorted:
+        qs, qls, order = qh, ql, None
+    else:
+        if a.key_wide:  # lexsort: lo first, then a stable sort by hi
+            o_lo = torch.sort(ql, stable=True).indices
+            order = o_lo[torch.sort(qh[o_lo], stable=True).indices]
+            qls = ql[order]
+        else:
+            order = torch.sort(qh, stable=True).indices
+            qls = ql
+        qs = qh[order]
+    slot, res, out, out_hi, _fb, fb_loc, fb_cnt = fused_lookup(
+        *fused_args(qs, qls, a, err_lo_pad, radix_table, radix_scale,
+                    q_tile=q_tile, w_tile=w_tile),
+        **fused_statics(a, q_tile=q_tile, w_tile=w_tile, flat_w=flat_w))
+    resolved = res.bool()
+    fb_count, overflow = fused_fixup(qs, qls, slot, resolved, out, out_hi,
+                                     fb_loc, fb_cnt, a, q_tile=q_tile,
+                                     fb_cap=fb_cap)
+    if order is None:
+        return out, out_hi, slot, resolved, fb_count, overflow
+
+    def unsort(x):
+        y = torch.empty_like(x)
+        y[order] = x
+        return y
+
+    out_hi = unsort(out_hi) if a.wide else out_hi
+    return (unsort(out), out_hi, unsort(slot), unsort(resolved), fb_count,
+            overflow)
+
+
+def _pad_bounds(err, k_pad: int, device) -> torch.Tensor:
+    err = np.asarray(err, np.float32)
+    return torch.from_numpy(
+        np.ascontiguousarray(_pad_pow(err, k_pad, np.float32(0))[:k_pad])
+    ).to(device)
+
+
+def batched_lookup(arrays: IndexArrays, err_lo_by_seg, queries, *,
+                   q_tile: int = 0, w_tile: int = 2048,
+                   backend: str = "fused", err_hi_by_seg=None,
+                   queries_sorted: bool = False, fb_frac: float = FB_FRAC):
+    """Full device lookup: ``(payloads i64, slots, found, #fallbacks)``
+    as host numpy arrays (payload -1 = miss).
+
+    ``backend`` is "fused" (the kernel) or "oracle" (full-array search).
+    On compaction overflow the batch is re-run on the oracle stage.
+    """
+    if backend not in ("fused", "oracle"):
+        raise ValueError(f"unknown backend {backend!r}")
+    a = arrays
+    qh_np, ql_np = split_queries(queries, a.key_wide)
+    n_q = qh_np.shape[0]
+    if q_tile <= 0:
+        q_tile = auto_q_tile(n_q, a.n_slots, w_tile)
+    if backend == "fused":
+        qh_np = _pad_pow(qh_np, q_tile, np.float32(np.inf))
+        if a.key_wide:
+            ql_np = _pad_pow(ql_np, q_tile, np.float32(0))
+    err_lo_np = np.asarray(err_lo_by_seg, np.float32)
+    err_hi_np = (np.zeros_like(err_lo_np) if err_hi_by_seg is None
+                 else np.asarray(err_hi_by_seg, np.float32))
+    flat_w = _fused_flat_width(err_lo_np, err_hi_np)
+    k_pad = int(a.seg_first_key.shape[0])
+    dev = a.device
+    table, scale = build_radix_router(a)
+    fb_cap = int(min(qh_np.shape[0],
+                     max(q_tile, int(np.ceil(fb_frac * qh_np.shape[0])))))
+    out, out_hi, slot, found, fb, overflow = pipeline(
+        torch.from_numpy(qh_np).to(dev), torch.from_numpy(ql_np).to(dev),
+        a, _pad_bounds(err_lo_np, k_pad, dev),
+        torch.from_numpy(table).to(dev), torch.from_numpy(scale).to(dev),
+        stage=backend, q_tile=q_tile, w_tile=w_tile, flat_w=flat_w,
+        fb_cap=fb_cap, assume_sorted=bool(queries_sorted))
+    if overflow:
+        return batched_lookup(arrays, err_lo_by_seg, queries,
+                              q_tile=q_tile, w_tile=w_tile,
+                              backend="oracle", err_hi_by_seg=err_hi_by_seg,
+                              fb_frac=fb_frac)
+    return (recombine_i64(out, out_hi, n_q, a.wide),
+            slot[:n_q].cpu().numpy(), found[:n_q].cpu().numpy(), fb)
+
+
+class QueryEngine:
+    """Persistent query engine over a frozen ``IndexArrays``.
+
+    Pads batches up to power-of-two buckets (``min_bucket`` and up),
+    keeps the padded error bounds and the radix router resident on the
+    index's device, and picks per bucket: ``q_tile`` by
+    ``auto_q_tile``, the flat width (the wide fused width up to
+    ``fused_flat_max_bucket``, the legacy width above it) and the
+    escape buffer ``fb_cap`` (``fb_frac`` of the bucket, at least one
+    tile, times a sticky per-bucket boost after an overflow).
+
+    ``stats`` counts calls, fallbacks (escapes the fixup re-resolved)
+    and oracle escapes (overflowed batches re-run on the oracle stage);
+    ``last_stage`` names the stage that served the last call.
+    """
+
+    def __init__(self, arrays: IndexArrays, err_lo_by_seg,
+                 err_hi_by_seg=None, *, w_tile: int = 2048,
+                 fb_frac: float = FB_FRAC, min_bucket: int = 256,
+                 fused_flat_max_bucket: int = 8192):
+        self.arrays = arrays
+        self.backend = "fused"
+        self.w_tile = w_tile
+        self.fb_frac = fb_frac
+        self.min_bucket = max(32, int(min_bucket))
+        self.fused_flat_max_bucket = int(fused_flat_max_bucket)
+        self.err_lo = np.asarray(err_lo_by_seg, np.float32)
+        self.err_hi = (None if err_hi_by_seg is None
+                       else np.asarray(err_hi_by_seg, np.float32))
+        err_hi_np = (np.zeros_like(self.err_lo) if self.err_hi is None
+                     else self.err_hi)
+        dev = arrays.device
+        k_pad = int(arrays.seg_first_key.shape[0])
+        self._elo = _pad_bounds(self.err_lo, k_pad, dev)
+        self._flat_w = _flat_width(self.err_lo, err_hi_np)
+        self._fused_flat_w = _fused_flat_width(self.err_lo, err_hi_np)
+        table, scale = build_radix_router(arrays)
+        self._radix_table = torch.from_numpy(table).to(dev)
+        self._radix_scale = torch.from_numpy(scale).to(dev)
+        # sticky per-bucket escape-capacity boost: a workload that once
+        # overflowed gets a larger buffer next time instead of paying
+        # the oracle re-dispatch on every call
+        self._cap_boost: dict = {}
+        self.last_stage: Optional[str] = None
+        self.stats = {"calls": 0, "fallbacks": 0, "oracle_escapes": 0,
+                      "buckets": set()}
+
+    @classmethod
+    def from_index(cls, index, device=None, *, w_tile: int = 2048,
+                   seg_chunk: int = 512, max_chain: Optional[int] = None,
+                   **kwargs):
+        """Freeze an index (current capacities) with query-safe window
+        bounds on ``device`` (cuda by default)."""
+        from .freeze import from_learned_index
+        arrays = from_learned_index(index, resolve_device(device),
+                                    w_tile=w_tile, seg_chunk=seg_chunk,
+                                    max_chain=max_chain)
+        err_lo, err_hi = query_window_bounds(index)
+        return cls(arrays, err_lo, err_hi, w_tile=w_tile, **kwargs)
+
+    def bucket(self, n: int) -> int:
+        b = self.min_bucket
+        while b < n:
+            b <<= 1
+        return b
+
+    def _fused_width_for(self, b: int) -> int:
+        """The wide fused flat width up to ``fused_flat_max_bucket``,
+        the compare-lean legacy width (or the whole window, 0) above."""
+        return (self._fused_flat_w if b <= self.fused_flat_max_bucket
+                else self._flat_w)
+
+    def _dispatch(self, qj, qlj, stage, q_tile, fb_cap, queries_sorted,
+                  flat_w):
+        return pipeline(qj, qlj, self.arrays, self._elo, self._radix_table,
+                        self._radix_scale, stage=stage, q_tile=q_tile,
+                        w_tile=self.w_tile, flat_w=flat_w, fb_cap=fb_cap,
+                        assume_sorted=queries_sorted)
+
+    def lookup(self, queries, *, queries_sorted: bool = False,
+               backend: Optional[str] = None):
+        """``(payloads i64, slots, found, fb_count)`` as host numpy
+        arrays sliced to ``len(queries)``.  ``backend`` overrides the
+        engine default for this call ("fused" / "oracle")."""
+        a = self.arrays
+        qh, ql = split_queries(queries, a.key_wide)
+        n_q = qh.shape[0]
+        b = self.bucket(n_q)
+        if b == n_q:
+            qp, qlp = qh, ql
+        else:
+            qp = np.full(b, np.inf, np.float32)
+            qp[:n_q] = qh  # +inf tail keeps sorted batches sorted
+            if a.key_wide:
+                qlp = np.zeros(b, np.float32)
+                qlp[:n_q] = ql
+            else:
+                qlp = ql
+        q_tile = min(b, auto_q_tile(b, a.n_slots, self.w_tile))
+        stage = backend or self.backend
+        if stage not in ("fused", "oracle"):
+            raise ValueError(f"unknown backend {stage!r}")
+        self.last_stage = stage
+        boost = self._cap_boost.get(b, 1)
+        fb_cap = int(min(b, boost * max(q_tile,
+                                        int(np.ceil(self.fb_frac * b)))))
+        dev = a.device
+        qj = torch.from_numpy(qp).to(dev)
+        qlj = torch.from_numpy(qlp).to(dev)
+        out, out_hi, slot, found, fb, overflow = self._dispatch(
+            qj, qlj, stage, q_tile, fb_cap, bool(queries_sorted),
+            self._fused_width_for(b))
+        if stage != "oracle" and fb_cap < b and overflow:
+            self.stats["oracle_escapes"] += 1
+            self._cap_boost[b] = min(boost * 4, 64)  # sticky escalation
+            self.last_stage = "oracle"  # the stage that actually served
+            out, out_hi, slot, found, fb, _ = self._dispatch(
+                qj, qlj, "oracle", q_tile, fb_cap, bool(queries_sorted), 0)
+        self.stats["calls"] += 1
+        self.stats["fallbacks"] += int(fb)
+        self.stats["buckets"].add(b)
+        return (recombine_i64(out, out_hi, n_q, a.wide),
+                slot[:n_q].cpu().numpy(), found[:n_q].cpu().numpy(),
+                int(fb))

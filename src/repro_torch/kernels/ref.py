@@ -1,0 +1,146 @@
+"""Device oracle stage in plain torch.
+
+Counterpart of ``repro.kernels.ref`` (``lookup_ref``,
+``chain_hit_index``) and of the pair helpers and epilogue in
+``repro.kernels.ops`` (``_ple``, ``_peq``, ``_pair_bisect``,
+``_pair_oracle``, ``_epilogue``).  For each query q:
+
+* ``slot``  — rightmost slot with slot_key <= q (-1 below all keys);
+* ``found`` — slot_key[slot] == q (first-level hit);
+* the epilogue gathers the payload and bisects the slot's CSR chain.
+
+Every compare has an f32 (hi, lo) pair variant for wide keys.  All
+functions run on whatever device their tensors lie on.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["lookup_ref", "chain_hit_index", "pair_oracle", "epilogue"]
+
+
+def _ple(kh, kl, qh, ql):
+    """Lexicographic (hi, lo) <=, elementwise."""
+    return (kh < qh) | ((kh == qh) & (kl <= ql))
+
+
+def _peq(kh, kl, qh, ql):
+    return (kh == qh) & (kl == ql)
+
+
+def _bisect(lo, hi, trips: int, go_at):
+    """Branchless fixed-trip bisect: the rightmost index in [lo, hi]
+    where ``go_at(index)`` holds (lo may start at -1)."""
+    for _ in range(trips):
+        upd = lo < hi
+        mid = (lo + hi + 1) >> 1
+        go = go_at(mid)
+        lo = torch.where(upd & go, mid, lo)
+        hi = torch.where(upd, torch.where(go, hi, mid - 1), hi)
+    return lo
+
+
+def _pair_bisect(kh, kl, qh, ql, lo0, hi0, trips: int):
+    """Rightmost index in [lo0, hi0] with pair(key) <= pair(q)."""
+    m_max = kh.shape[0] - 1
+
+    def go_at(mid):
+        midc = mid.clamp(0, m_max).long()
+        return _ple(kh[midc], kl[midc], qh, ql)
+
+    return _bisect(lo0, hi0, trips, go_at)
+
+
+def pair_oracle(qh, ql, slot_key, slot_key_lo):
+    """Full-array pair search (the wide-key oracle): slot + found."""
+    m_pad = slot_key.shape[0]
+    trips = int(np.ceil(np.log2(max(m_pad, 2)))) + 1
+    lo0 = torch.full(qh.shape, -1, dtype=torch.int32, device=qh.device)
+    hi0 = torch.full(qh.shape, m_pad - 1, dtype=torch.int32,
+                     device=qh.device)
+    slot = _pair_bisect(slot_key, slot_key_lo, qh, ql, lo0, hi0, trips)
+    safe = slot.clamp_min(0).long()
+    found = (slot >= 0) & _peq(slot_key[safe], slot_key_lo[safe], qh, ql)
+    return slot, found
+
+
+def lookup_ref(queries, slot_key):
+    """Narrow-key oracle: full-array searchsorted."""
+    slot = torch.searchsorted(slot_key, queries, right=True,
+                              out_int32=True) - 1
+    safe = slot.clamp_min(0).long()
+    found = (slot >= 0) & (slot_key[safe] == queries)
+    return slot, found
+
+
+def oracle_search(qh, ql, slot_key, slot_key_lo, key_wide: bool):
+    """(slot, found) by the full-array oracle, pair-aware."""
+    if key_wide:
+        return pair_oracle(qh, ql, slot_key, slot_key_lo)
+    return lookup_ref(qh, slot_key)
+
+
+def chain_hit_index(queries, slot, found, link_offsets, link_keys,
+                    max_chain: int, queries_lo=None, link_keys_lo=None):
+    """Index into the CSR link tables of the entry matching q, else -1.
+
+    Per-slot chains are key-sorted, so the scan is a branchless bisect
+    of ``bit_length(max_chain)`` trips over each query's ``[start,
+    end)`` CSR range.  ``queries_lo``/``link_keys_lo`` switch every
+    compare to the f32 hi/lo pair; pass None for narrow keys.
+    """
+    miss = torch.full(queries.shape, -1, dtype=torch.int32,
+                      device=queries.device)
+    if link_keys.shape[0] == 0 or max_chain <= 0:
+        return miss
+    wide = queries_lo is not None and link_keys_lo is not None
+    l_max = link_keys.shape[0] - 1
+    safe_slot = slot.clamp(0, link_offsets.shape[0] - 2).long()
+    start = link_offsets[safe_slot]
+    end = link_offsets[safe_slot + 1]
+    scan = (slot >= 0) & ~found & (end > start)
+
+    def go_at(mid):
+        midc = mid.clamp(0, l_max).long()
+        kh = link_keys[midc]
+        if wide:
+            return _ple(kh, link_keys_lo[midc], queries, queries_lo)
+        return kh <= queries
+
+    lo = _bisect(start - 1, end - 1, int(max_chain).bit_length(), go_at)
+    loc = lo.clamp(0, l_max).long()
+    eq = link_keys[loc] == queries
+    if wide:
+        eq = eq & (link_keys_lo[loc] == queries_lo)
+    hit = scan & (lo >= start) & eq
+    return torch.where(hit, lo, miss)
+
+
+def epilogue(queries, queries_lo, slot, found, a, max_chain: int):
+    """Fused slot->payload gather + CSR chain scan (hi/lo aware) over
+    the frozen ``IndexArrays`` ``a``.
+
+    Returns ``(lo32, hi32, resolved)``; ``hi32`` is zero-length when
+    payloads are narrow, ``resolved`` marks first-level OR chain hits.
+    """
+    safe_slot = slot.clamp(0, a.payload.shape[0] - 1).long()
+    hit = chain_hit_index(
+        queries, slot, found, a.link_offsets, a.link_keys, max_chain,
+        queries_lo=queries_lo if a.key_wide else None,
+        link_keys_lo=a.link_keys_lo if a.key_wide else None)
+    has_links = a.link_keys.shape[0] > 0 and max_chain > 0
+    neg = torch.full_like(slot, -1)
+    out = torch.where(found, a.payload[safe_slot], neg)
+    resolved = found
+    hit_i = hit.clamp_min(0).long()
+    if has_links:
+        out = torch.where(hit >= 0, a.link_payloads[hit_i], out)
+        resolved = found | (hit >= 0)
+    if not a.wide:
+        return out, slot.new_zeros(0), resolved
+    out_hi = torch.where(found, a.payload_hi[safe_slot], neg)
+    if has_links:
+        out_hi = torch.where(hit >= 0, a.link_payload_hi[hit_i], out_hi)
+    return out, out_hi, resolved

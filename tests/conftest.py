@@ -37,3 +37,9 @@ def small_keys():
 @pytest.fixture(scope="session")
 def int_keys():
     return make_keys("uniform_int", 30_000, seed=2)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; the test skips itself "
+        "without one")

@@ -1,0 +1,117 @@
+"""The port's host build and freeze equal the reference's, array for
+array: the verbatim core copies, the copied numpy freeze/sizing
+helpers, and whole builds at sample_rate 1.0 and 0.01 with equal
+seeds.  Inputs are made with numpy from a seed and handed to both."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from repro.core import Index as RefIndex
+from repro.kernels import ops as ref_ops
+from repro_torch.core import Index
+from repro_torch.kernels import bounds, freeze
+
+ROOT = Path(__file__).resolve().parents[1]
+COPIED = ("links", "mechanisms", "sampling", "gaps", "results")
+
+
+@pytest.mark.parametrize("name", COPIED)
+def test_core_copies_are_verbatim(name):
+    ref = (ROOT / "src" / "repro" / "core" / f"{name}.py").read_bytes()
+    port = (ROOT / "src" / "repro_torch" / "core" / f"{name}.py").read_bytes()
+    assert port == ref
+
+
+def _keys(seed, span, n=25_000):
+    rng = np.random.default_rng(seed)
+    return np.unique(rng.choice(span, n, replace=False)).astype(np.float64)
+
+
+def _pair(seed, span, wide_payloads=False, sample_rate=1.0):
+    """The same build in both packages (chains forced by mid inserts)."""
+    keys = _keys(seed, span)
+    pay = ((np.int64(3) << 40) + np.arange(keys.size, dtype=np.int64)
+           if wide_payloads else None)
+    kw = dict(method="pgm", eps=64, gap_rho=0.15, payloads=pay,
+              sample_rate=sample_rate)
+    ref = RefIndex.build(keys, rng=np.random.default_rng(seed), **kw)
+    port = Index.build(keys, rng=np.random.default_rng(seed), device="cpu",
+                       **kw)
+    mids = np.setdiff1d(keys[:-1] + np.rint(np.diff(keys) * 0.5),
+                        keys)[:2000]
+    for idx in (ref, port):
+        idx.gapped.insert_batch(mids, 7_000_000 + np.arange(mids.size))
+    return keys, ref, port
+
+
+CASES = [("narrow", 0, 2 ** 22, False), ("wide", 1, 2 ** 40, False),
+         ("wide_payload", 2, 2 ** 40, True)]
+
+
+def _assert_same_build(ref, port):
+    rg, pg = ref.gapped, port.gapped
+    for f in ("slot_key", "occupied", "payload"):
+        assert np.array_equal(getattr(rg, f), getattr(pg, f)), f
+    for a, b in zip(rg.export_csr_links(), pg.export_csr_links()):
+        assert np.array_equal(a, b)
+    rp, pp = ref.mech.plm, port.mech.plm
+    for f in ("seg_first_key", "slope", "icept", "err_lo", "err_hi"):
+        assert np.array_equal(getattr(rp, f), getattr(pp, f)), f
+    assert rp.n_keys == pp.n_keys
+
+
+@pytest.mark.parametrize("sample_rate", [1.0, 0.01])
+def test_build_equals_reference(sample_rate):
+    _keys_, ref, port = _pair(3, 2 ** 40, sample_rate=sample_rate)
+    _assert_same_build(ref, port)
+
+
+@pytest.mark.parametrize("name,seed,span,wpay", CASES,
+                         ids=[c[0] for c in CASES])
+def test_freeze_helpers_equal_reference(name, seed, span, wpay):
+    keys, ref, port = _pair(seed, span, wide_payloads=wpay)
+    _assert_same_build(ref, port)
+    # split_key_pair on keys, absent queries and non-finite values
+    probe = np.concatenate([keys, keys + 0.5, [np.inf, -np.inf, -3.0]])
+    for a, b in zip(ref_ops.split_key_pair(probe),
+                    freeze.split_key_pair(probe)):
+        assert np.array_equal(a, b)
+    for fn in ("keys_need_pair", "keys_pair_exact", "pair_alias_free"):
+        assert getattr(ref_ops, fn)(keys) == getattr(freeze, fn)(keys)
+    # the padded images, with and without frozen headroom
+    for kw in ({}, {"max_chain": 64, "link_cap": 1 << 14}):
+        ra, rs = ref_ops._freeze_numpy(ref, **kw)
+        pa, ps = freeze._freeze_numpy(port, **kw)
+        assert rs == ps
+        assert ra.keys() == pa.keys()
+        for f in ra:
+            assert ra[f].dtype == pa[f].dtype, f
+            assert np.array_equal(ra[f], pa[f]), f
+    assert ps["key_wide"] == (span > 2 ** 24)
+    assert ps["wide"] == wpay
+    # window bounds, the radix router and the sizing rules
+    rlo, rhi = ref_ops.query_window_bounds(ref)
+    plo, phi = bounds.query_window_bounds(port)
+    assert np.array_equal(rlo, plo) and np.array_equal(rhi, phi)
+    rt, rsc = ref_ops.build_radix_router(ref_ops.from_learned_index(ref))
+    pt, psc = bounds.build_radix_router(freeze.from_learned_index(port,
+                                                                  "cpu"))
+    assert np.array_equal(rt, pt) and np.array_equal(rsc, psc)
+    for fn in ("_bisect_trips", "_flat_width", "_fused_flat_width"):
+        assert getattr(ref_ops, fn)(rlo, rhi) == getattr(bounds, fn)(plo,
+                                                                     phi)
+    for n_q in (1, 512, 4096, 1 << 20):
+        assert (ref_ops.auto_q_tile(n_q, ref.gapped.n_slots, 2048)
+                == bounds.auto_q_tile(n_q, port.gapped.n_slots, 2048))
+
+
+def test_frozen_tensors_equal_numpy_images():
+    _keys_, _ref, port = _pair(4, 2 ** 40)
+    arrays, statics = freeze.freeze_index(port, "cpu")
+    images, _ = freeze._freeze_numpy(port, max_chain=statics["max_chain"],
+                                     link_cap=statics["link_cap"])
+    for f, img in images.items():
+        assert np.array_equal(getattr(arrays, f).numpy(), img), f
+    assert arrays.nbytes() == sum(a.nbytes for a in images.values())

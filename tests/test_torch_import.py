@@ -1,0 +1,78 @@
+"""The port stands alone: ``import repro_torch`` loads neither JAX nor
+the reference package, no port file imports them, and the default
+device is CUDA — without it the entry points raise."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def test_import_loads_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
+        "import repro_torch.convert\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", out.stdout
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[p.relative_to(ROOT).as_posix()
+                              for p in PORT_FILES])
+def test_no_port_file_imports_jax_or_repro(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch import resolve_device
+    from repro_torch.core import Index
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Index.build(np.arange(100, dtype=np.float64), gap_rho=0.1)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
+    """``fused_lookup`` picks the plain version only for CPU tensors:
+    anything else goes to the kernel launch (or raises)."""
+    from repro_torch.kernels import lookup as lk
+    called = []
+    monkeypatch.setattr(lk, "fused_lookup_plain",
+                        lambda *a, **k: called.append("plain"))
+    monkeypatch.setattr(lk, "_launch",
+                        lambda *a, **k: called.append("kernel"))
+    monkeypatch.setattr(lk, "_check", lambda *a, **k: torch.device("cuda"))
+    lk.fused_lookup(*([torch.zeros(1)] * 18), q_tile=32, w_tile=2048,
+                    flat_w=8, max_chain=0, n_slots=10, key_wide=False,
+                    wide=False)
+    assert called == ["kernel"]

@@ -1,0 +1,114 @@
+"""The slice as a whole: the port's ``Index.build`` + ``lookup`` (on the
+CPU) answers exactly as the reference's ``Index.build`` + ``lookup``,
+and a reference index carried across with ``convert.index_from_state``
+answers identically.  Payloads, slots and found are bit-identical."""
+
+import numpy as np
+import pytest
+
+from repro.core import Index as RefIndex
+from repro_torch import convert
+from repro_torch.core import BACKENDS, Index
+
+
+def _mixed(rng, keys, chain_keys, n=3000):
+    present = np.concatenate([rng.choice(keys, int(0.6 * n)),
+                              rng.choice(chain_keys, int(0.1 * n))])
+    absent = np.setdiff1d(np.floor(rng.uniform(keys[0], keys[-1], n)),
+                          keys)[:int(0.25 * n)]
+    out = np.concatenate([keys[0] - 1.0 - rng.integers(0, 1000, 75),
+                          keys[-1] + 1.0 + rng.integers(0, 1000, 75)])
+    return rng.permutation(np.concatenate([present, absent, out]))
+
+
+def _ref_state(ref):
+    """The leaves ``Index.save_snapshot`` writes, plus the PLM arrays in
+    place of the pickled mechanism."""
+    ga = ref.gapped
+    offsets, lkeys, lpays = ga.export_csr_links()
+    plm = ref.mech.plm
+    state = {"keys": ref.keys, "slot_key": ga.slot_key,
+             "occupied": ga.occupied, "payload": ga.payload,
+             "offsets": offsets, "chain_keys": lkeys,
+             "chain_payloads": lpays}
+    state.update({f: getattr(plm, f) for f in convert.PLM_LEAVES})
+    meta = {"method": ref.method, "n_keys": int(ga.n_keys),
+            "rho": float(ga.rho), "epoch": int(ref.epoch),
+            "gap_rho": float(ref.gap_rho),
+            "sample_rate": float(ref.sample_rate),
+            "plm_n_keys": int(plm.n_keys)}
+    return state, meta
+
+
+def _assert_same(a, b):
+    assert np.array_equal(a.payloads, b.payloads)
+    assert np.array_equal(a.slots, b.slots)
+    assert np.array_equal(a.found, b.found)
+
+
+@pytest.mark.parametrize("span,sample_rate", [(2 ** 22, 1.0),
+                                              (2 ** 40, 0.01)])
+def test_index_matches_reference(span, sample_rate):
+    rng = np.random.default_rng(21)
+    keys = np.unique(rng.choice(span, 25_000, replace=False)
+                     ).astype(np.float64)
+    kw = dict(method="pgm", eps=64, gap_rho=0.15, sample_rate=sample_rate)
+    ref = RefIndex.build(keys, rng=np.random.default_rng(7), **kw)
+    port = Index.build(keys, rng=np.random.default_rng(7), device="cpu",
+                       **kw)
+    assert port.epoch == ref.epoch == 0
+    q = _mixed(rng, keys, port.gapped.links.chain_keys)
+    want = ref.lookup(q)
+    got = port.lookup(q)
+    assert got.backend == "fused" and want.backend == "fused"
+    assert got.epoch == 0 and port.device_epoch == 0
+    _assert_same(got, want)
+    assert np.array_equal(got.payloads, port.gapped.lookup_batch(q))
+    # small batches go to the host oracle, as in the reference
+    small = port.lookup(q[:100])
+    assert small.backend == "numpy-oracle"
+    assert np.array_equal(small.payloads, ref.lookup(q[:100]).payloads)
+    # a host mutation moves the epoch; the next lookup refreezes
+    port.gapped.insert_batch(np.array([keys[0] + 0.5]), np.array([42]))
+    assert port.epoch == 1 and port.device_epoch == 0
+    res = port.lookup(np.concatenate([[keys[0] + 0.5], q]))
+    assert res.payloads[0] == 42 and port.device_epoch == 1
+    assert port.stats["refreezes"] == 2
+
+
+def test_index_from_state_answers_identically():
+    rng = np.random.default_rng(22)
+    keys = np.unique(rng.choice(2 ** 40, 20_000, replace=False)
+                     ).astype(np.float64)
+    ref = RefIndex.build(keys, method="pgm", eps=64, gap_rho=0.15,
+                         sample_rate=0.05, rng=np.random.default_rng(3))
+    mids = np.setdiff1d(keys[:-1] + np.rint(np.diff(keys) * 0.5),
+                        keys)[:1500]
+    ref.ingest(mids, 9_000_000 + np.arange(mids.size))
+    state, meta = _ref_state(ref)
+    port = convert.index_from_state(state, meta, device="cpu")
+    assert port.epoch == ref.epoch > 0
+    q = _mixed(rng, keys, ref.gapped.links.chain_keys)
+    _assert_same(port.lookup(q), ref.lookup(q))
+    _assert_same(port.lookup(q, backend="numpy-oracle"),
+                 ref.lookup(q, backend="numpy-oracle"))
+
+
+def test_unported_entry_points_raise_naming_their_item():
+    keys = np.arange(1000, dtype=np.float64)
+    port = Index.build(keys, gap_rho=0.1, device="cpu")
+    assert sorted(BACKENDS) == ["fused", "numpy-oracle"]
+    for call, item in [(lambda: port.lookup(keys, backend="pallas"), "A8"),
+                       (lambda: port.lookup(keys, backend="xla-windowed"),
+                        "A8"),
+                       (lambda: port.ingest(keys, keys), "A5"),
+                       (lambda: port.remove(keys), "A5"),
+                       (lambda: port.retrain(), "A15"),
+                       (lambda: port.mdl(), "A15"),
+                       (lambda: port.save_snapshot("x"), "A9"),
+                       (lambda: Index.build(keys, shards=2, device="cpu"),
+                        "A11"),
+                       (lambda: Index.build(keys, method="auto",
+                                            device="cpu"), "A15")]:
+        with pytest.raises(NotImplementedError, match=item):
+            call()

@@ -1,0 +1,68 @@
+"""The CUDA fused-lookup kernel against its plain torch version on the
+card: identical CUDA inputs, all seven outputs bit for bit.  Marked
+``gpu``: each test skips itself without a CUDA device.  This file
+imports no JAX, so it also runs where only the port is installed:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernel_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import Index
+from repro_torch.kernels import ops
+from repro_torch.kernels.lookup import fused_lookup, fused_lookup_plain
+
+
+def _index(seed, span):
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.choice(span, 25_000, replace=False)
+                     ).astype(np.float64)
+    idx = Index.build(keys, method="pgm", eps=64, gap_rho=0.15,
+                      device="cuda")
+    mids = np.setdiff1d(keys[:-1] + np.rint(np.diff(keys) * 0.5),
+                        keys)[:3000]
+    idx.gapped.insert_batch(mids, 7_000_000 + np.arange(mids.size))
+    miss = np.setdiff1d(np.round(rng.uniform(keys[0], keys[-1], 2000)),
+                        keys)[:800]
+    q = np.concatenate([rng.choice(keys, 2400), mids[:700], miss,
+                        [keys[0] - 10.0, keys[-1] + 10.0]])
+    return idx, rng.permutation(q)
+
+
+CASES = [("narrow_flat", 0, 2 ** 22, None), ("narrow_whole", 1, 2 ** 22, 0),
+         ("wide_flat", 2, 2 ** 40, None), ("wide_whole", 3, 2 ** 40, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,seed,span,flat_w", CASES,
+                         ids=[c[0] for c in CASES])
+def test_kernel_matches_plain_on_the_card(name, seed, span, flat_w):
+    """The CUDA kernel against its plain version on identical CUDA
+    inputs: all seven outputs bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    idx, q = _index(seed, span)
+    eng = idx.sync_device()
+    a = eng.arrays
+    qh, ql = ops.split_queries(np.sort(q), a.key_wide)
+    n_pad = 4096
+    qh = np.concatenate([qh, np.full(n_pad - q.size, np.inf, np.float32)])
+    if a.key_wide:
+        ql = np.concatenate([ql, np.zeros(n_pad - q.size, np.float32)])
+    q_tile = ops.auto_q_tile(n_pad, a.n_slots, eng.w_tile)
+    fw = eng._fused_width_for(n_pad) if flat_w is None else flat_w
+    args = ops.fused_args(torch.from_numpy(qh).cuda(),
+                          torch.from_numpy(ql).cuda(), a, eng._elo,
+                          eng._radix_table, eng._radix_scale,
+                          q_tile=q_tile, w_tile=eng.w_tile)
+    statics = ops.fused_statics(a, q_tile=q_tile, w_tile=eng.w_tile,
+                                flat_w=fw)
+    launches = fused_lookup.launches
+    got = fused_lookup(*args, **statics)
+    want = fused_lookup_plain(*args, **statics)
+    torch.cuda.synchronize()
+    assert fused_lookup.launches == launches + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
