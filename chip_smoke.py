@@ -1,37 +1,77 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--n-keys N] [--seed S]
+    python3 chip_smoke.py [--n-keys N] [--fused-keys N] [--fused-batches B]
+                          [--place-keys N] [--place-batches B] [--seed S]
+                          [--profile]
 
-Drives ``repro_torch``'s main path — build, freeze, batched lookups —
-on the card, and holds the hand-written CUDA kernel against its plain
-torch version.  Prints one JSON line per phase:
+Drives ``repro_torch``'s main paths — build, freeze, batched lookups,
+and the §5.3 write path — on the card, and holds each hand-written CUDA
+kernel against its plain torch version.  Prints one JSON line per
+phase:
 
-1. environment and kernel build (nvcc into build/repro_torch/);
+1. environment and kernel build (one nvcc per source, in parallel, into
+   build/repro_torch/);
 2. ``fused_lookup`` against ``fused_lookup_plain`` on identical CUDA
    inputs, bit for bit in all seven outputs: narrow keys (< 2^24) in
    flat and whole-window mode, wide keys (< 2^40, the f32 hi/lo pair)
    with chains at max_chain in both modes, and int64 payloads;
-3. the main path at real scale: ``Index.build(keys, method="pgm",
+3. the read path at real scale: ``Index.build(keys, method="pgm",
    eps=64, gap_rho=0.15, sample_rate=0.01)`` over 32M unique integer
    keys below 2^40, then lookups of 4,096 and 2^20 queries (about 70%
    present keys, chained keys included, 25% absent keys in range, 5%
    out of range), every answer held against the host oracle
    ``GappedArray.lookup_batch``; the kernel is timed at the main
    path's shapes beside its plain version, its bound and
-   ``torch.searchsorted`` as a partial yardstick.
+   ``torch.searchsorted`` as a partial yardstick;
+4. ``ingest_place`` against ``ingest_place_plain`` on identical CUDA
+   inputs, bit for bit in all four outputs (p, pv, ub, flags): narrow
+   and wide keys, keys next to the longest chain, keys inside the
+   rounding-escape band, keys below the first slot and above the last,
+   +inf padding rows; the escape-patched primitives held against the
+   host oracle ``GappedArray.placement_primitives``;
+5. the fused write path at the largest size the fused gate admits
+   (``n_slots < 2^22``: ``--fused-keys``, 3.6M keys by default): the
+   read-heavy dynamic workload of the paper (w = 0.3,
+   benchmarks/fig11_dynamic.py) — all the keys held out of the build
+   (30% of the drawn keys, ``--fused-batches`` to cut them) inserted in
+   random order in batches of 16,384 and 4,096, with a delete batch and
+   a payload-update batch of 4,096 present keys every 16 insert
+   batches; its fused commit rate is the phase's number.  Then a
+   mechanism test: 8 batches of 4,096 built to pass the fused gate
+   (absent keys one per four gap runs, predicted away from a rounding
+   boundary), which must commit ``fused``.  A lookup of 2^16 mixed
+   queries before the first write, after every 8th batch and at the
+   end, held against the host oracle; the last one of each segment
+   must be served by the kernel (not the oracle stage an overflowed
+   batch goes to).  At the end the ``GappedArray`` state equals a
+   host-only replay of every write on a copy taken before the first;
+6. the two-dispatch write path at the largest size the placement gate
+   admits (``n_slots < 2^24``: ``--place-keys``, 14.5M keys by
+   default): ``--place-batches`` (32) insert batches of 16,384
+   held-out keys, the same lookup checks and host-replay equality; the
+   kernel timed at 16,384 keys beside its plain version, its byte
+   bound and ``torch.searchsorted`` for ``ub`` alone.
 
 Scale: SOSD's key sets (Marcus et al., Benchmarking Learned Indexes,
-VLDB 2020) hold 200M keys; the smoke cuts that to 32M so the host build
-and the host oracle fit the run's time limit.  ``--n-keys`` changes it.
+VLDB 2020) hold 200M keys; the read phase cuts that to 32M so the host
+build and the host oracle fit the run's time limit (``--n-keys``).
+The write phases are sized by the device gates.  Phase 5 inserts all
+of its 1.54M held-out keys; phase 6's traffic is cut by the time limit
+to 32 batches (0.52M of 6.2M held-out keys): at 16.65M slots a batch
+costs about 2 s of host partition and delta diff, and its host replay
+about 1.3 s more, so all 381 batches would take some 20 minutes.
 
-Then the kernels' JSON line, the card's name and power limit as
-nvidia-smi gives them, and last ``{"ok": true, "device": ...}``.  Any
-failure exits nonzero.  Needs CUDA and the repository's ``src/``.
+Each path runs with the kernels' launch counts set to 0 just before it
+and read just after.  Then the kernels' JSON line, the card's name and
+power limit as nvidia-smi gives them, and last ``{"ok": true,
+"device": ...}``.  Any failure exits nonzero.  Needs CUDA and the
+repository's ``src/``.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import subprocess
@@ -90,7 +130,8 @@ def mixed_queries(rng, keys, chain_keys, n, lo_bound):
                               rng.choice(chain_keys, n_chain)
                               if n_chain else np.zeros(0)])
     cand = np.floor(rng.uniform(keys[0], keys[-1], 2 * n_absent))
-    absent = cand[~np.isin(cand, keys)][:n_absent]
+    at = np.minimum(np.searchsorted(keys, cand), keys.size - 1)
+    absent = cand[keys[at] != cand][:n_absent]  # keys are sorted
     below = lo_bound - 1.0 - np.floor(rng.uniform(0, 2.0 ** 20, n_out // 2))
     above = keys[-1] + 1.0 + np.floor(
         rng.uniform(0, 2.0 ** 20, n_out - n_out // 2))
@@ -279,16 +320,15 @@ def fused_ops(statics, n_q) -> int:
     return n_q * (per_q * cmp + 10 + trips * cmp)
 
 
-def profile_lookup(idx, q, smi, calls: int = 3) -> None:
-    """Device time by op over ``calls`` lookups, beside the wall time:
-    the device's busy share of the window and the ops that fill it."""
+def traced(fn, smi, phase, **fields) -> None:
+    """Run ``fn()`` under torch.profiler: the device's busy share of the
+    wall time and the device and host ops that fill it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(calls):
-            idx.lookup(q)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -307,8 +347,8 @@ def profile_lookup(idx, q, smi, calls: int = 3) -> None:
                    for ev in prof.key_averages()
                    if "CUDA" not in str(getattr(ev, "device_type", ""))),
                   reverse=True)
-    emit("main_profile", card=smi, batch=int(q.size), calls=calls,
-         wall_ms=wall_ms, device_busy_ms=busy_ms,
+    emit(phase, card=smi, **fields, wall_ms=wall_ms,
+         device_busy_ms=busy_ms,
          device_idle_share=(1.0 - busy_ms / wall_ms) if wall_ms else None,
          top_device_ops=[{"op": k[:60], "count": c, "ms": u / 1e3}
                          for u, k, c in rows[:10]],
@@ -316,16 +356,30 @@ def profile_lookup(idx, q, smi, calls: int = 3) -> None:
                        for u, k, c in host[:10]])
 
 
+def profile_lookup(idx, q, smi, calls: int = 3) -> None:
+    """Device time by op over ``calls`` lookups, beside the wall time."""
+    def run():
+        for _ in range(calls):
+            idx.lookup(q)
+    traced(run, smi, "main_profile", batch=int(q.size), calls=calls)
+
+
+def draw_keys(rng, n: int) -> np.ndarray:
+    """A Bernoulli draw of n of the integers below 2^40, sorted, made
+    O(n): geometric gaps with mean 2^40 / (1.01 n) sum to about
+    0.99 * 2^40."""
+    gaps = rng.geometric(min(1.0, 1.01 * n / 2 ** 40), n)
+    keys = (np.cumsum(gaps) - 1).astype(np.float64)
+    if keys[-1] >= 2 ** 40:
+        raise AssertionError("key draw ran past 2^40")
+    return keys
+
+
 def phase_main(rng, n_keys, seed, smi, profile=False) -> dict:
     from repro_torch.core import Index
     from repro_torch.kernels.lookup import fused_lookup, fused_lookup_plain
     t0 = time.perf_counter()
-    # a Bernoulli draw of n_keys of the integers below 2^40, made O(n):
-    # geometric gaps with mean 2^40 / (1.01 n) sum to about 0.99 * 2^40
-    gaps = rng.geometric(min(1.0, 1.01 * n_keys / 2 ** 40), n_keys)
-    keys = (np.cumsum(gaps) - 1).astype(np.float64)
-    if keys[-1] >= 2 ** 40:
-        raise AssertionError("key draw ran past 2^40")
+    keys = draw_keys(rng, n_keys)
     gen_s = time.perf_counter() - t0
     idx = Index.build(keys, method="pgm", eps=64, gap_rho=0.15,
                       sample_rate=0.01, rng=np.random.default_rng(seed),
@@ -414,12 +468,579 @@ def phase_main(rng, n_keys, seed, smi, profile=False) -> dict:
             "main": main_stats, "lookup_ms": timing}
 
 
+# ---------------------------------------------------------------------------
+# the write path: the ingest-place kernel, fused and two-dispatch ingest
+# ---------------------------------------------------------------------------
+
+PLACE_NAMES = ("p", "pv", "ub", "flags")
+FUSED_GATE = 1 << 22   # Index._fused_eligible: n_slots < 2^22
+PLACE_GATE = 1 << 24   # Index._device_placements: n_slots < 2^24
+# insert batch sizes: 16,384 is insert_batch's largest chunk
+# (GappedArray.batch_chunk), beyond which the device placements are not
+# used; 4,096 is its smallest
+FUSED_SIZES = (16_384, 4_096)
+PLACE_SIZES = (16_384,)
+
+
+def place_args(a, keys, n_pad: int = 0):
+    """``ingest_place``'s 13 tensor arguments for f64 ``keys`` against
+    the frozen arrays ``a`` (+inf padding rows up to ``n_pad``)."""
+    from repro_torch.kernels.freeze import split_key_pair
+    x_hi, x_lo = split_key_pair(keys)
+    pad = max(0, n_pad - x_hi.size)
+    x_hi = np.concatenate([x_hi, np.full(pad, np.inf, np.float32)])
+    x_lo = np.concatenate([x_lo, np.zeros(pad, np.float32)])
+    return (torch.from_numpy(x_hi).cuda(), torch.from_numpy(x_lo).cuda(),
+            a.seg_first_key, a.seg_first_key_lo, a.seg_slope,
+            a.seg_slope_lo, a.seg_icept, a.seg_icept_lo, a.slot_key,
+            a.slot_key_lo, a.link_offsets, a.link_keys, a.link_keys_lo)
+
+
+def place_vs_plain(name, args, n_slots) -> tuple:
+    """Kernel vs plain version on identical CUDA inputs; raises unless
+    all four outputs are equal.  Returns the kernel's outputs and the
+    largest absolute difference seen (0 when they are equal)."""
+    from repro_torch.kernels.gap_place import (ingest_place,
+                                               ingest_place_plain)
+    got = ingest_place(*args, n_slots=n_slots)
+    want = ingest_place_plain(*args, n_slots=n_slots)
+    torch.cuda.synchronize()
+    err = 0
+    for n, g, w in zip(PLACE_NAMES, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: {n} differs in shape or type")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 f"in {n} ({int((g != w).sum())} rows)")
+    return got, err
+
+
+def escape_band_keys(rng, idx, lo, hi, n):
+    """Absent keys whose f64 prediction lies closest to a .5 rounding
+    boundary (the double-f32 escape band), from 2^20 candidates."""
+    ga = idx.gapped
+    cand = np.unique(np.floor(rng.uniform(lo, hi, 1 << 20)))
+    cand = cand[~np.isin(cand, ga.slot_key)]
+    y = idx.mech.predict(cand)
+    near = np.argsort(np.abs(y - np.floor(y) - 0.5))[:n]
+    return cand[near]
+
+
+def phase_place_cases(rng) -> list:
+    """Phase 4: the ingest-place kernel against its plain version."""
+    rows = []
+    for name, span in (("narrow", 2 ** 24), ("wide", 2 ** 40)):
+        idx, keys = build_case_index(rng, span, 400_000, n_mids=40_000)
+        ga = idx.gapped
+        a = idx.sync_device().arrays
+        chain = longest_chain_keys(ga)
+        live = np.concatenate([ga.slot_key, ga.links.chain_keys])
+        near_chain = np.setdiff1d(np.concatenate([chain - 1.0, chain + 1.0]),
+                                  live)
+        band = escape_band_keys(rng, idx, keys[0], keys[-1], 2048)
+        absent = np.floor(rng.uniform(keys[0], keys[-1], 14_000))
+        edges = np.concatenate([keys[0] - 1.0 - np.arange(64.0),
+                                keys[-1] + 1.0 + np.arange(64.0)])
+        batch = np.concatenate([near_chain, band, absent, edges])
+        n_pad = 1 << int(batch.size - 1).bit_length()
+        got, _err = place_vs_plain(f"place_{name}",
+                                   place_args(a, batch, n_pad), a.n_slots)
+        flags = got[3][:batch.size].cpu().numpy()
+        esc = (flags & 4) != 0
+        # the escape-patched primitives equal the host oracle
+        prims, esc2 = idx._engine.ingest_place(batch)
+        if not np.array_equal(esc, esc2):
+            raise AssertionError(f"place_{name}: wrapper escapes differ")
+        host = ga.placement_primitives(batch)
+        for f, v in prims.items():
+            v[esc] = host[f][esc]
+            if not np.array_equal(v, host[f]):
+                raise AssertionError(f"place_{name}: patched {f} differs "
+                                     "from the host oracle")
+        ub = got[2][:batch.size].cpu().numpy()
+        rows.append({"case": f"place_{name}", "n_keys": int(keys.size),
+                     "batch": int(batch.size), "padded": n_pad,
+                     "key_wide": a.key_wide,
+                     "max_chain_live": int(ga.links.max_chain),
+                     "longest_chain": int(chain.size),
+                     "near_chain_keys": int(near_chain.size),
+                     "escape_band_keys": int(band.size),
+                     "escapes": int(esc.sum()),
+                     "escapes_in_band_keys": int(esc[near_chain.size:
+                                                     near_chain.size
+                                                     + band.size].sum()),
+                     "free": int((flags & 1).sum()),
+                     "bracket": int(((flags & 2) != 0).sum()),
+                     "below_first": int((ub == -1).sum()),
+                     "outputs_equal": 4, "tolerance": TOL,
+                     "patched_equal_host_oracle": True})
+        emit("place_vs_plain", **rows[-1])
+        if not rows[-1]["escapes_in_band_keys"]:
+            raise AssertionError(f"place_{name}: no key in the escape band")
+    return rows
+
+
+def place_bytes(args, got) -> int:
+    """Least bytes one launch moves: the keys in and the four outputs
+    out, plus each distinct table entry the kernel reads for these keys,
+    once: the segment and slot keys its three bisects visit (replayed
+    through ``gap_place._bisect_pair``'s visit hook, from the kernel's
+    own ``p``), the slope and intercept pairs of each routed segment,
+    the slot keys at ``p``, ``p + 1`` and ``pv``, the CSR offsets at
+    ``pv`` and ``pv + 1`` and the chain tail's link key."""
+    from repro_torch.kernels import gap_place as gp
+    (x_hi, x_lo, segk, segkl, slope, slopel, icept, iceptl, sk, skl, off,
+     lk, lkl) = args
+    p, pv = got[0].long(), got[1].long()
+    touched = {"seg": [], "slot": [], "off": [], "link": []}
+
+    def visit(table):
+        return touched[table].append
+
+    segl, sl = gp._lo(segkl, segk), gp._lo(skl, sk)
+    seg = gp._bisect_pair(segk, segl, x_hi, x_lo, gp._trips(segk.shape[0]),
+                          False, visit("seg")).clamp(0, segk.shape[0] - 1)
+    slot_trips = gp._trips(sk.shape[0])
+    gp._bisect_pair(sk, sl, x_hi, x_lo, slot_trips, False, visit("slot"))
+    gp._bisect_pair(sk, sl, sk[p], sl[p], slot_trips, True, visit("slot"))
+    pvs = pv.clamp(min=0)
+    r = p + 1
+    touched["seg"].append(seg)
+    touched["slot"] += [p, r[r < sk.shape[0]], pvs]
+    touched["off"] += [pvs, pvs + 1]
+    if lk.shape[0]:
+        e0 = off[pvs + 1].long()
+        touched["link"].append((e0 - 1).clamp(0, lk.shape[0] - 1))
+    per_entry = {"seg": 8 if segkl.shape[0] else 4,
+                 "slot": 8 if skl.shape[0] else 4, "off": 4,
+                 "link": 8 if lkl.shape[0] else 4}
+    n = x_hi.numel()
+    total = n * 8 + n * 4 * 4          # key pairs in; p, pv, ub, flags out
+    total += int(torch.unique(seg).numel()) * 16   # slope, icept pairs
+    for table, idx in touched.items():
+        if idx:
+            total += (int(torch.unique(torch.cat(idx)).numel())
+                      * per_entry[table])
+    return total
+
+
+def place_ops(args) -> int:
+    """f32 operations per launch: the double-f32 prediction (~45) and
+    three pair compares per bisect trip."""
+    from repro_torch.kernels.gap_place import _trips
+    n = args[0].numel()
+    trips = _trips(args[2].shape[0]) + 2 * _trips(args[8].shape[0])
+    return n * (45 + 3 * trips)
+
+
+def time_place(idx, keys, smi, label) -> dict:
+    """Kernel, plain version, ``torch.searchsorted`` (``ub`` alone) and
+    the byte bound at one batch of ``keys``."""
+    from repro_torch.kernels.gap_place import (ingest_place,
+                                               ingest_place_plain)
+    a = idx.sync_device().arrays
+    args = place_args(a, keys)
+    n_slots = a.n_slots
+    got, err = place_vs_plain(f"timing_{label}", args, n_slots)
+    k_ms = cuda_ms(lambda: ingest_place(*args, n_slots=n_slots))
+    p_ms = cuda_ms(lambda: ingest_place_plain(*args, n_slots=n_slots),
+                   launches=5)
+    sk, xh = args[8], args[0]
+    lib_ms = cuda_ms(lambda: torch.searchsorted(sk, xh, right=True))
+    nbytes = place_bytes(args, got)
+    nops = place_ops(args)
+    t_b, t_o = nbytes / H100_BYTES_PER_S, nops / H100_F32_OPS_PER_S
+    row = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+               bound_ms=max(t_b, t_o) * 1e3,
+               bound_by="bytes" if t_b >= t_o else "operations",
+               bytes=nbytes, ops=nops, batch=int(keys.size),
+               n_slots=int(n_slots), key_wide=a.key_wide, max_abs_err=err)
+    emit("place_timing", card=smi, index=label, **row,
+         library_call="torch.searchsorted(slot_key, x_hi, right=True): "
+                      "ub only, and on the hi half only",
+         kernel_vs_plain=TOL)
+    return row
+
+
+def gated_build(rng, seed, counts, gate, label):
+    """Build over the first key count of ``counts`` whose slot count is
+    under ``gate``; returns ``(index, init keys, held keys)`` with 30%
+    of the drawn keys held out (the w = 0.3 dynamic workload)."""
+    from repro_torch.core import Index
+    for n_init in counts:
+        allk = draw_keys(rng, int(round(n_init / 0.7)))
+        perm = rng.permutation(allk.size)
+        init = np.sort(allk[perm[:n_init]])
+        idx = Index.build(init, method="pgm", eps=64, gap_rho=0.15,
+                          sample_rate=0.01, rng=np.random.default_rng(seed),
+                          device="cuda")
+        emit("write_build", path=label, n_keys=int(n_init),
+             n_slots=int(idx.gapped.n_slots), gate=gate,
+             under_gate=idx.gapped.n_slots < gate,
+             build_seconds=idx.build_seconds)
+        if idx.gapped.n_slots < gate:
+            return idx, init, allk[perm[n_init:]]
+    raise AssertionError(f"{label}: no key count fits n_slots < {gate}")
+
+
+def lookup_check(rng, idx, smi, label, step) -> dict:
+    """2^16 mixed queries on the card, held against the host oracle.
+    The engine serves a batch whose kernel escapes overflow its escape
+    buffer (``fb_cap``) on the device oracle stage and boosts that
+    bucket's buffer for the next call; the check records which stage
+    served, the kernel's escapes and the buffer they met."""
+    from repro_torch.kernels.bounds import auto_q_tile
+    ga = idx.gapped
+    slot_keys = ga.slot_key[ga.occupied]          # sorted
+    q = mixed_queries(rng, slot_keys, ga.links.chain_keys, 1 << 16,
+                      slot_keys[0])
+    eng = idx.sync_device()
+    b = eng.bucket(q.size)
+    q_tile = min(b, auto_q_tile(b, eng.arrays.n_slots, eng.w_tile))
+    fb_cap = int(min(b, eng._cap_boost.get(b, 1)
+                     * max(q_tile, int(np.ceil(eng.fb_frac * b)))))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = idx.lookup(q)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if res.backend not in ("fused", "device-oracle"):
+        raise AssertionError(f"{label}: lookup served by {res.backend!r}")
+    check_against_host(res, ga, q)
+    return {"step": step, "ms": ms, "served_by": res.backend,
+            "kernel_escapes": eng.last_escapes, "fb_cap": fb_cap,
+            "q_tile": q_tile, "fallbacks": res.fallbacks,
+            "oracle_escapes": res.oracle_escapes}
+
+
+def host_replay(ga, ops) -> None:
+    """The same writes on ``ga``, a copy of the GappedArray taken before
+    any write: host placements and host partition only."""
+    for kind, keys, pays in ops:
+        if kind == "ingest":
+            ga.insert_batch(keys, pays)
+        elif kind == "remove":
+            ga.delete_batch(keys)
+        else:
+            ga.update_batch(keys, pays)
+
+
+def assert_same_state(g1, g2, label) -> None:
+    same = (np.array_equal(g1.slot_key, g2.slot_key)
+            and np.array_equal(g1.occupied, g2.occupied)
+            and np.array_equal(g1.payload, g2.payload)
+            and g1.n_keys == g2.n_keys
+            and all(np.array_equal(a, b) for a, b in
+                    zip(g1.export_csr_links(), g2.export_csr_links())))
+    if not same:
+        raise AssertionError(f"{label}: state differs from the host replay")
+
+
+def held_batches(held, sizes, limit):
+    """The held-out keys in order, in at most ``limit`` batches cycling
+    through ``sizes`` (the last one takes what is left)."""
+    pos, b = 0, 0
+    while pos < held.size and b < limit:
+        n = min(sizes[b % len(sizes)], held.size - pos)
+        yield held[pos:pos + n]
+        pos += n
+        b += 1
+
+
+def admissible_batches(rng, idx, n_batches, n):
+    """Batches the fused gate can commit at any index size: absent keys
+    between consecutive occupied slots, at most one per 4 runs (no two
+    rows share a gap run, so no collision group, D1 or D4 demotion), and
+    predicted at least 0.05 from a rounding boundary in f64 (outside the
+    escape band, |band| <= ~0.01 below 2^22 slots).  Built from the
+    state at the time of each batch."""
+    for _ in range(n_batches):
+        ga = idx.gapped
+        occ = np.flatnonzero(ga.occupied)
+        left = occ[1:-2:4]
+        lo, hi = ga.slot_key[left], ga.slot_key[left + 1]
+        mid = np.floor(lo + (hi - lo) * rng.uniform(0.2, 0.8, lo.size))
+        y = idx.mech.predict(mid)
+        frac = y - np.floor(y)
+        ok = (mid > lo) & (mid < hi) & (np.abs(frac - 0.5) > 0.05)
+        ok &= (y > 1.0) & (y < ga.n_slots - 2.0)
+        cand = np.setdiff1d(mid[ok], ga.links.chain_keys)
+        if cand.size < n:
+            raise AssertionError("too few fused-admissible keys")
+        yield rng.permutation(rng.choice(cand, n, replace=False))
+
+
+class Counter:
+    """Payload numbering shared by the segments of one phase."""
+
+    def __init__(self, start):
+        self.next = start
+
+    def take(self, n):
+        out = self.next + np.arange(n, dtype=np.int64)
+        self.next += n
+        return out
+
+
+class HostTimes:
+    """Inclusive host seconds per write-path stage, by wrapping the
+    stage functions for the duration of a ``with`` block."""
+
+    def __init__(self):
+        from repro_torch.core import gaps, handle
+        from repro_torch.kernels import delta, ops
+        self.targets = [
+            (gaps.GappedArray, "insert_batch"),
+            (gaps.GappedArray, "placement_primitives"),
+            (ops.QueryEngine, "fused_ingest"),
+            (ops.QueryEngine, "ingest_place"),
+            (delta, "delta_update"),
+            (delta, "snapshot_sources"),
+            (handle.Index, "refreeze"),
+            (handle.Index, "_refresh_window_bounds"),
+            (handle.Index, "_key_caps_after_batch"),
+        ]
+        self.seconds = {}
+        self.saved = []
+
+    def __enter__(self):
+        for owner, name in self.targets:
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(fn, name))
+        return self
+
+    def _wrap(self, fn, name):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                self.seconds[name] = (self.seconds.get(name, 0.0)
+                                      + time.perf_counter() - t0)
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def run_writes(rng, idx, smi, label, batches, pays, ops, *,
+               churn_every=0, check_every=8, profile=False) -> dict:
+    """Drive the write path over ``batches`` (an iterable of key
+    arrays): ``Index.ingest`` each, with a delete and a payload-update
+    batch of 4,096 present keys every ``churn_every`` insert batches and
+    a lookup check every ``check_every``.  Appends every write to
+    ``ops`` for the host replay; returns the segment's counts."""
+    reports, checks = [], []
+    ms_by = {}
+    n_churn = 0
+    secs = {"ingest": 0.0, "churn": 0.0, "lookup_checks": 0.0}
+    idx.sync_device()
+    torch.cuda.synchronize()
+    stages = HostTimes()
+    t_run = time.perf_counter()
+    with stages:
+        t0 = time.perf_counter()
+        checks.append(lookup_check(rng, idx, smi, label, 0))
+        secs["lookup_checks"] += time.perf_counter() - t0
+        for b, keys in enumerate(batches):
+            n = int(keys.size)
+            pay = pays.take(n)
+            t0 = time.perf_counter()
+            if profile and b in (8, 9):  # a 16,384 and a 4,096 batch
+                box = []
+                traced(lambda: box.append(idx.ingest(keys, pay)), smi,
+                       "write_profile", path=label, batch=n)
+                rep, ms = box[0], None
+            else:
+                rep = idx.ingest(keys, pay)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            secs["ingest"] += time.perf_counter() - t0
+            ops.append(("ingest", keys, pay))
+            reports.append(rep)
+            if ms is not None:
+                ms_by.setdefault(rep.device, []).append(ms)
+            if churn_every and (b + 1) % churn_every == 0:
+                t0 = time.perf_counter()
+                ga = idx.gapped
+                dk = rng.choice(ga.slot_key[ga.occupied], 4096,
+                                replace=False)
+                idx.remove(dk)
+                ops.append(("remove", dk, None))
+                uk = rng.choice(ga.slot_key[ga.occupied], 4096,
+                                replace=False)
+                up = pays.take(4096)
+                idx.update_batch(uk, up)
+                ops.append(("update", uk, up))
+                n_churn += 1
+                secs["churn"] += time.perf_counter() - t0
+            if (b + 1) % check_every == 0:
+                t0 = time.perf_counter()
+                checks.append(lookup_check(rng, idx, smi, label, b + 1))
+                secs["lookup_checks"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checks.append(lookup_check(rng, idx, smi, label, len(reports)))
+        secs["lookup_checks"] += time.perf_counter() - t0
+    if checks[-1]["served_by"] != "fused":
+        raise AssertionError(f"{label}: the last lookup check was served "
+                             f"by {checks[-1]['served_by']!r}, not the "
+                             "kernel")
+    devices, placements = {}, {}
+    for r in reports:
+        devices[r.device] = devices.get(r.device, 0) + 1
+        placements[r.placement] = placements.get(r.placement, 0) + 1
+    aborts = {}
+    for r in reports:
+        for name in r.abort_reasons:
+            aborts[name] = aborts.get(name, 0) + 1
+    out = {
+        "insert_batches": len(reports),
+        "inserted": int(sum(r.n for r in reports)),
+        "delete_batches": n_churn, "update_batches": n_churn,
+        "device": devices, "placement": placements,
+        "batches_with_abort_reason": aborts,
+        "slot": int(sum(r.slot for r in reports)),
+        "chain": int(sum(r.chain for r in reports)),
+        "contested": int(sum(r.contested for r in reports)),
+        "ms_per_batch": {k: {"batches": len(v),
+                             "median": statistics.median(v),
+                             "mean": statistics.fmean(v),
+                             "max": max(v)} for k, v in ms_by.items()},
+        "lookup_checks": len(checks),
+        "lookup_checks_served_by_oracle": sum(
+            c["served_by"] != "fused" for c in checks),
+        "lookup_ms_median": statistics.median(c["ms"] for c in checks),
+        "lookup_fallbacks": sum(c["fallbacks"] for c in checks),
+        "lookup_oracle_escapes": sum(c["oracle_escapes"] for c in checks),
+        "lookup_check_steps": [
+            {k: c[k] for k in ("step", "served_by", "kernel_escapes",
+                               "fb_cap", "q_tile")} for c in checks],
+        "loop_seconds": secs,
+        "host_stage_seconds": stages.seconds,
+        "run_seconds": time.perf_counter() - t_run,
+        "answers_equal_host_oracle": True}
+    emit("write_path", card=smi, path=label,
+         n_slots=int(idx.gapped.n_slots), **out)
+    return out
+
+
+def write_phase(rng, seed, smi, label, counts, gate, segments) -> dict:
+    """Build under ``gate``, reset the launch counts, run the segments
+    (``(name, batches_fn, kwargs)``; ``batches_fn(idx, held)`` gives the
+    batches), read the counts, and hold the final state against a
+    host-only replay of every write from a copy taken before the
+    first."""
+    from repro_torch.kernels.gap_place import ingest_place
+    from repro_torch.kernels.lookup import fused_lookup
+    idx, _init, held = gated_build(rng, seed, counts, gate, label)
+    host_ga = copy.deepcopy(idx.gapped)
+    ops = []
+    pays = Counter(1 << 30)
+    ingest_place.launches = 0
+    fused_lookup.launches = 0
+    segs = {}
+    for name, batches_fn, kw in segments:
+        segs[name] = run_writes(rng, idx, smi, f"{label}/{name}",
+                                batches_fn(idx, held), pays, ops, **kw)
+    launches = {"ingest_place": ingest_place.launches,
+                "fused_lookup": fused_lookup.launches}
+    t0 = time.perf_counter()
+    host_replay(host_ga, ops)
+    assert_same_state(idx.gapped, host_ga, label)
+    res = {"launches": launches, "segments": segs,
+           "n_slots": int(idx.gapped.n_slots), "n_keys": int(idx.keys.size),
+           "writes": len(ops), "refreezes": idx.stats["refreezes"],
+           "delta_updates": idx.stats["delta_updates"],
+           "fused_ingests": idx.stats.get("fused_ingests", 0),
+           "fused_abort_total": idx.stats.get("fused_abort_total", 0),
+           "split_commits": idx.stats.get("split_commits", 0),
+           "ingest_place_escapes": idx.stats.get("ingest_place_escapes", 0),
+           "host_replay_seconds": time.perf_counter() - t0,
+           "state_equals_host_replay": True}
+    emit("write_phase", card=smi, path=label,
+         **{k: v for k, v in res.items() if k != "segments"})
+    res["index"] = idx
+    res["held_left"] = held[sum(s["inserted"] for n, s in segs.items()
+                                if n == "w0.3"):]
+    return res
+
+
+def phase_fused(rng, seed, smi, n_init, n_batches, profile=False) -> dict:
+    """Phase 5: the fused write path under the 2^22 gate — the
+    w = 0.3 traffic (its fused commit rate is the phase's number), then
+    the mechanism test: batches built to pass the gate, which must
+    commit ``fused``."""
+    counts = [n_init] if n_init else [3_600_000, 3_500_000, 3_400_000]
+    res = write_phase(rng, seed, smi, "fused", counts, FUSED_GATE, [
+        ("w0.3",
+         lambda idx, held: held_batches(held, FUSED_SIZES, n_batches),
+         dict(churn_every=16, profile=profile)),
+        ("mechanism",
+         lambda idx, held: admissible_batches(rng, idx, 8, 4096), {}),
+    ])
+    w03 = res["segments"]["w0.3"]
+    committed = sum(w03["device"].get(k, 0) for k in ("fused", "fused+delta"))
+    res["w03_fused_commit_rate"] = committed / w03["insert_batches"]
+    emit("fused_commit_rate", card=smi, traffic="w0.3",
+         fused_commits=committed, insert_batches=w03["insert_batches"],
+         rate=res["w03_fused_commit_rate"],
+         mechanism_test_fused=res["segments"]["mechanism"]["device"].get(
+             "fused", 0))
+    if not res["segments"]["mechanism"]["device"].get("fused"):
+        raise AssertionError("fused: no batch of the mechanism test "
+                             "committed on the fused path")
+    if not res["launches"]["ingest_place"]:
+        raise AssertionError("fused: the path never launched ingest_place")
+    return res
+
+
+def phase_two_dispatch(rng, seed, smi, n_init, n_batches,
+                       profile=False) -> dict:
+    """Phase 6: device placements + delta sync under the 2^24 gate."""
+    counts = [n_init] if n_init else [14_500_000, 14_000_000]
+
+    def batches(idx, held):
+        if idx.gapped.n_slots < FUSED_GATE:
+            raise AssertionError("two_dispatch: the index fits the fused "
+                                 "gate")
+        return held_batches(held, PLACE_SIZES, n_batches)
+
+    res = write_phase(rng, seed, smi, "two_dispatch", counts, PLACE_GATE, [
+        ("w0.3", batches, dict(profile=profile))])
+    seg = res["segments"]["w0.3"]
+    if not seg["device"].get("delta"):
+        raise AssertionError("two_dispatch: no delta sync")
+    if not res["launches"]["ingest_place"]:
+        raise AssertionError("two_dispatch: the path never launched "
+                             "ingest_place")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-keys", type=int, default=32_000_000)
+    ap.add_argument("--fused-keys", type=int, default=0,
+                    help="keys in phase 5's build (default: the largest "
+                         "of 3.6M, 3.5M, 3.4M whose n_slots < 2^22)")
+    ap.add_argument("--fused-batches", type=int, default=0,
+                    help="insert batches of the w = 0.3 traffic in phase 5 "
+                         "(default 0: all of the held-out keys)")
+    ap.add_argument("--place-keys", type=int, default=0,
+                    help="keys in phase 6's build (default: the largest "
+                         "of 14.5M, 14M whose n_slots < 2^24)")
+    ap.add_argument("--place-batches", type=int, default=32,
+                    help="insert batches of 16,384 keys in phase 6")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace three lookups per batch size with "
+                    help="trace three lookups per batch size, and two "
+                         "insert batches of each write path, with "
                          "torch.profiler and print the device-time "
                          "breakdown")
     args = ap.parse_args()
@@ -443,11 +1064,25 @@ def main() -> int:
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          kernel_build_seconds=build_s,
          libraries=[p.name for p in built.values()],
-         ptxas=_build.ptxas_report("fused_lookup").strip().splitlines())
+         ptxas={n: _build.ptxas_report(n).strip().splitlines()
+                for n in _build.SOURCES})
 
     rng = np.random.default_rng(args.seed)
     cases = phase_cases(rng)
     main_res = phase_main(rng, args.n_keys, args.seed, smi, args.profile)
+    place_rows = phase_place_cases(rng)
+    fused_res = phase_fused(rng, args.seed, smi, args.fused_keys,
+                            args.fused_batches or 10 ** 9, args.profile)
+    fused_idx = fused_res.pop("index")
+    lo, hi = fused_idx.keys[0], fused_idx.keys[-1]
+    fused_timing = time_place(
+        fused_idx, np.floor(rng.uniform(lo, hi, 16_384)), smi, "fused")
+    del fused_idx
+    two_res = phase_two_dispatch(rng, args.seed, smi, args.place_keys,
+                                 args.place_batches, args.profile)
+    place_timing = time_place(two_res.pop("index"),
+                              two_res["held_left"][:16_384], smi,
+                              "two_dispatch")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the run")
 
@@ -465,8 +1100,26 @@ def main() -> int:
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": big["library_ms"],
+    }, {
+        "name": "ingest_place",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ingest_place.cu",
+        "replaces": "src/repro/kernels/gap_place.py:618",
+        "launches": (fused_res["launches"]["ingest_place"]
+                     + two_res["launches"]["ingest_place"]),
+        "max_abs_err": place_timing["max_abs_err"],
+        "ms": place_timing["ms"],
+        "plain_ms": place_timing["plain_ms"],
+        "bound_ms": place_timing["bound_ms"],
+        "bound_by": place_timing["bound_by"],
+        "library_ms": place_timing["library_ms"],
     }]
-    emit("summary", card=smi, cases=len(cases), **main_res["main"])
+    emit("summary", card=smi, cases=len(cases), place_cases=len(place_rows),
+         read_path=main_res["main"],
+         fused_write_path=fused_res["launches"],
+         fused_commit_rate_w03=fused_res["w03_fused_commit_rate"],
+         two_dispatch_write_path=two_res["launches"],
+         place_timing_fused_index=fused_timing)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

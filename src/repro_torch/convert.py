@@ -8,7 +8,8 @@
 would unpickle into ``repro`` classes, it takes the piecewise linear
 model as arrays: ``seg_first_key``, ``slope``, ``icept``, ``err_lo``,
 ``err_hi`` (and optionally meta ``plm_n_keys``, the keys the model was
-fit on).
+fit on).  The arrays are copied: the port's index never shares memory
+with the caller's (a live reference index can go on being written).
 """
 
 from __future__ import annotations
@@ -34,21 +35,21 @@ def index_from_state(state: dict, meta: dict, device=None) -> Index:
     if method not in ("pgm", "fiting"):
         raise ValueError(f"method {method!r}: only pgm and fiting predict "
                          "through their piecewise linear model alone")
-    keys = np.asarray(state["keys"], np.float64)
+    keys = np.array(state["keys"], np.float64)
     plm = PiecewiseLinearModel(
-        **{f: np.asarray(state[f], np.float64) for f in PLM_LEAVES},
+        **{f: np.array(state[f], np.float64) for f in PLM_LEAVES},
         n_keys=int(meta.get("plm_n_keys", keys.shape[0])))
     mech = MECHANISMS[method]()
     mech.plm = plm
-    slot_key = np.asarray(state["slot_key"], np.float64)
+    slot_key = np.array(state["slot_key"], np.float64)
     gapped = GappedArray(
         slot_key=slot_key,
-        occupied=np.asarray(state["occupied"], bool),
-        payload=np.asarray(state["payload"], np.int64),
+        occupied=np.array(state["occupied"], bool),
+        payload=np.array(state["payload"], np.int64),
         links=CSRLinks(int(slot_key.shape[0]),
-                       np.asarray(state["offsets"], np.int64),
-                       np.asarray(state["chain_keys"], np.float64),
-                       np.asarray(state["chain_payloads"], np.int64)),
+                       np.array(state["offsets"], np.int64),
+                       np.array(state["chain_keys"], np.float64),
+                       np.array(state["chain_payloads"], np.int64)),
         mech=mech,
         n_keys=int(meta["n_keys"]),
         rho=float(meta["rho"]),

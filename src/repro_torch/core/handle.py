@@ -1,8 +1,10 @@
-"""The port's ``Index`` handle: the read slice of ``repro.core.Index``.
+"""The port's ``Index`` handle: ``repro.core.Index``'s read path and
+its §5.3 write path.
 
 ``Index.build`` runs the host build (§4 sampling, mechanism fit, Eq. 3
-gap insertion — ``gaps.build_gapped``, a copy of the reference's), and
-``lookup`` answers batched point lookups on a backend from the registry:
+gap insertion — ``gaps.build_gapped``, a copy of the reference's);
+``lookup`` answers batched point lookups on a backend from the
+registry:
 
 =============  ======  ==========  =========  ==========================
 name           device  wide keys   min batch  notes
@@ -13,11 +15,22 @@ fused          yes     yes (hi/lo  512        the hand-written CUDA
 numpy-oracle   no      yes (f64)   0          host reference; exact
 =============  ======  ==========  =========  ==========================
 
-Device state is frozen lazily at the host ``epoch`` and refrozen when
-the epoch moves (delta sync is ROADMAP item A4).  The device is ``cuda``
-unless the build is given ``device="cpu"``; without CUDA the default
-raises.  The write path and the other entry points of the reference
-handle raise ``NotImplementedError`` naming their ROADMAP item.
+Writes (``ingest``, ``remove``, the scalar and batch ``insert`` /
+``delete`` / ``update``) mutate the host state and bump ``epoch``.
+When the device state is at the host epoch, ``ingest`` computes the
+batch's placement primitives on the device (the CUDA ingest-place
+kernel, escape rows patched on the host), or runs the whole batch as
+one fused ingest whose output tensors the engine adopts; the device
+then follows by a delta update of the changed elements, or by a full
+refreeze past the policy thresholds or when a frozen capacity no
+longer holds.  The device gates (``n_slots < 2^24`` for device
+placement, ``< 2^22`` for the fused ingest) are the reference's, so the
+reports' ``placement`` and ``device`` labels match it.
+
+The device is ``cuda`` unless the index is given ``device="cpu"``;
+without CUDA the default raises.  The other entry points of the
+reference handle raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -33,7 +46,7 @@ from ..device import resolve_device
 from . import gaps as _gaps
 from . import sampling as _sampling
 from .mechanisms import MECHANISMS
-from .results import LookupResult, host_lookup_result
+from .results import IngestReport, LookupResult, host_lookup_result
 
 __all__ = ["Index", "BackendSpec", "BACKENDS"]
 
@@ -86,18 +99,42 @@ class Index:
     build_seconds: float = 0.0
     learn_seconds: float = 0.0
     mech_kwargs: dict = dataclasses.field(default_factory=dict)
-    device: torch.device = dataclasses.field(
-        default_factory=lambda: torch.device("cpu"))
+    # cuda unless "cpu" is asked for (see device.resolve_device)
+    device: Optional[torch.device] = None
+    # --- device-sync policy knobs -------------------------------------
+    refreeze_contested_frac: float = 0.25
+    refreeze_link_growth: float = 0.10
     min_device_batch: int = 512
+    # single-dispatch fused ingest.  None = on for a cuda engine (the
+    # reference's "on for accelerator engines"), off for a cpu one;
+    # True/False force the arm either way
+    fused_ingest_enabled: Optional[bool] = None
+    # when the fused gate vetoes a batch, retry its longest locally
+    # clean prefix in-graph and replay only the rest on the host path
+    fused_split_commit: bool = True
+    # delta syncs refresh window bounds for touched segments only; past
+    # this fraction of all segments the refresh is skipped
+    refresh_segments_frac: float = 0.25
+    # --- device state (rebuilt lazily) ---------------------------------
     _engine: object = dataclasses.field(default=None, repr=False,
+                                        compare=False)
+    _mirror: object = dataclasses.field(default=None, repr=False,
                                         compare=False)
     _device_epoch: int = dataclasses.field(default=-1, repr=False,
                                            compare=False)
     _keycap_cache: object = dataclasses.field(default=None, repr=False,
                                               compare=False)
+    # mutated key values since the last device sync — feeds the
+    # incremental window-bound refresh
+    _pending_touch: list = dataclasses.field(default_factory=list,
+                                             repr=False, compare=False)
     stats: dict = dataclasses.field(default_factory=lambda: {
-        "refreezes": 0, "lookups": 0, "search_probes": 0,
-        "freeze_seconds": 0.0})
+        "refreezes": 0, "delta_updates": 0, "delta_elems": 0,
+        "lookups": 0, "ingests": 0, "bound_refreshes": 0,
+        "search_probes": 0, "freeze_seconds": 0.0})
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -207,6 +244,63 @@ class Index:
         self._keycap_cache = (self.epoch, wide, exact, indiv)
         return wide, exact
 
+    def _key_caps_after_batch(self, batch: np.ndarray) -> None:
+        """Incremental cap maintenance after an ingest, O(batch log n):
+
+        * all-exact set + per-key pair-exact batch: roll the cache
+          forward directly;
+        * alias-free continuous set: a NEW alias must pair a new key
+          with one of its key-order neighbours, so checking the batch
+          against its bracketing stored keys (slot keys + the
+          bracketing slots' chains) suffices;
+        * anything else leaves the cache stale for a full recompute.
+        """
+        cached = self._keycap_cache
+        if cached is None or not cached[2]:
+            return  # no cache, or already inexact (stays inexact)
+        from ..kernels import freeze as _fz
+        batch = np.asarray(batch, np.float64)
+        wide = cached[1] or _fz.keys_need_pair(batch)
+        if cached[3] and _fz.keys_pair_exact(batch):
+            self._keycap_cache = (self.epoch, wide, True, True)
+            return
+        ga = self.gapped
+        if ga is None:
+            return
+        # a value's predecessor lives on the PREV occupied slot (left
+        # searchsorted - 1) or its chain, its bracketing chain on the
+        # occupied upper bound (right searchsorted - 1); the successor
+        # is that slot's right neighbour's carried key
+        bs = np.unique(batch)
+        m = ga.n_slots
+        jr = np.searchsorted(ga.slot_key, bs, side="right") - 1
+        jl = np.searchsorted(ga.slot_key, bs, side="left") - 1
+        s_chain = np.unique(np.clip(np.concatenate([jl, jr]), 0, m - 1))
+        s_vals = np.unique(np.clip(np.concatenate([jl, jr, jr + 1]),
+                                   0, m - 1))
+        nb = ga.slot_key[s_vals]
+        off, ck, _ = ga.links.csr()
+        starts, ends = off[s_chain], off[s_chain + 1]
+        lens = ends - starts
+        if int(lens.sum()):
+            base = np.repeat(starts, lens)
+            step = np.arange(int(lens.sum())) - np.repeat(
+                np.cumsum(lens) - lens, lens)
+            chain_nb = ck[base + step]
+        else:
+            chain_nb = np.zeros(0, np.float64)
+        cand = np.concatenate([bs, nb[np.isfinite(nb)], chain_nb])
+        exact = _fz.pair_alias_free(np.sort(np.unique(cand)))
+        self._keycap_cache = (self.epoch, wide, bool(exact), False)
+
+    def _roll_caps(self) -> None:
+        """Advance the keycap cache to the current epoch UNCHANGED — for
+        mutations that cannot worsen key capabilities (payload updates;
+        deletes, which can only remove aliasing)."""
+        cached = self._keycap_cache
+        if cached is not None:
+            self._keycap_cache = (self.epoch,) + cached[1:]
+
     def resolve_backend(self, n_queries: int,
                         requested: Optional[str] = None) -> BackendSpec:
         """Pick a backend from the capability registry (see module doc)."""
@@ -247,28 +341,103 @@ class Index:
     # ------------------------------------------------------------------
     def refreeze(self):
         """Full rebuild of the frozen device state (arrays + query-safe
-        window bounds) at the current epoch.  Returns the engine."""
-        from ..kernels.bounds import query_window_bounds
-        from ..kernels.freeze import freeze_index
-        from ..kernels.ops import QueryEngine
+        window bounds + host mirror) at the current epoch.  Returns the
+        engine."""
+        from ..kernels.delta import freeze_state
         t0 = time.perf_counter()
-        arrays, _statics = freeze_index(self, self.device)
-        err_lo, err_hi = query_window_bounds(self)
-        self._engine = QueryEngine(arrays, err_lo, err_hi)
+        self._engine, self._mirror = freeze_state(self, self.device)
         self._device_epoch = self.epoch
+        self._pending_touch = []  # fresh bounds cover everything logged
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats["refreezes"] += 1
         self.stats["freeze_seconds"] = time.perf_counter() - t0
         return self._engine
 
+    def _log_touch(self, keys) -> None:
+        """Record mutated key values for the next delta's incremental
+        window-bound refresh (cleared by any device sync)."""
+        keys = np.atleast_1d(np.asarray(keys, np.float64))
+        if keys.size:
+            self._pending_touch.append(keys)
+            if len(self._pending_touch) > 32:  # bound the log
+                self._pending_touch = [
+                    np.unique(np.concatenate(self._pending_touch))]
+
     def sync_device(self):
-        """Bring the frozen device state to the current epoch now (a
-        full refreeze in this slice; delta sync is ROADMAP item A4).
-        Returns the engine."""
-        if self._engine is None or self._device_epoch != self.epoch:
+        """Bring the frozen device state to the current epoch NOW (delta
+        update when possible, refreeze otherwise).  Returns the
+        engine."""
+        return self._sync_device()
+
+    def _sync_device(self, prefer_delta: bool = True):
+        """Bring the device state to the current epoch (delta if allowed
+        and possible, else refreeze)."""
+        if self._engine is None:
             return self.refreeze()
-        return self._engine
+        if self._device_epoch == self.epoch:
+            return self._engine
+        from ..kernels.delta import delta_update
+        if prefer_delta:
+            new_arrays, n_elems, touched_keys = delta_update(
+                self._engine.arrays, self._mirror, self)
+            if new_arrays is not None:
+                self._engine.swap_arrays(new_arrays)
+                self._device_epoch = self.epoch
+                self.stats["delta_updates"] += 1
+                self.stats["delta_elems"] += n_elems
+                pending = ([np.asarray(touched_keys, np.float64)]
+                           if touched_keys is not None else [])
+                pending += [np.asarray(a, np.float64)
+                            for a in self._pending_touch]
+                self._pending_touch = []
+                self._refresh_window_bounds(
+                    np.concatenate(pending) if pending
+                    else np.zeros(0, np.float64))
+                return self._engine
+        return self.refreeze()
+
+    def _refresh_window_bounds(self, touched_keys) -> None:
+        """Incremental per-segment window-bound refresh after a delta
+        update: only segments whose keys moved (plus their key-order
+        neighbours) recompute.  Near-global churn (more than
+        ``refresh_segments_frac`` of the segments touched) skips it —
+        stale bounds only cost fallbacks, and the refreeze policy
+        catches sustained growth."""
+        eng = self._engine
+        if (eng is None or touched_keys is None
+                or np.asarray(touched_keys).size == 0
+                or self.refresh_segments_frac <= 0):  # refresh disabled
+            return
+        plm = getattr(self.mech, "plm", None)
+        if plm is None:
+            return
+        from ..kernels.bounds import query_window_bounds
+        eng.refresh_rank_rows(touched_keys, self.gapped.slot_key)
+        segs = np.unique(plm.segment_of(np.asarray(touched_keys,
+                                                   np.float64)))
+        # boundary terms reach into the neighbouring segments' key spans
+        segs = np.unique(np.clip(
+            np.concatenate([segs - 1, segs, segs + 1]),
+            0, plm.n_segments - 1))
+        if segs.size > max(8.0, self.refresh_segments_frac
+                           * plm.n_segments):
+            return
+        err_hi_prev = (eng.err_hi if eng.err_hi is not None
+                       else np.zeros_like(eng.err_lo))
+        lo, hi = query_window_bounds(
+            self, segments=segs, base=(eng.err_lo, err_hi_prev))
+        eng.refresh_bounds(lo, hi)
+        self.stats["bound_refreshes"] = (
+            self.stats.get("bound_refreshes", 0) + 1)
+
+    def _link_growth_fraction(self) -> float:
+        """Chained keys added since the last freeze, relative to the
+        index size AT that freeze (a stable denominator)."""
+        if self.gapped is None or self._mirror is None:
+            return 0.0
+        grown = self.gapped.links.total - self._mirror.links_at_freeze
+        return grown / max(self._mirror.n_keys_at_freeze, 1)
 
     def device_bytes(self) -> int:
         """Bytes of the frozen device images (0 before the first
@@ -323,14 +492,394 @@ class Index:
         )
 
     # ------------------------------------------------------------------
+    # writes (§5.3 dynamic ops — need a gapped build)
+    # ------------------------------------------------------------------
+    def _need_gapped(self):
+        if self.gapped is None:
+            raise NotImplementedError(
+                "dynamic ops need gap insertion (build with gap_rho > 0)")
+
+    def _device_placements(self, keys) -> Optional[dict]:
+        """The batch's placement primitives computed on the frozen device
+        arrays (the CUDA ingest-place kernel), escape rows patched from
+        the host oracle in O(#escapes).  None whenever the device cannot
+        serve the batch EXACTLY — device state behind the host epoch, a
+        non-PLM ``predict``, a batch past one partition chunk, keys past
+        per-key pair exactness, or ``n_slots >= 2^24`` — and the host
+        partition runs as before.  A wide set that is only alias-free
+        is certified row by row on the host (``device-verified``)."""
+        if (self._engine is None or self._device_epoch != self.epoch
+                or self.method not in ("pgm", "fiting")
+                or self.gapped is None
+                or keys.shape[0] < self.min_device_batch
+                # past one chunk insert_batch recomputes the later
+                # chunks against mutated state anyway
+                or keys.shape[0] > self.gapped.batch_chunk()
+                or self.gapped.n_slots >= (1 << 24)):
+            return None
+        from ..kernels import freeze as _fz
+        verify = False
+        if self._engine.arrays.key_wide:
+            self._key_caps()  # refresh the cache to this epoch
+            cached = self._keycap_cache
+            if not (cached is not None and cached[0] == self.epoch
+                    and cached[3] and _fz.keys_pair_exact(keys)):
+                if not (cached is not None and cached[0] == self.epoch
+                        and cached[2]):
+                    return None  # aliasing set: only the host is exact
+                verify = True
+        elif _fz.keys_need_pair(keys):
+            return None  # wide batch against a narrow (plain-f32) freeze
+        prims, esc = self._engine.ingest_place(keys)
+        n_esc = int(np.count_nonzero(esc))
+        if n_esc:
+            sub = self.gapped.placement_primitives(keys[esc])
+            for f, v in prims.items():
+                v[esc] = sub[f]
+        self.stats["ingest_place_escapes"] = (
+            self.stats.get("ingest_place_escapes", 0) + n_esc)
+        if verify:
+            bad = self.gapped.verify_placements(keys, prims)
+            n_bad = int(np.count_nonzero(bad))
+            if n_bad:
+                sub = self.gapped.placement_primitives(keys[bad])
+                for f, v in prims.items():
+                    v[bad] = sub[f]
+            self.stats["ingest_place_verify_patched"] = (
+                self.stats.get("ingest_place_verify_patched", 0) + n_bad)
+        self._placement_mode = "device-verified" if verify else "device"
+        return prims
+
+    def _fused_eligible(self, keys, payloads) -> bool:
+        """Gates of the single-dispatch fused ingest: the device-
+        placement gates (verified mode excluded) plus the graph's own —
+        ``n_slots < 2^22``, a non-empty frozen link image for the CSR
+        merge, and payloads within the frozen narrow width."""
+        ga = self.gapped
+        if (self._engine is None or self._device_epoch != self.epoch
+                or self.method not in ("pgm", "fiting") or ga is None
+                or keys.shape[0] < self.min_device_batch
+                or keys.shape[0] > ga.batch_chunk()
+                or ga.n_slots >= (1 << 22)
+                or ga.n_keys == 0):
+            return False
+        arrays = self._engine.arrays
+        if int(arrays.link_keys.shape[0]) == 0:
+            return False
+        from ..kernels import freeze as _fz
+        if not arrays.wide and payloads.size and (
+                int(payloads.min()) < _fz._I32_MIN
+                or int(payloads.max()) > _fz._I32_MAX):
+            return False
+        if arrays.key_wide:
+            self._key_caps()
+            cached = self._keycap_cache
+            if not (cached is not None and cached[0] == self.epoch
+                    and cached[3] and _fz.keys_pair_exact(keys)):
+                return False
+        elif _fz.keys_need_pair(keys):
+            return False
+        return True
+
+    def _fused_dispatch(self, keys, payloads):
+        """Run the fused ingest once; returns ``(prims, ok, state)``.  On
+        an in-graph abort the primitives are escape-patched and handed
+        to the host partition, so an abort never wastes the dispatch."""
+        prims, esc, ok, reasons, state = self._engine.fused_ingest(
+            keys, payloads)
+        self._placement_mode = "device"
+        if ok:
+            return prims, True, state
+        from ..kernels.ops_gap import FUSED_ABORT_BITS
+        ab = self.stats.setdefault("fused_aborts", {})
+        names = [name for i, name in enumerate(FUSED_ABORT_BITS)
+                 if reasons >> i & 1]
+        for name in names:
+            ab[name] = ab.get(name, 0) + 1
+        self._last_abort_reasons = tuple(names)
+        self.stats["fused_abort_total"] = (
+            self.stats.get("fused_abort_total", 0) + 1)
+        # the split-commit arm needs the raw escape rows to pick a prefix
+        self._last_escape_mask = np.asarray(esc, bool)
+        n_esc = int(np.count_nonzero(esc))
+        if n_esc:
+            sub = self.gapped.placement_primitives(keys[esc])
+            for f, v in prims.items():
+                v[esc] = sub[f]
+        self.stats["ingest_place_escapes"] = (
+            self.stats.get("ingest_place_escapes", 0) + n_esc)
+        return prims, False, None
+
+    def _commit_fused(self, keys, payloads, prims, state, t0):
+        """Commit an accepted fused ingest: the host advances through the
+        normal partition fed the SAME primitives (it stays authoritative
+        and bit-identical to sequential ``insert()``); the device
+        advances by ADOPTING the graph's output tensors.  The mirror's
+        sources are advanced and its images marked dirty, so a later
+        host delta rebuilds them first."""
+        from ..kernels.delta import snapshot_sources
+        eng = self._engine
+        cand = np.asarray(prims["free"], bool) & np.asarray(
+            prims["bracket"], bool)
+        counts = self.gapped.insert_batch(keys, payloads, placements=prims)
+        self._key_caps_after_batch(keys)
+        self.stats["ingests"] += 1
+        if (counts["contested"] != 0 or counts["slot"] != state["n_slot"]
+                or counts["chain"] != state["n_chain"]):
+            # unreachable by the closure-trivial acceptance argument; if
+            # it ever fires, distrust the graph image and refreeze
+            self._log_touch(keys)
+            self.refreeze()
+            return IngestReport(
+                n=int(keys.shape[0]), slot=counts["slot"],
+                chain=counts["chain"], contested=counts["contested"],
+                epoch=self.epoch, device="refreeze",
+                seconds=time.perf_counter() - t0, placement="device")
+        # adopt the in-graph refreshed state + catch the host mirrors up
+        err_lo = eng.err_lo
+        err_hi = (eng.err_hi if eng.err_hi is not None
+                  else np.zeros_like(err_lo))
+        seg = state["seg"][cand]
+        dlt = state["dlt"][cand].astype(np.float32)
+        np.minimum.at(err_lo, seg, dlt - np.float32(1.0))
+        np.maximum.at(err_hi, seg, dlt + np.float32(1.0))
+        eng.adopt_fused_state(state, err_lo, err_hi)
+        eng.refresh_rank_rows(keys, self.gapped.slot_key, upload=False)
+        self._device_epoch = self.epoch
+        self._pending_touch = []
+        self._mirror.sources = snapshot_sources(self)
+        self._mirror.images = None  # lazily rebuilt by the next delta
+        self.stats["fused_ingests"] = (
+            self.stats.get("fused_ingests", 0) + 1)
+        device = "fused"
+        if self._link_growth_fraction() > self.refreeze_link_growth:
+            self.refreeze()  # capacity-growth policy still applies
+            device = "refreeze"
+        return IngestReport(
+            n=int(keys.shape[0]), slot=counts["slot"],
+            chain=counts["chain"], contested=0, epoch=self.epoch,
+            device=device, device_elems=0,
+            seconds=time.perf_counter() - t0, placement="device",
+            fused_aborts=self.stats.get("fused_abort_total", 0),
+            split_commits=self.stats.get("split_commits", 0))
+
+    def _split_prefix(self, keys, prims) -> int:
+        """Longest batch prefix with no locally suspect row — the split
+        commit's candidate.  A row is suspect when it carries the escape
+        bit, duplicates another batch key, is a free candidate without a
+        bracket, or shares a gap run (``pv``/``ub``) with another batch
+        row where a free placement is involved.  A heuristic: the second
+        fused dispatch re-runs the full abort gate on the prefix."""
+        n = int(keys.shape[0])
+        free = np.asarray(prims["free"], bool)
+        bracket = np.asarray(prims["bracket"], bool)
+        suspect = free & ~bracket
+        esc = getattr(self, "_last_escape_mask", None)
+        if esc is not None and esc.shape == suspect.shape:
+            suspect |= esc
+        order = np.argsort(keys, kind="stable")
+        ks = keys[order]
+        dup = np.r_[False, ks[1:] == ks[:-1]]
+        dup |= np.r_[dup[1:], False]
+        suspect[order[dup]] = True
+        rid = np.where(free, np.asarray(prims["pv"], np.int64),
+                       np.asarray(prims["ub"], np.int64))
+        uniq, inv, cnt = np.unique(rid, return_inverse=True,
+                                   return_counts=True)
+        free_in_run = np.zeros(uniq.size, bool)
+        np.logical_or.at(free_in_run, inv, free)
+        suspect |= (cnt[inv] > 1) & free_in_run[inv]
+        bad = np.flatnonzero(suspect)
+        # a veto with no locally attributable row: try the front half
+        return int(bad[0]) if bad.size else n // 2
+
+    def _sync_after_host_batch(self, counts, n: int):
+        """Device follow-up of a host-partitioned batch: drop the device
+        state when keys outgrew pair exactness, else delta (or refreeze
+        past the policy thresholds).  Returns ``(label, elems)`` with
+        label "delta", "refreeze", "none" or "" (already current)."""
+        wide, exact = self._key_caps()
+        if wide and not exact:
+            # the device can no longer answer exactly: drop its state;
+            # the registry now routes every lookup to the host
+            self._engine = None
+            self._mirror = None
+            self._device_epoch = -1
+            return "none", 0
+        contested_frac = counts["contested"] / max(n, 1)
+        want_refreeze = (
+            contested_frac > self.refreeze_contested_frac
+            or self._link_growth_fraction() > self.refreeze_link_growth)
+        before = (self.stats["delta_updates"], self.stats["refreezes"],
+                  self.stats["delta_elems"])
+        self._sync_device(prefer_delta=not want_refreeze)
+        if self.stats["delta_updates"] > before[0]:
+            return "delta", self.stats["delta_elems"] - before[2]
+        if self.stats["refreezes"] > before[1]:
+            return "refreeze", 0
+        return "", 0
+
+    def _try_split_commit(self, keys, payloads, prims, t0):
+        """Split commit: commit the longest locally clean prefix with a
+        second fused dispatch and replay only the remainder through the
+        host partition + delta sync.  Returns the merged report for the
+        whole batch, or None when the prefix is too small or its
+        dispatch aborts too (the caller then runs the host partition on
+        the primitives already paid for)."""
+        n = int(keys.shape[0])
+        k = self._split_prefix(keys, prims)
+        if k < max(self.min_device_batch, n // 8) or k >= n:
+            return None
+        pk, pp = keys[:k], payloads[:k]
+        if not self._fused_eligible(pk, pp):
+            return None
+        prims2, _esc2, ok2, _reasons2, state2 = self._engine.fused_ingest(
+            pk, pp)
+        if not ok2:
+            self.stats["split_commit_misses"] = (
+                self.stats.get("split_commit_misses", 0) + 1)
+            return None
+        rep1 = self._commit_fused(pk, pp, prims2, state2, t0)
+        self.stats["split_commits"] = (
+            self.stats.get("split_commits", 0) + 1)
+        # the remainder replays against the post-commit state
+        rk, rp = keys[k:], payloads[k:]
+        rprims = self._device_placements(rk)
+        counts = self.gapped.insert_batch(rk, rp, placements=rprims)
+        self._key_caps_after_batch(rk)
+        self._log_touch(rk)
+        device = rep1.device
+        elems = rep1.device_elems
+        if self._engine is not None:
+            label, more = self._sync_after_host_batch(counts, rk.shape[0])
+            if label == "delta":
+                device = "fused+delta"
+                elems += more
+            elif label:
+                device = label
+        return IngestReport(
+            n=n, slot=rep1.slot + counts["slot"],
+            chain=rep1.chain + counts["chain"],
+            contested=counts["contested"], epoch=self.epoch,
+            device=device, device_elems=elems,
+            seconds=time.perf_counter() - t0, placement="device-split",
+            abort_reasons=getattr(self, "_last_abort_reasons", ()),
+            fused_aborts=self.stats.get("fused_abort_total", 0),
+            split_commits=self.stats.get("split_commits", 0))
+
+    def ingest(self, keys, payloads) -> IngestReport:
+        """Batched insert -> ``IngestReport``.  With the device state at
+        the host epoch, the placements are computed on the device (the
+        CUDA ingest-place kernel; host oracle otherwise), then the device
+        follows by a delta update, or a refreeze past the policy
+        thresholds.  On an eligible engine the whole batch is ONE fused
+        ingest whose outputs the engine adopts (``device == "fused"``);
+        a batch the graph vetoes falls back to the host partition
+        REUSING its primitives, after a split-commit attempt."""
+        self._need_gapped()
+        t0 = time.perf_counter()
+        keys = np.atleast_1d(np.asarray(keys, np.float64))
+        payloads = np.atleast_1d(np.asarray(payloads, np.int64))
+        prims = None
+        placement = "host"
+        self._last_abort_reasons = ()
+        enabled = self.fused_ingest_enabled
+        if enabled is None:  # on for a cuda engine, off for a cpu one
+            enabled = self.device.type == "cuda"
+        if enabled and self._fused_eligible(keys, payloads):
+            prims, ok, state = self._fused_dispatch(keys, payloads)
+            placement = "device"
+            if ok:
+                return self._commit_fused(keys, payloads, prims, state, t0)
+            # a purely capacity-based veto vetoes any same-shaped prefix
+            # too, so only a row-attributable veto tries a split commit
+            cap_only = set(self._last_abort_reasons) <= {
+                "chain_overflow", "link_overflow"}
+            if self.fused_split_commit and not cap_only:
+                rep = self._try_split_commit(keys, payloads, prims, t0)
+                if rep is not None:
+                    return rep
+        if prims is None:
+            prims = self._device_placements(keys)
+            placement = ("host" if prims is None
+                         else getattr(self, "_placement_mode", "device"))
+        counts = self.gapped.insert_batch(keys, payloads, placements=prims)
+        self._key_caps_after_batch(keys)
+        self._log_touch(keys)
+        self.stats["ingests"] += 1
+        device = "none"
+        elems = 0
+        if self._engine is not None:
+            label, elems = self._sync_after_host_batch(counts,
+                                                       keys.shape[0])
+            device = label or "none"
+        return IngestReport(
+            n=int(keys.shape[0]), slot=counts["slot"], chain=counts["chain"],
+            contested=counts["contested"], epoch=self.epoch, device=device,
+            device_elems=elems, seconds=time.perf_counter() - t0,
+            placement=placement,
+            abort_reasons=getattr(self, "_last_abort_reasons", ()),
+            fused_aborts=self.stats.get("fused_abort_total", 0),
+            split_commits=self.stats.get("split_commits", 0))
+
+    def remove(self, keys) -> int:
+        """Batched delete; the device state follows lazily (the next
+        device lookup delta-updates or refreezes as needed)."""
+        self._need_gapped()
+        keys = np.atleast_1d(np.asarray(keys, np.float64))
+        n = self.gapped.delete_batch(keys)
+        self._roll_caps()
+        self._log_touch(keys)
+        return n
+
+    # scalar host ops (thin delegates; epoch bumps via gapped.version)
+    def insert(self, key: float, payload: int) -> str:
+        self._need_gapped()
+        path = self.gapped.insert(key, payload)
+        self._key_caps_after_batch(np.array([key], np.float64))
+        self._log_touch(np.array([key], np.float64))
+        return path
+
+    def insert_batch(self, keys: np.ndarray, payloads: np.ndarray) -> dict:
+        """Raw batched insert returning §5.3 path counts (host only; use
+        ``ingest`` for the typed report + eager device sync)."""
+        self._need_gapped()
+        counts = self.gapped.insert_batch(keys, payloads)
+        self._log_touch(keys)
+        return counts
+
+    def delete(self, key: float) -> bool:
+        self._need_gapped()
+        out = self.gapped.delete(key)
+        self._roll_caps()
+        self._log_touch(np.array([key], np.float64))
+        return out
+
+    def delete_batch(self, keys: np.ndarray) -> int:
+        self._need_gapped()
+        out = self.gapped.delete_batch(keys)
+        self._roll_caps()
+        self._log_touch(np.asarray(keys, np.float64))
+        return out
+
+    def update(self, key: float, payload: int) -> bool:
+        self._need_gapped()
+        out = self.gapped.update(key, payload)
+        self._roll_caps()  # payload-only: key capabilities unchanged
+        return out
+
+    def update_batch(self, keys: np.ndarray, payloads: np.ndarray) -> int:
+        """Batched payload update (ONE epoch bump; payload-only, so the
+        next device sync is a pure payload-scatter delta)."""
+        self._need_gapped()
+        out = self.gapped.update_batch(np.asarray(keys, np.float64),
+                                       np.asarray(payloads, np.int64))
+        self._roll_caps()
+        return out
+
+    # ------------------------------------------------------------------
     # not ported in this slice
     # ------------------------------------------------------------------
-    def ingest(self, keys, payloads):
-        raise _not_ported("Index.ingest", "A5")
-
-    def remove(self, keys):
-        raise _not_ported("Index.remove", "A5")
-
     def retrain(self, *args, **kwargs):
         raise _not_ported("Index.retrain", "A15")
 

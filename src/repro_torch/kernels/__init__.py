@@ -1,12 +1,21 @@
-"""Device half of the port: freeze, window bounds, the lookup engine
-and the hand-written CUDA kernel.
+"""Device half of the port: freeze, window bounds, the lookup engine,
+the write path and the hand-written CUDA kernels.
 
-freeze.py  — padded f32/i32 images (``IndexArrays``) on one device
-bounds.py  — query-safe window bounds, radix router, tile sizing
-ref.py     — the device oracle stage and the epilogue, plain torch
-lookup.py  — ``fused_lookup`` (launches csrc/fused_lookup.cu) and
-             ``fused_lookup_plain`` (the same function in torch ops)
-ops.py     — sort, tile schedule, launch, escape fixup, unsort;
-             ``batched_lookup`` and ``QueryEngine``
-_build.py  — nvcc + ctypes build of csrc/*.cu at first use
+freeze.py     — padded f32/i32 images (``IndexArrays``) on one device
+bounds.py     — query-safe window bounds, radix and rank routers, tile
+                sizing
+ref.py        — the device oracle stage and the epilogue, plain torch
+lookup.py     — ``fused_lookup`` (launches csrc/fused_lookup.cu) and
+                ``fused_lookup_plain`` (the same function in torch ops)
+ops.py        — sort, tile schedule, launch, escape fixup, unsort;
+                ``batched_lookup`` and ``QueryEngine`` (lookups, delta
+                swaps, bound / rank-row refreshes, ingest entry points)
+delta.py      — ``freeze_state`` (engine + host mirror) and
+                ``delta_update`` (only the changed elements move)
+gap_place.py  — ``ingest_place`` (launches csrc/ingest_place.cu) and
+                ``ingest_place_plain``; ``fused_ingest_body``, the
+                single-dispatch ingest graph in torch ops
+ops_gap.py    — the write path's entry points: ``ingest_place`` and
+                ``fused_ingest`` over the frozen arrays
+_build.py     — nvcc + ctypes build of csrc/*.cu at first use
 """

@@ -1,10 +1,12 @@
-"""Window bounds, the radix router and the tile/window sizing rules.
+"""Window bounds, the radix and rank routers and the tile/window sizing
+rules.
 
 numpy copies of ``repro.kernels.ops``' ``query_window_bounds``,
-``build_radix_router``, ``auto_q_tile``, ``_bisect_trips``,
-``_flat_width`` and ``_fused_flat_width``; tests/test_torch_freeze.py
-holds each equal to the reference's.  ``build_radix_router`` reads
-``IndexArrays`` tensors back to the host (its only change).
+``build_radix_router``, ``build_rank_router``, ``auto_q_tile``,
+``_bisect_trips``, ``_flat_width`` and ``_fused_flat_width``;
+tests/test_torch_freeze.py holds each equal to the reference's.
+``build_radix_router`` reads ``IndexArrays`` tensors back to the host
+(its only change).
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ import numpy as np
 
 from .freeze import split_key_pair
 
-__all__ = ["query_window_bounds", "build_radix_router", "auto_q_tile"]
+__all__ = ["query_window_bounds", "build_radix_router", "build_rank_router",
+           "auto_q_tile"]
 
 
 def _host(t) -> np.ndarray:
@@ -49,6 +52,43 @@ def build_radix_router(arrays, r_size: int = 1 << 14):
     ).astype(np.int32)
     kmin_hi, kmin_lo = split_key_pair(np.array([kmin]))
     return table, np.array([kmin_hi[0], kmin_lo[0], scale], np.float32)
+
+
+def build_rank_router(slot_key, slot_key_lo=None, r_bits: int = 16,
+                      trips_pct: float = 99.0):
+    """Bucket -> slot-rank table for the fused XLA search.
+
+    ``table[b]`` is the rank (searchsorted-left) of bucket b's lower key
+    boundary in the frozen slot-key array, so a query hashing to bucket
+    b has its predecessor slot in ``[table[b] - 1, table[b+1] - 1]`` —
+    the whole route/predict/window chain becomes two gathers into one
+    (r_size + 1)-entry table.  Returns ``(table, scale, trips, meta)``:
+    ``scale`` is the f32 [kmin_hi, kmin_lo, scale] device triple,
+    ``trips`` a bisect budget covering the ``trips_pct`` percentile
+    bucket occupancy (denser buckets escape through the bracket
+    validation in ``_fused_search`` — sound, fallback-only), and
+    ``meta`` the f64 (kmin, scale, r_size) used for incremental row
+    refreshes (``QueryEngine.refresh_rank_rows``).
+    """
+    sk = np.asarray(slot_key, np.float64)
+    if slot_key_lo is not None and np.asarray(slot_key_lo).size:
+        sk = sk + np.asarray(slot_key_lo, np.float64)
+    fin = sk[np.isfinite(sk)]
+    kmin = float(fin[0]) if fin.size else 0.0
+    kmax = float(fin[-1]) if fin.size else kmin + 1.0
+    r_size = 1 << r_bits
+    scale = r_size / max(kmax - kmin, 1e-9)
+    bounds = kmin + np.arange(r_size + 1, dtype=np.float64) / scale
+    table = np.searchsorted(sk, bounds, side="left").astype(np.int32)
+    # top boundary: include every slot <= kmax (duplicated max keys)
+    table[-1] = np.searchsorted(sk, kmax, side="right")
+    occ = (table[1:] - table[:-1]).astype(np.float64)
+    p = float(np.percentile(occ, trips_pct)) if occ.size else 1.0
+    trips = int(max(1, np.ceil(np.log2(p + 3.0)) + 1))
+    trips = min(trips, int(np.ceil(np.log2(max(sk.shape[0], 2)))) + 1)
+    kmin_hi, kmin_lo = split_key_pair(np.array([kmin]))
+    return (table, np.array([kmin_hi[0], kmin_lo[0], scale], np.float32),
+            trips, (kmin, scale, r_size))
 
 
 def query_window_bounds(index, max_widen: float = 32.0, segments=None,

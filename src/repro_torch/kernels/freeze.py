@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["IndexArrays", "freeze_index", "keys_need_pair",
+__all__ = ["IndexArrays", "freeze_numpy_headroom", "keys_need_pair",
            "keys_pair_exact", "pair_alias_free", "split_key_pair"]
 
 _I32_MIN = np.iinfo(np.int32).min
@@ -277,18 +277,18 @@ def _round_pow2(n: int) -> int:
     return 1 << max(0, int(n - 1).bit_length())
 
 
-def freeze_index(index, device, *, w_tile: int = 2048, seg_chunk: int = 512,
-                 chain_headroom: int = 2, link_headroom: float = 2.0):
-    """The freeze half of the reference's ``freeze_state``: capacities
-    frozen WITH headroom (max chain x``chain_headroom``, link storage
-    x``link_headroom``, power of two).  Returns ``(IndexArrays,
-    statics)``."""
+def freeze_numpy_headroom(index, *, w_tile: int = 2048, seg_chunk: int = 512,
+                          chain_headroom: int = 2,
+                          link_headroom: float = 2.0):
+    """The freeze half of the reference's ``freeze_state``:
+    ``_freeze_numpy`` with capacities frozen WITH headroom (max chain
+    x``chain_headroom``, link storage x``link_headroom``, power of two)
+    so later delta updates keep the shapes.  Returns ``(numpy arrays,
+    statics)``; ``delta.freeze_state`` uploads them."""
     ga = getattr(index, "gapped", None)
     chain = ga.links.max_chain if ga is not None else 0
     total = ga.links.total if ga is not None else 0
     max_chain = max(4, chain_headroom * max(chain, 1))
     link_cap = _round_pow2(max(64, int(link_headroom * max(total, 1))))
-    np_arrays, statics = _freeze_numpy(
-        index, w_tile=w_tile, seg_chunk=seg_chunk, max_chain=max_chain,
-        link_cap=link_cap)
-    return to_device(np_arrays, statics, device), statics
+    return _freeze_numpy(index, w_tile=w_tile, seg_chunk=seg_chunk,
+                         max_chain=max_chain, link_cap=link_cap)

@@ -2,8 +2,10 @@
 
 Counterpart of the ``"fused-pallas"`` and ``"oracle"`` stages of
 ``repro.kernels.ops._pipeline``, of ``_route_segment`` (radix form),
-``_fused_fixup`` and ``batched_lookup``, and of the lookup side of
-``QueryEngine``.  One batch on the fused stage is:
+``_fused_fixup`` and ``batched_lookup``, and of ``QueryEngine`` (its
+lookup side, and its write side: delta swaps, bound and rank-row
+refreshes, ingest placement and the fused ingest).  One batch on the
+fused stage is:
 
     sort -> radix route + window base per query -> tile schedule
     (``tile_block``) -> ONE kernel launch -> fixup of the escaped
@@ -18,6 +20,7 @@ a sticky per-bucket capacity boost).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -25,7 +28,8 @@ import torch
 
 from ..device import resolve_device
 from .bounds import (_flat_width, _fused_flat_width, auto_q_tile,
-                     build_radix_router, query_window_bounds)
+                     build_radix_router, build_rank_router,
+                     query_window_bounds)
 from .freeze import IndexArrays, _pad_pow, split_key_pair
 from .lookup import _clip, _slot_clip_hi, fused_lookup, route_segment
 from .ref import epilogue, oracle_search
@@ -232,7 +236,9 @@ class QueryEngine:
 
     ``stats`` counts calls, fallbacks (escapes the fixup re-resolved)
     and oracle escapes (overflowed batches re-run on the oracle stage);
-    ``last_stage`` names the stage that served the last call.
+    ``last_stage`` names the stage that served the last call and
+    ``last_escapes`` the escapes its first stage flagged (more than
+    ``fb_cap`` when the call overflowed to the oracle stage).
     """
 
     def __init__(self, arrays: IndexArrays, err_lo_by_seg,
@@ -251,18 +257,31 @@ class QueryEngine:
         err_hi_np = (np.zeros_like(self.err_lo) if self.err_hi is None
                      else self.err_hi)
         dev = arrays.device
-        k_pad = int(arrays.seg_first_key.shape[0])
-        self._elo = _pad_bounds(self.err_lo, k_pad, dev)
+        self._upload_bounds(self.err_lo, err_hi_np)
         self._flat_w = _flat_width(self.err_lo, err_hi_np)
         self._fused_flat_w = _fused_flat_width(self.err_lo, err_hi_np)
         table, scale = build_radix_router(arrays)
         self._radix_table = torch.from_numpy(table).to(dev)
         self._radix_scale = torch.from_numpy(scale).to(dev)
+        # bucket -> slot-rank table of the reference's fused-XLA lookup
+        # (ROADMAP A14).  The port's lookups do not read it; it is kept
+        # because the fused ingest graph refreshes it in-graph and
+        # returns it as gated state, and delta syncs refresh its rows,
+        # exactly as the reference's engine does
+        self._rank_np, rk_scale, _trips, self._rank_meta = \
+            build_rank_router(
+                arrays.slot_key.cpu().numpy(),
+                arrays.slot_key_lo.cpu().numpy() if arrays.key_wide
+                else None)
+        self._rank_table = torch.from_numpy(self._rank_np.copy()).to(dev)
+        self._rank_scale = torch.from_numpy(rk_scale).to(dev)
+        self._rank_bounds_pair = None
         # sticky per-bucket escape-capacity boost: a workload that once
         # overflowed gets a larger buffer next time instead of paying
         # the oracle re-dispatch on every call
         self._cap_boost: dict = {}
         self.last_stage: Optional[str] = None
+        self.last_escapes = 0
         self.stats = {"calls": 0, "fallbacks": 0, "oracle_escapes": 0,
                       "buckets": set()}
 
@@ -278,6 +297,122 @@ class QueryEngine:
                                     max_chain=max_chain)
         err_lo, err_hi = query_window_bounds(index)
         return cls(arrays, err_lo, err_hi, w_tile=w_tile, **kwargs)
+
+    def swap_arrays(self, arrays: IndexArrays) -> None:
+        """Adopt delta-updated tensors (same shapes and statics)."""
+        self.arrays = arrays
+
+    def _upload_bounds(self, err_lo: np.ndarray, err_hi: np.ndarray):
+        k_pad = int(self.arrays.seg_first_key.shape[0])
+        dev = self.arrays.device
+        self._elo = _pad_bounds(err_lo, k_pad, dev)
+        self._ehi = _pad_bounds(err_hi, k_pad, dev)
+
+    def _set_bound_statics(self, err_lo, err_hi) -> None:
+        self.err_lo = np.asarray(err_lo, np.float32)
+        self.err_hi = np.asarray(err_hi, np.float32)
+        self._flat_w = _flat_width(self.err_lo, self.err_hi)
+        self._fused_flat_w = _fused_flat_width(self.err_lo, self.err_hi)
+
+    def refresh_bounds(self, err_lo, err_hi) -> None:
+        """Adopt incrementally refreshed per-segment window bounds after
+        a delta update (same K), re-uploading the resident copies and
+        re-deriving the flat widths from them."""
+        self._set_bound_statics(err_lo, err_hi)
+        self._upload_bounds(self.err_lo, self.err_hi)
+
+    def refresh_rank_rows(self, touched_keys, slot_key, slot_key_lo=None,
+                          upload=True):
+        """Refresh the rank table's rows for the buckets covering the
+        touched key values against the CURRENT (host) slot keys.  A
+        stale row is sound in the reference's fused-XLA search (its
+        bracket validation turns it into fallbacks), so near-global
+        churn skips the refresh.  ``upload=False`` refreshes only the
+        host copy: the fused ingest already wrote the device table."""
+        touched = np.asarray(touched_keys, np.float64)
+        kmin, scale, r_size = self._rank_meta
+        if touched.size == 0 or touched.size > r_size // 4:
+            return
+        touched = touched[np.isfinite(touched)]
+        if touched.size == 0:
+            return
+        b = np.clip((touched - kmin) * scale, 0, r_size - 1).astype(np.int64)
+        # one row of margin each side: the representation rounding below
+        # can move a key across a bucket boundary
+        rows = np.unique(np.clip(np.concatenate([b - 1, b, b + 1]),
+                                 0, r_size))
+        sk = np.asarray(slot_key, np.float64)
+        if slot_key_lo is not None and np.asarray(slot_key_lo).size:
+            sk = sk + np.asarray(slot_key_lo, np.float64)
+        # round into the FROZEN device key representation, which the
+        # table was built from
+        if self.arrays.key_wide:
+            sk_hi, sk_lo = split_key_pair(sk)
+            sk = sk_hi.astype(np.float64) + sk_lo.astype(np.float64)
+        else:
+            sk = sk.astype(np.float32).astype(np.float64)
+        bounds = kmin + rows.astype(np.float64) / scale
+        vals = np.searchsorted(sk, bounds, side="left").astype(np.int32)
+        top = rows == r_size
+        if np.any(top):  # top boundary includes duplicated max keys
+            fin = sk[np.isfinite(sk)]
+            kmax = float(fin[-1]) if fin.size else kmin
+            vals[top] = np.searchsorted(sk, kmax, side="right")
+        self._rank_np[rows] = vals
+        if upload:
+            self._rank_table = torch.from_numpy(self._rank_np.copy()).to(
+                self.arrays.device)
+
+    def _rank_bounds(self):
+        """Device f32-pair bucket-boundary keys for the fused ingest's
+        in-graph rank-row refresh (built once per engine)."""
+        if self._rank_bounds_pair is None:
+            kmin, scale, r_size = self._rank_meta
+            bounds = kmin + np.arange(int(r_size) + 1,
+                                      dtype=np.float64) / scale
+            bh, bl = split_key_pair(bounds)
+            dev = self.arrays.device
+            self._rank_bounds_pair = (torch.from_numpy(bh).to(dev),
+                                      torch.from_numpy(bl).to(dev))
+        return self._rank_bounds_pair
+
+    def ingest_place(self, keys):
+        """Per-key §5.3 placement primitives against the frozen arrays,
+        with the escape mask (``ops_gap.ingest_place``): the CUDA
+        kernel on the card, its plain version on the CPU."""
+        from .ops_gap import ingest_place as _place
+        return _place(self.arrays, keys)
+
+    def fused_ingest(self, keys, payloads):
+        """The single-dispatch ingest against the frozen arrays
+        (``ops_gap.fused_ingest``): ``(prims, escape, ok, reasons,
+        state)``; on ``ok`` the caller commits ``state`` with
+        ``adopt_fused_state``."""
+        from .ops_gap import fused_ingest as _fused
+        bh, bl = self._rank_bounds()
+        return _fused(
+            self.arrays, keys, payloads, rank_table=self._rank_table,
+            rank_bounds_hi=bh, rank_bounds_lo=bl,
+            rank_scale=self._rank_scale, elo=self._elo, ehi=self._ehi,
+            max_chain=self.arrays.max_chain, min_bucket=self.min_bucket)
+
+    def adopt_fused_state(self, state: dict, err_lo=None,
+                          err_hi=None) -> None:
+        """Install the fused ingest's output tensors (same shapes and
+        statics), with the in-graph refreshed rank table and window
+        bounds.  Fields whose frozen image is zero-length stay so.
+        ``err_lo``/``err_hi`` are the caller-updated host bound mirrors;
+        the flat widths are re-derived from them (the device copies
+        were written in-graph)."""
+        from .delta import DELTA_FIELDS
+        updates = {f: state[f] for f in DELTA_FIELDS
+                   if int(getattr(self.arrays, f).shape[0])}
+        self.arrays = dataclasses.replace(self.arrays, **updates)
+        self._rank_table = state["rank_table"]
+        self._elo = state["elo"]
+        self._ehi = state["ehi"]
+        if err_lo is not None:
+            self._set_bound_statics(err_lo, err_hi)
 
     def bucket(self, n: int) -> int:
         b = self.min_bucket
@@ -331,6 +466,7 @@ class QueryEngine:
         out, out_hi, slot, found, fb, overflow = self._dispatch(
             qj, qlj, stage, q_tile, fb_cap, bool(queries_sorted),
             self._fused_width_for(b))
+        self.last_escapes = int(fb)
         if stage != "oracle" and fb_cap < b and overflow:
             self.stats["oracle_escapes"] += 1
             self._cap_boost[b] = min(boost * 4, 64)  # sticky escalation

@@ -1,0 +1,131 @@
+"""The §5.3 write path's device entry points: per-key placement
+primitives and the single-dispatch fused ingest.
+
+Counterpart of the ingest half of ``repro.kernels.ops_gap``
+(``ingest_place``, ``FUSED_ABORT_BITS``, ``fused_ingest``).  Both take
+the frozen ``IndexArrays`` and host f64 keys, run on the index's
+device through ``gap_place`` (the CUDA kernel on the card, its plain
+version on the CPU), and hand the host numpy results back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .freeze import _split_i64, split_key_pair
+from .gap_place import fused_ingest_body, ingest_place as _place, split_flags
+
+__all__ = ["ingest_place", "fused_ingest", "FUSED_ABORT_BITS"]
+
+# abort-reason bit names (the graph's ``reasons`` bitmask), for stats
+FUSED_ABORT_BITS = (
+    "escape", "dup_batch", "collision_group", "slot_dup", "contested",
+    "d1_demote", "d4_demote", "chain_overflow", "link_overflow",
+    "chain_dup",
+)
+
+
+def _prims(p, pv, ub, free, bracket, n_b: int) -> dict:
+    """Writable host copies (the caller patches escape rows in place)."""
+    host = lambda t: t[:n_b].cpu().numpy()  # noqa: E731
+    return {"p": host(p).astype(np.int64),
+            "free": np.array(host(free), dtype=bool),
+            "pv": host(pv).astype(np.int64),
+            "ub": host(ub).astype(np.int64),
+            "bracket": np.array(host(bracket), dtype=bool)}
+
+
+def ingest_place(arrays, keys):
+    """Per-key placement primitives of an insert batch against the
+    frozen arrays: ``(primitives, escape)``, where ``primitives`` is the
+    numpy dict ``GappedArray.insert_batch`` consumes (``p`` / ``free`` /
+    ``pv`` / ``ub`` / ``bracket``, the contract of the host oracle
+    ``GappedArray.placement_primitives``) and ``escape`` flags the keys
+    whose double-f32 prediction landed in the rounding-band guard (the
+    caller re-derives those rows on the host).
+
+    Exactness needs every stored and batch key pair-exact (the ``Index``
+    handle gates on it); narrow indexes pass zero-length lo tables.
+    """
+    keys = np.asarray(keys, np.float64)
+    x_hi, x_lo = split_key_pair(keys)
+    a = arrays
+    dev = a.device
+    link_hi, link_lo = a.link_keys, a.link_keys_lo
+    if int(link_hi.shape[0]) == 0:  # a non-empty chain table to read
+        link_hi = torch.full((1,), float("inf"), device=dev)
+        link_lo = torch.zeros(1 if a.key_wide else 0, device=dev)
+    p, pv, ub, flags = _place(
+        torch.from_numpy(x_hi).to(dev), torch.from_numpy(x_lo).to(dev),
+        a.seg_first_key, a.seg_first_key_lo, a.seg_slope, a.seg_slope_lo,
+        a.seg_icept, a.seg_icept_lo, a.slot_key, a.slot_key_lo,
+        a.link_offsets, link_hi, link_lo, n_slots=a.n_slots)
+    free, bracket, escape = split_flags(flags)
+    n_b = keys.shape[0]
+    return (_prims(p, pv, ub, free, bracket, n_b),
+            np.array(escape.cpu().numpy(), dtype=bool))
+
+
+def fused_ingest(arrays, keys, payloads, *, rank_table, rank_bounds_hi,
+                 rank_bounds_lo, rank_scale, elo, ehi, max_chain,
+                 min_bucket: int = 256):
+    """Single-dispatch ingest: pads the batch to a power-of-two bucket
+    (+inf keys, -1 payloads), runs ``fused_ingest_body`` and returns
+    ``(prims, escape, ok, reasons, state)``:
+
+    * ``prims`` / ``escape`` — the ``ingest_place`` contract, valid
+      whether or not the graph committed;
+    * ``ok`` — the graph produced the post-batch images; ``reasons`` is
+      the abort bitmask (``FUSED_ABORT_BITS``);
+    * ``state`` — the new device tensors (slot / payload / link images,
+      rank table, window bounds), the slot and chain counts, and the
+      host ``seg`` / ``dlt`` residuals for the caller's bound mirrors.
+    """
+    keys = np.asarray(keys, np.float64)
+    payloads = np.asarray(payloads, np.int64)
+    n_b = keys.shape[0]
+    bucket = max(min_bucket, 1 << max(n_b - 1, 1).bit_length())
+    pad = bucket - n_b
+    x_hi, x_lo = split_key_pair(keys)
+    x_hi = np.concatenate([x_hi, np.full(pad, np.inf, np.float32)])
+    x_lo = np.concatenate([x_lo, np.zeros(pad, np.float32)])
+    p_lo, p_hi = _split_i64(payloads)
+    p_lo = np.concatenate([p_lo, np.full(pad, -1, np.int32)])
+    p_hi = np.concatenate([p_hi, np.full(pad, -1, np.int32)])
+
+    a = arrays
+    dev = a.device
+    zeros = torch.zeros_like
+    segk_lo = a.seg_first_key_lo if a.key_wide else zeros(a.seg_first_key)
+    slot_lo = a.slot_key_lo if a.key_wide else zeros(a.slot_key)
+    link_lo = a.link_keys_lo if a.key_wide else zeros(a.link_keys)
+    spay_hi = a.payload_hi if a.wide else zeros(a.payload)
+    lpay_hi = a.link_payload_hi if a.wide else zeros(a.link_payloads)
+    up = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+
+    outs = fused_ingest_body(
+        up(x_hi), up(x_lo), up(p_lo), up(p_hi), a.seg_first_key, segk_lo,
+        a.seg_slope, a.seg_slope_lo, a.seg_icept, a.seg_icept_lo,
+        a.slot_key, slot_lo, a.payload, spay_hi, a.link_offsets,
+        a.link_keys, link_lo, a.link_payloads, lpay_hi, rank_table,
+        rank_bounds_hi, rank_bounds_lo, rank_scale, elo, ehi,
+        n_slots=a.n_slots, max_chain=int(max_chain), key_wide=a.key_wide)
+    (p, pv, ub, free, bracket, escape, ok, reasons, n_slot, n_chain,
+     seg, dlt) = outs[:12]
+    (slot_key, slot_key_lo, payload, payload_hi, link_offsets, link_keys,
+     link_keys_lo, link_payloads, link_payload_hi, new_rank, new_elo,
+     new_ehi) = outs[12:]
+    state = {
+        "slot_key": slot_key, "slot_key_lo": slot_key_lo,
+        "payload": payload, "payload_hi": payload_hi,
+        "link_offsets": link_offsets, "link_keys": link_keys,
+        "link_keys_lo": link_keys_lo, "link_payloads": link_payloads,
+        "link_payload_hi": link_payload_hi, "rank_table": new_rank,
+        "elo": new_elo, "ehi": new_ehi,
+        "n_slot": n_slot, "n_chain": n_chain,
+        "seg": seg[:n_b].cpu().numpy(), "dlt": dlt[:n_b].cpu().numpy(),
+    }
+    return (_prims(p, pv, ub, free, bracket, n_b),
+            np.array(escape[:n_b].cpu().numpy(), dtype=bool),
+            bool(ok), int(reasons), state)

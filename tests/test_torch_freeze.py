@@ -11,7 +11,7 @@ import pytest
 from repro.core import Index as RefIndex
 from repro.kernels import ops as ref_ops
 from repro_torch.core import Index
-from repro_torch.kernels import bounds, freeze
+from repro_torch.kernels import bounds, delta, freeze
 
 ROOT = Path(__file__).resolve().parents[1]
 COPIED = ("links", "mechanisms", "sampling", "gaps", "results")
@@ -99,6 +99,14 @@ def test_freeze_helpers_equal_reference(name, seed, span, wpay):
     pt, psc = bounds.build_radix_router(freeze.from_learned_index(port,
                                                                   "cpu"))
     assert np.array_equal(rt, pt) and np.array_equal(rsc, psc)
+    ra = ref_ops.from_learned_index(ref)
+    r_rank = ref_ops.build_rank_router(
+        np.asarray(ra.slot_key),
+        np.asarray(ra.slot_key_lo) if ra.key_wide else None)
+    p_rank = bounds.build_rank_router(
+        ra.slot_key, ra.slot_key_lo if ra.key_wide else None)
+    for a, b in zip(r_rank, p_rank):
+        assert np.array_equal(a, b)
     for fn in ("_bisect_trips", "_flat_width", "_fused_flat_width"):
         assert getattr(ref_ops, fn)(rlo, rhi) == getattr(bounds, fn)(plo,
                                                                      phi)
@@ -109,7 +117,8 @@ def test_freeze_helpers_equal_reference(name, seed, span, wpay):
 
 def test_frozen_tensors_equal_numpy_images():
     _keys_, _ref, port = _pair(4, 2 ** 40)
-    arrays, statics = freeze.freeze_index(port, "cpu")
+    engine, mirror = delta.freeze_state(port, "cpu")
+    arrays, statics = engine.arrays, mirror.statics
     images, _ = freeze._freeze_numpy(port, max_chain=statics["max_chain"],
                                      link_cap=statics["link_cap"])
     for f, img in images.items():

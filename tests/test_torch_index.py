@@ -5,6 +5,7 @@ answers identically.  Payloads, slots and found are bit-identical."""
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import Index as RefIndex
 from repro_torch import convert
@@ -68,12 +69,14 @@ def test_index_matches_reference(span, sample_rate):
     small = port.lookup(q[:100])
     assert small.backend == "numpy-oracle"
     assert np.array_equal(small.payloads, ref.lookup(q[:100]).payloads)
-    # a host mutation moves the epoch; the next lookup refreezes
+    # a host mutation moves the epoch; the next lookup brings the device
+    # forward by a delta update
     port.gapped.insert_batch(np.array([keys[0] + 0.5]), np.array([42]))
     assert port.epoch == 1 and port.device_epoch == 0
     res = port.lookup(np.concatenate([[keys[0] + 0.5], q]))
     assert res.payloads[0] == 42 and port.device_epoch == 1
-    assert port.stats["refreezes"] == 2
+    assert port.stats["refreezes"] == 1
+    assert port.stats["delta_updates"] == 1
 
 
 def test_index_from_state_answers_identically():
@@ -94,6 +97,22 @@ def test_index_from_state_answers_identically():
                  ref.lookup(q, backend="numpy-oracle"))
 
 
+def test_bare_index_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
+    """An ``Index`` constructed directly resolves its device as
+    ``build`` does: cuda by default, which raises without CUDA."""
+    keys = np.arange(100, dtype=np.float64)
+    built = Index.build(keys, gap_rho=0.1, device="cpu")
+    assert built.device == torch.device("cpu")
+    bare = dict(keys=keys, mech=built.mech, method="pgm",
+                gapped=built.gapped)
+    assert Index(**bare, device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Index(**bare)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert Index(**bare).device == torch.device("cuda")
+
+
 def test_unported_entry_points_raise_naming_their_item():
     keys = np.arange(1000, dtype=np.float64)
     port = Index.build(keys, gap_rho=0.1, device="cpu")
@@ -101,8 +120,6 @@ def test_unported_entry_points_raise_naming_their_item():
     for call, item in [(lambda: port.lookup(keys, backend="pallas"), "A8"),
                        (lambda: port.lookup(keys, backend="xla-windowed"),
                         "A8"),
-                       (lambda: port.ingest(keys, keys), "A5"),
-                       (lambda: port.remove(keys), "A5"),
                        (lambda: port.retrain(), "A15"),
                        (lambda: port.mdl(), "A15"),
                        (lambda: port.save_snapshot("x"), "A9"),

@@ -1,5 +1,7 @@
-"""The CUDA fused-lookup kernel against its plain torch version on the
-card: identical CUDA inputs, all seven outputs bit for bit.  Marked
+"""The hand-written CUDA kernels against their plain torch versions on
+the card: the fused lookup (all seven outputs) and the ingest placement
+(``p``, ``pv``, ``ub``, ``flags``), identical CUDA inputs, bit for
+bit.  Marked
 ``gpu``: each test skips itself without a CUDA device.  This file
 imports no JAX, so it also runs where only the port is installed:
 
@@ -11,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.core import Index
-from repro_torch.kernels import ops
+from repro_torch.kernels import freeze, gap_place, ops
 from repro_torch.kernels.lookup import fused_lookup, fused_lookup_plain
 
 
@@ -66,3 +68,33 @@ def test_kernel_matches_plain_on_the_card(name, seed, span, flat_w):
     assert fused_lookup.launches == launches + 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,seed,span", [("narrow", 4, 2 ** 22),
+                                            ("wide", 5, 2 ** 40)],
+                         ids=["narrow", "wide"])
+def test_ingest_place_matches_plain_on_the_card(name, seed, span):
+    """The CUDA ingest-place kernel against ``ingest_place_plain`` on
+    identical CUDA inputs (+inf padding rows included): all four
+    outputs bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    idx, q = _index(seed, span)
+    a = idx.sync_device().arrays
+    x_hi, x_lo = freeze.split_key_pair(np.unique(q + 1.0))
+    n_pad = 8192
+    x_hi = np.concatenate([x_hi, np.full(n_pad - x_hi.size, np.inf,
+                                         np.float32)])
+    x_lo = np.concatenate([x_lo, np.zeros(n_pad - x_lo.size, np.float32)])
+    args = (torch.from_numpy(x_hi).cuda(), torch.from_numpy(x_lo).cuda(),
+            a.seg_first_key, a.seg_first_key_lo, a.seg_slope,
+            a.seg_slope_lo, a.seg_icept, a.seg_icept_lo, a.slot_key,
+            a.slot_key_lo, a.link_offsets, a.link_keys, a.link_keys_lo)
+    launches = gap_place.ingest_place.launches
+    got = gap_place.ingest_place(*args, n_slots=a.n_slots)
+    want = gap_place.ingest_place_plain(*args, n_slots=a.n_slots)
+    torch.cuda.synchronize()
+    assert gap_place.ingest_place.launches == launches + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
