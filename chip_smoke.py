@@ -1,12 +1,13 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-keys N] [--fused-keys N] [--fused-batches B]
-                          [--place-keys N] [--place-batches B] [--seed S]
-                          [--profile]
+                          [--place-keys N] [--place-batches B]
+                          [--narrow-keys N] [--seed S] [--profile]
 
 Drives ``repro_torch``'s main paths — build, freeze, batched lookups,
-and the §5.3 write path — on the card, and holds each hand-written CUDA
-kernel against its plain torch version.  Prints one JSON line per
+the §5.3 write path, device Eq. 3 and the legacy lookup backends — on
+the card, and holds each hand-written CUDA kernel against its plain
+torch version.  Prints one JSON line per
 phase:
 
 1. environment and kernel build (one nvcc per source, in parallel, into
@@ -50,7 +51,30 @@ phase:
    default): ``--place-batches`` (32) insert batches of 16,384
    held-out keys, the same lookup checks and host-replay equality; the
    kernel timed at 16,384 keys beside its plain version, its byte
-   bound and ``torch.searchsorted`` for ``ub`` alone.
+   bound and ``torch.searchsorted`` for ``ub`` alone;
+7. ``gap_place`` against ``gap_place_plain`` and ``lookup_kernel``
+   against ``lookup_kernel_plain`` on identical CUDA inputs, bit for bit
+   (NaN equals NaN in the +inf padding rows): Eq. 3 over 400k keys
+   below 2^24 and below 2^40 with (key_tile, seg_chunk) (256, 128) and
+   (2048, 1024), keys below the first segment; the legacy kernel over a
+   400k-key narrow index with chains at the reference's three tile
+   shapes (q_tile, w_tile, win_chunk) = (128, 512, 128), (256, 2048,
+   512), (512, 4096, 1024), queries below and above the keys, +inf
+   padding, and windows at the first and the last block pair.  The
+   plain legacy version counts literally where the kernel bisects;
+8. device Eq. 3 at full size: ``gap_positions_device`` over the read
+   phase's 32M keys with its index's model (rho = 0.15), held against
+   the f64 oracle ``gap_positions_oracle`` at the reference's tolerance
+   (rtol 2e-5, atol 0.5), monotone, within the budget ``rho * n + 1``;
+   the kernel timed at that size beside its plain version, its byte
+   bound and ``torch.searchsorted`` over the segment table;
+9. the legacy backends at full size: a narrow index of
+   ``--narrow-keys`` (8M) unique integer keys below 2^24 (about 9.2M
+   slots), ``Index.lookup(backend="pallas")`` at 2^20 mixed queries,
+   which the kernel must serve (not the oracle stage), and at 4,096
+   (the stage that served is recorded); ``backend="xla-windowed"`` at
+   2^20 on this index and on the read phase's wide index; every answer
+   held against the host oracle; the kernel timed at the 2^20 shapes.
 
 Scale: SOSD's key sets (Marcus et al., Benchmarking Learned Indexes,
 VLDB 2020) hold 200M keys; the read phase cuts that to 32M so the host
@@ -59,7 +83,10 @@ The write phases are sized by the device gates.  Phase 5 inserts all
 of its 1.54M held-out keys; phase 6's traffic is cut by the time limit
 to 32 batches (0.52M of 6.2M held-out keys): at 16.65M slots a batch
 costs about 2 s of host partition and delta diff, and its host replay
-about 1.3 s more, so all 381 batches would take some 20 minutes.
+about 1.3 s more, so all 381 batches would take some 20 minutes.  The
+legacy kernel is narrow-only (keys below 2^24, as in the reference),
+so phase 9 builds its own index; 8M of the 16.8M integers below 2^24
+is about half the key space.
 
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after.  Then the kernels' JSON line, the card's name and
@@ -465,7 +492,8 @@ def phase_main(rng, n_keys, seed, smi, profile=False) -> dict:
                           "(here it searches the hi half)",
              kernel_vs_plain=TOL)
     return {"launches": launches, "per_batch": per_batch,
-            "main": main_stats, "lookup_ms": timing}
+            "main": main_stats, "lookup_ms": timing, "index": idx,
+            "keys": keys}
 
 
 # ---------------------------------------------------------------------------
@@ -1023,6 +1051,347 @@ def phase_two_dispatch(rng, seed, smi, n_init, n_batches,
     return res
 
 
+# ---------------------------------------------------------------------------
+# device Eq. 3 and the legacy lookup backends: the gap-place and
+# legacy-lookup kernels
+# ---------------------------------------------------------------------------
+
+LEGACY_TILES = ((128, 512, 128), (256, 2048, 512), (512, 4096, 1024))
+LEGACY_BATCHES = (1 << 20, 4096)   # a throughput and a serving batch
+
+
+def same_bits(name, got, want, names) -> float:
+    """Raise unless every output is equal (NaN equals NaN in a float
+    output); returns the largest absolute difference seen (0 when they
+    are equal)."""
+    err = 0.0
+    for n, g, w in zip(names, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: {n} differs in shape or type")
+        if g.is_floating_point():
+            nan = g.isnan() & w.isnan()
+            eq = (g == w) | nan
+            if g.numel():
+                d = (g.double() - w.double()).abs()
+                err = max(err, float(torch.where(nan, 0.0, d).max()))
+        else:
+            eq = g == w
+            if g.numel():
+                err = max(err, float((g.long() - w.long()).abs().max()))
+        if not bool(eq.all()):
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 f"in {n} ({int((~eq).sum())} elements)")
+    return err
+
+
+def eq3_args(x, plm, rho, key_tile, seg_chunk, lead=()):
+    """``gap_place``'s tensor arguments on the card for keys ``x``
+    (sorted f64; ``lead`` keys put in front, e.g. below the first
+    segment), padded with +inf to a multiple of ``key_tile``."""
+    from repro_torch.kernels.freeze import _pad_pow
+    from repro_torch.kernels.ops_gap import prepare_gap_tables
+    tables = prepare_gap_tables(x, np.arange(x.size, dtype=np.float64),
+                                plm, rho, seg_chunk)
+    xs = np.concatenate([np.asarray(lead, np.float64), x])
+    xp = _pad_pow(xs.astype(np.float32), key_tile, np.float32(np.inf))
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in (xp, *tables)], xs.size
+
+
+def eq3_vs_plain(name, args, n_real, key_tile, seg_chunk) -> float:
+    from repro_torch.kernels.gap_place import gap_place, gap_place_plain
+    tiling = dict(key_tile=key_tile, seg_chunk=seg_chunk)
+    got = gap_place(*args, **tiling)
+    want = gap_place_plain(*args, **tiling)
+    torch.cuda.synchronize()
+    err = same_bits(name, (got,), (want,), ("positions",))
+    if not (bool(got[n_real:].isnan().all())
+            and bool(got[:n_real].isfinite().all())):
+        raise AssertionError(f"{name}: padding rows not NaN or real rows "
+                             "not finite")
+    return err
+
+
+def legacy_args(a, q_sorted, err_lo, *, q_tile, w_tile, edge_tiles=False):
+    """``lookup_kernel``'s tensor arguments for sorted f64 queries
+    against the frozen arrays ``a``: +inf padding to whole tiles (plus
+    one more tile with ``edge_tiles``), the pallas stage's own tile
+    schedule, and with ``edge_tiles`` the first tile's window moved to
+    the last block pair and the second-to-last tile's to the first."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import predict_ref
+    n = q_sorted.size
+    pad = (-n) % q_tile + (q_tile if edge_tiles else 0)
+    qp = np.concatenate([q_sorted, np.full(pad, np.inf)])
+    qs = torch.from_numpy(qp.astype(np.float32)).cuda()
+    elo = ops._pad_bounds(err_lo, a.seg_first_key.shape[0], "cuda")
+    y_hat, seg = predict_ref(qs, a.seg_first_key, a.seg_slope, a.seg_icept)
+    lo = ops._clip(y_hat + elo[seg] - 1.0, ops._slot_clip_hi(a.n_slots))
+    tb = ops.tile_blocks(lo, a, q_tile=q_tile, w_tile=w_tile)
+    if edge_tiles:
+        tb[0] = a.slot_key.shape[0] // w_tile - 2
+        tb[-2] = 0
+    return (qs, tb, a.seg_first_key, a.seg_slope, a.seg_icept, a.slot_key)
+
+
+def legacy_vs_plain(name, args, tiling) -> tuple:
+    from repro_torch.kernels.lookup import lookup_kernel, lookup_kernel_plain
+    got = lookup_kernel(*args, **tiling)
+    want = lookup_kernel_plain(*args, **tiling)
+    torch.cuda.synchronize()
+    return got, same_bits(name, got, want, ("slot", "found", "fb", "pred"))
+
+
+def phase_legacy_cases(rng) -> list:
+    """Phase 7: the gap-place and legacy-lookup kernels against their
+    plain versions on identical CUDA inputs, bit for bit."""
+    from repro_torch.kernels.freeze import from_learned_index
+    rows = []
+    for span in (2 ** 24, 2 ** 40):
+        idx, keys = build_case_index(rng, span, 400_000)
+        plm = idx.mech.plm
+        lead = [keys[0] - 2.0 ** 20, keys[0] - 1.0]   # below segment 0
+        for key_tile, seg_chunk in ((256, 128), (2048, 1024)):
+            name = f"eq3_{'narrow' if span <= 2 ** 24 else 'wide'}_" \
+                   f"{key_tile}_{seg_chunk}"
+            args, n_real = eq3_args(keys, plm, 0.15, key_tile, seg_chunk,
+                                    lead)
+            err = eq3_vs_plain(name, args, n_real, key_tile, seg_chunk)
+            rows.append({"case": name, "kernel": "gap_place",
+                         "n_keys": int(keys.size), "padded":
+                         int(args[0].numel()), "k_pad":
+                         int(args[1].numel()), "below_first_segment":
+                         len(lead), "max_abs_err": err, "tolerance":
+                         TOL + " (NaN equals NaN)"})
+            emit("legacy_kernel_vs_plain", **rows[-1])
+    idx, keys = build_case_index(rng, 2 ** 24, 400_000, n_mids=40_000)
+    plm = idx.mech.plm
+    below = keys[0] - 1.0 - np.arange(64.0)
+    above = keys[-1] + 1.0 + np.arange(64.0)
+    q = np.sort(np.concatenate([
+        mixed_queries(rng, keys, idx.gapped.links.chain_keys, 30_000,
+                      keys[0]), below, above]))
+    for q_tile, w_tile, win_chunk in LEGACY_TILES:
+        a = from_learned_index(idx, "cuda", w_tile=w_tile)
+        args = legacy_args(a, q, plm.err_lo, q_tile=q_tile, w_tile=w_tile,
+                           edge_tiles=True)
+        tiling = dict(q_tile=q_tile, w_tile=w_tile, win_chunk=win_chunk)
+        name = f"legacy_{q_tile}_{w_tile}_{win_chunk}"
+        got, err = legacy_vs_plain(name, args, tiling)
+        found, fb = got[1][:q.size], got[2][:q.size]
+        rows.append({"case": name, "kernel": "lookup_kernel",
+                     "n_keys": int(keys.size), "queries": int(q.size),
+                     "padded": int(args[0].numel()),
+                     "below_keys": int(below.size),
+                     "above_keys": int(above.size),
+                     "found": int(found.sum()), "escapes": int(fb.sum()),
+                     "edge_windows": "first tile at the last block pair, "
+                                     "second-to-last at the first",
+                     "max_abs_err": err, "outputs_equal": 4,
+                     "tolerance": TOL + " (NaN equals NaN)"})
+        emit("legacy_kernel_vs_plain", **rows[-1])
+        if not rows[-1]["escapes"] or not rows[-1]["found"]:
+            raise AssertionError(f"{name}: no escape or no hit exercised")
+    return rows
+
+
+def eq3_bytes(args) -> int:
+    """Each key read once (4 bytes), each position written once, and
+    the four tables read once."""
+    n = args[0].numel()
+    return n * 8 + sum(t.numel() * 4 for t in args[1:])
+
+
+def phase_eq3(main_res, smi) -> dict:
+    """Phase 8: device Eq. 3 (``gap_positions_device``) over the read
+    phase's keys with its index's model, held against the f64 oracle at
+    the reference's tolerance; the kernel timed at that size."""
+    from repro_torch.kernels.gap_place import gap_place, gap_place_plain
+    from repro_torch.kernels.ops_gap import (gap_positions_device,
+                                             gap_positions_oracle)
+    idx, keys, rho = main_res["index"], main_res["keys"], 0.15
+    plm = idx.mech.plm
+    gap_place.launches = 0        # counts from the main path's run only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = gap_positions_device(keys, plm, rho)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    launches = gap_place.launches
+    if launches == 0:
+        raise AssertionError("gap_positions_device never launched "
+                             "gap_place")
+    t0 = time.perf_counter()
+    ora = gap_positions_oracle(keys, plm, rho)
+    ora_s = time.perf_counter() - t0
+    n = keys.size
+    tol = 0.5 + 2e-5 * np.abs(ora)
+    bad = int(np.count_nonzero(~(np.abs(dev - ora) <= tol)))
+    monotone = bool(np.all(np.diff(dev) >= 0))
+    budget = float(dev[-1] - (n - 1))
+    if bad or not monotone or budget > rho * n + 1.0:
+        raise AssertionError(f"eq3: {bad} positions past rtol 2e-5 / atol "
+                             f"0.5, monotone {monotone}, budget {budget}")
+    args, _ = eq3_args(keys, plm, rho, 1024, 512)
+    err = eq3_vs_plain("eq3_main", args, n, 1024, 512)
+    k_ms = cuda_ms(lambda: gap_place(*args))
+    p_ms = cuda_ms(lambda: gap_place_plain(*args), launches=5)
+    segk, xp = args[1], args[0]
+    lib_ms = cuda_ms(lambda: torch.searchsorted(segk, xp, right=True))
+    nbytes = eq3_bytes(args)
+    nops = n * (int(segk.numel()).bit_length() + 3)
+    t_b, t_o = nbytes / H100_BYTES_PER_S, nops / H100_F32_OPS_PER_S
+    row = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+               bound_ms=max(t_b, t_o) * 1e3,
+               bound_by="bytes" if t_b >= t_o else "operations",
+               bytes=nbytes, ops=nops, max_abs_err=err, launches=launches)
+    emit("eq3", card=smi, n_keys=int(n), segments=int(plm.n_segments),
+         k_pad=int(segk.numel()), rho=rho,
+         device_seconds=dev_s, oracle_seconds=ora_s,
+         max_abs_diff_vs_oracle=float(np.max(np.abs(dev - ora))),
+         max_rel_diff_vs_oracle=float(np.max(np.abs(dev - ora)
+                                             / np.maximum(ora, 1.0))),
+         positions_past_tolerance=bad, tolerance="rtol 2e-5, atol 0.5",
+         monotone=monotone, gaps_inserted=budget,
+         budget=rho * n + 1.0, **row,
+         library_call="torch.searchsorted(seg_first_key, keys, right=True):"
+                      " the segment routing only",
+         kernel_vs_plain=TOL + " (NaN equals NaN)")
+    return row
+
+
+def timed_lookups(idx, q, backend, warm=5, reps=5):
+    """Warm up (until the bucket's escape buffer holds the batch's
+    escapes, at most ``warm`` calls), then ms per batch over ``reps``
+    calls; returns ``(last result, ms, warm-up oracle escapes, timed
+    oracle escapes)``."""
+    warm_esc = 0
+    for _ in range(warm):
+        r = idx.lookup(q, backend=backend)
+        warm_esc += r.oracle_escapes
+        if r.oracle_escapes == 0:
+            break
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    esc = 0
+    for _ in range(reps):
+        res = idx.lookup(q, backend=backend)
+        esc += res.oracle_escapes
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3 / reps, warm_esc, esc
+
+
+def legacy_bytes(args, w_tile) -> int:
+    """Each query read once (4 bytes), slot, found, fb and pred written
+    once (10 bytes), the tile schedule, the segment tables, and the slot
+    keys of each distinct window block the tiles read (4 bytes each)."""
+    qs, tb, segk = args[0], args[1], args[2]
+    blocks = torch.unique(torch.cat([tb, tb + 1]))
+    return (qs.numel() * 14 + tb.numel() * 4 + 3 * segk.numel() * 4
+            + int(blocks.numel()) * w_tile * 4)
+
+
+def phase_legacy(rng, seed, smi, n_keys, main_res) -> dict:
+    """Phase 9: the legacy backends at full size.  ``pallas`` over a
+    narrow index (keys below 2^24) at 2^20 and 4,096 mixed queries,
+    ``xla-windowed`` at 2^20 on it and on the read phase's wide index,
+    every answer held against the host oracle; the legacy kernel timed
+    at the 2^20 shapes."""
+    from repro_torch.core import Index
+    from repro_torch.kernels.bounds import auto_q_tile
+    from repro_torch.kernels.lookup import lookup_kernel, lookup_kernel_plain
+    t0 = time.perf_counter()
+    keys = np.sort(rng.choice(1 << 24, n_keys, replace=False)
+                   ).astype(np.float64)
+    idx = Index.build(keys, method="pgm", eps=64, gap_rho=0.15,
+                      sample_rate=0.01, rng=np.random.default_rng(seed),
+                      device="cuda")
+    ga = idx.gapped
+    eng = idx.sync_device()
+    a = eng.arrays
+    if a.key_wide:
+        raise AssertionError("legacy: the narrow index froze wide keys")
+    emit("legacy_build", card=smi, n_keys=int(keys.size),
+         n_slots=int(ga.n_slots), segments=int(ga.mech.plm.n_segments),
+         k_pad=int(a.seg_first_key.numel()), key_wide=a.key_wide,
+         build_seconds=idx.build_seconds,
+         setup_seconds=time.perf_counter() - t0)
+    lookup_kernel.launches = 0    # counts from the main path's run only
+    served = {}
+    batches = {}
+    for n_b in LEGACY_BATCHES:
+        q = mixed_queries(rng, keys, ga.links.chain_keys, n_b, keys[0])
+        res, ms, warm_esc, esc = timed_lookups(idx, q, "pallas")
+        check_against_host(res, ga, q)
+        b = eng.bucket(n_b)
+        served[n_b] = res.backend
+        batches[n_b] = q
+        emit("legacy_lookup", card=smi, index="narrow", backend="pallas",
+             batch=n_b, served_by=res.backend, ms_per_batch=ms,
+             ns_per_query=ms * 1e6 / n_b,
+             q_tile=min(b, auto_q_tile(b, a.n_slots, eng.w_tile)),
+             kernel_escapes=eng.last_escapes, fallbacks=res.fallbacks,
+             warmup_oracle_escapes=warm_esc, oracle_escapes=esc,
+             answers_equal_host_oracle=True)
+    launches = lookup_kernel.launches
+    if launches == 0:
+        raise AssertionError("the pallas backend never launched "
+                             "lookup_kernel")
+    big = LEGACY_BATCHES[0]
+    if served[big] != "pallas":
+        raise AssertionError(f"the {big}-query pallas batch was served by "
+                             f"{served[big]!r}, not the kernel")
+    xla = {}
+    for name, xidx, xkeys in (("narrow", idx, keys),
+                              ("wide", main_res["index"],
+                               main_res["keys"])):
+        xga = xidx.gapped
+        q = mixed_queries(rng, xkeys, xga.links.chain_keys, big, xkeys[0])
+        res, ms, warm_esc, esc = timed_lookups(xidx, q, "xla-windowed")
+        check_against_host(res, xga, q)
+        xeng = xidx.sync_device()
+        if res.backend != "xla-windowed":
+            raise AssertionError(f"xla-windowed on the {name} index was "
+                                 f"served by {res.backend!r}")
+        xla[name] = ms
+        emit("legacy_lookup", card=smi, index=name,
+             backend="xla-windowed", batch=big, served_by=res.backend,
+             ms_per_batch=ms, ns_per_query=ms * 1e6 / big,
+             key_wide=xeng.arrays.key_wide, flat_w=xeng._flat_w,
+             trips=xeng._trips, fallbacks=res.fallbacks,
+             warmup_oracle_escapes=warm_esc, oracle_escapes=esc,
+             answers_equal_host_oracle=True)
+
+    # the kernel at the main path's 2^20 shapes, held against its plain
+    # version; these launches are after the count was read
+    q = np.sort(batches[big])
+    q_tile = auto_q_tile(q.size, a.n_slots, eng.w_tile)
+    args = legacy_args(a, q, eng.err_lo, q_tile=q_tile, w_tile=eng.w_tile)
+    tiling = dict(q_tile=q_tile, w_tile=eng.w_tile)
+    got, err = legacy_vs_plain("legacy_main", args, tiling)
+    k_ms = cuda_ms(lambda: lookup_kernel(*args, **tiling))
+    p_ms = cuda_ms(lambda: lookup_kernel_plain(*args, **tiling),
+                   launches=5)
+    sk, qs = args[5], args[0]
+    lib_ms = cuda_ms(lambda: torch.searchsorted(sk, qs, right=True))
+    nbytes = legacy_bytes(args, eng.w_tile)
+    per_q = (int(2 * eng.w_tile).bit_length()
+             + int(a.seg_first_key.numel()).bit_length() + 6)
+    nops = qs.numel() * per_q
+    t_b, t_o = nbytes / H100_BYTES_PER_S, nops / H100_F32_OPS_PER_S
+    row = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+               bound_ms=max(t_b, t_o) * 1e3,
+               bound_by="bytes" if t_b >= t_o else "operations",
+               bytes=nbytes, ops=nops, max_abs_err=err, launches=launches,
+               q_tile=q_tile, escapes=int(got[2][:q.size].sum()))
+    emit("legacy_timing", card=smi, batch=int(q.size), **row,
+         library_call="torch.searchsorted(slot_key, q, right=True): slot "
+                      "only, over the whole array",
+         kernel_vs_plain=TOL + " (NaN equals NaN)")
+    row.update(pallas_served=served, xla_ms=xla)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-keys", type=int, default=32_000_000)
@@ -1037,6 +1406,9 @@ def main() -> int:
                          "of 14.5M, 14M whose n_slots < 2^24)")
     ap.add_argument("--place-batches", type=int, default=32,
                     help="insert batches of 16,384 keys in phase 6")
+    ap.add_argument("--narrow-keys", type=int, default=8_000_000,
+                    help="keys (below 2^24) of the legacy phase's narrow "
+                         "index")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace three lookups per batch size, and two "
@@ -1083,6 +1455,10 @@ def main() -> int:
     place_timing = time_place(two_res.pop("index"),
                               two_res["held_left"][:16_384], smi,
                               "two_dispatch")
+    legacy_rows = phase_legacy_cases(rng)
+    eq3 = phase_eq3(main_res, smi)
+    legacy = phase_legacy(rng, args.seed, smi, args.narrow_keys, main_res)
+    del main_res["index"], main_res["keys"]
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the run")
 
@@ -1113,13 +1489,45 @@ def main() -> int:
         "bound_ms": place_timing["bound_ms"],
         "bound_by": place_timing["bound_by"],
         "library_ms": place_timing["library_ms"],
+    }, {
+        "name": "gap_place",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gap_place.cu",
+        "replaces": "src/repro/kernels/gap_place.py:271",
+        "launches": eq3["launches"],
+        "max_abs_err": max([eq3["max_abs_err"]]
+                           + [r["max_abs_err"] for r in legacy_rows
+                              if r["kernel"] == "gap_place"]),
+        "ms": eq3["ms"],
+        "plain_ms": eq3["plain_ms"],
+        "bound_ms": eq3["bound_ms"],
+        "bound_by": eq3["bound_by"],
+        "library_ms": eq3["library_ms"],
+    }, {
+        "name": "lookup_kernel",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lookup_kernel.cu",
+        "replaces": "src/repro/kernels/lookup.py:120",
+        "launches": legacy["launches"],
+        "max_abs_err": max([legacy["max_abs_err"]]
+                           + [r["max_abs_err"] for r in legacy_rows
+                              if r["kernel"] == "lookup_kernel"]),
+        "ms": legacy["ms"],
+        "plain_ms": legacy["plain_ms"],
+        "bound_ms": legacy["bound_ms"],
+        "bound_by": legacy["bound_by"],
+        "library_ms": legacy["library_ms"],
     }]
     emit("summary", card=smi, cases=len(cases), place_cases=len(place_rows),
          read_path=main_res["main"],
          fused_write_path=fused_res["launches"],
          fused_commit_rate_w03=fused_res["w03_fused_commit_rate"],
          two_dispatch_write_path=two_res["launches"],
-         place_timing_fused_index=fused_timing)
+         place_timing_fused_index=fused_timing,
+         legacy_cases=len(legacy_rows), eq3_launches=eq3["launches"],
+         legacy_path={"lookup_kernel": legacy["launches"],
+                      "pallas_served_by": legacy["pallas_served"],
+                      "xla_windowed_ms": legacy["xla_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,22 @@ name           device  wide keys   min batch  notes
 fused          yes     yes (hi/lo  512        the hand-written CUDA
                        f32 pair)              fused-lookup kernel, one
                                               launch per batch
+pallas         yes     no          512        LEGACY multi-op path
+                                              around the hand-written
+                                              CUDA legacy-lookup kernel
+                                              (debug / reference)
+xla-windowed   yes     yes (hi/lo  512        legacy multi-op windowed
+                       f32 pair)              rank / bisect in torch
+                                              ops (debug / reference)
 numpy-oracle   no      yes (f64)   0          host reference; exact
 =============  ======  ==========  =========  ==========================
+
+``lookup(backend=None)`` sends small batches to ``numpy-oracle`` and
+the rest to ``fused``; the legacy ``pallas`` / ``xla-windowed`` stages
+serve only when asked for by name.  A request that cannot serve the
+index (``pallas`` with keys past f32 exactness, any device backend
+with keys that alias in the f32 hi/lo pair) raises with the
+capability that failed.
 
 Writes (``ingest``, ``remove``, the scalar and batch ``insert`` /
 ``delete`` / ``update``) mutate the host state and bump ``epoch``.
@@ -76,12 +90,13 @@ class BackendSpec:
 BACKENDS: Dict[str, BackendSpec] = {
     "fused": BackendSpec("fused", device=True, wide_keys=True,
                          min_batch=512, engine_backend="fused"),
+    "pallas": BackendSpec("pallas", device=True, wide_keys=False,
+                          min_batch=512, engine_backend="pallas"),
+    "xla-windowed": BackendSpec("xla-windowed", device=True, wide_keys=True,
+                                min_batch=512, engine_backend="xla"),
     "numpy-oracle": BackendSpec("numpy-oracle", device=False, wide_keys=True,
                                 min_batch=0, engine_backend=None),
 }
-
-# reference backends not ported yet -> ROADMAP item
-_UNPORTED_BACKENDS = {"pallas": "A8", "xla-windowed": "A8"}
 
 
 @dataclasses.dataclass
@@ -306,9 +321,6 @@ class Index:
         """Pick a backend from the capability registry (see module doc)."""
         has_plm = getattr(self.mech, "plm", None) is not None
         if requested is not None:
-            if requested in _UNPORTED_BACKENDS:
-                raise _not_ported(f"backend {requested!r}",
-                                  _UNPORTED_BACKENDS[requested])
             try:
                 spec = BACKENDS[requested]
             except KeyError:
@@ -322,6 +334,12 @@ class Index:
                         f"mechanism {self.method!r} does not export a "
                         "piecewise linear model — use 'numpy-oracle'")
                 wide, exact = self._key_caps()
+                if wide and not spec.wide_keys:
+                    raise ValueError(
+                        f"backend {requested!r} cannot serve this index: "
+                        "keys exceed f32 exactness (2^24) and the backend "
+                        "lacks hi/lo wide-key support — use 'xla-windowed' "
+                        "or 'numpy-oracle'")
                 if wide and not exact:
                     raise ValueError(
                         f"backend {requested!r} cannot serve this index: "
@@ -478,8 +496,12 @@ class Index:
         esc0 = engine.stats["oracle_escapes"]
         out, slot, found, fb = engine.lookup(
             queries, queries_sorted=queries_sorted,
-            backend=spec.engine_backend)
-        stage = {"fused": "fused",
+            backend=spec.engine_backend, force_backend=backend is not None)
+        # label the stage that actually ran: an overflowed batch lands on
+        # the device oracle (explicit requests skip the engine's xla
+        # size cut)
+        stage = {"fused": "fused", "pallas": "pallas",
+                 "xla": "xla-windowed",
                  "oracle": "device-oracle"}[engine.last_stage]
         return LookupResult(
             payloads=np.asarray(out).astype(np.int64),

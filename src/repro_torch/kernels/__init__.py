@@ -6,16 +6,28 @@ bounds.py     — query-safe window bounds, radix and rank routers, tile
                 sizing
 ref.py        — the device oracle stage and the epilogue, plain torch
 lookup.py     — ``fused_lookup`` (launches csrc/fused_lookup.cu) and
-                ``fused_lookup_plain`` (the same function in torch ops)
-ops.py        — sort, tile schedule, launch, escape fixup, unsort;
-                ``batched_lookup`` and ``QueryEngine`` (lookups, delta
-                swaps, bound / rank-row refreshes, ingest entry points)
+                ``fused_lookup_plain`` (the same function in torch ops);
+                ``lookup_kernel`` / ``lookup_kernel_plain``, the legacy
+                narrow-key kernel (csrc/lookup_kernel.cu)
+ops.py        — sort, tile schedule, launch, escape fixup, unsort for
+                the fused stage, the legacy "pallas" / "xla" stages and
+                the oracle; ``batched_lookup`` and ``QueryEngine``
+                (lookups, delta swaps, bound / rank-row refreshes,
+                ingest entry points)
 delta.py      — ``freeze_state`` (engine + host mirror) and
                 ``delta_update`` (only the changed elements move)
 gap_place.py  — ``ingest_place`` (launches csrc/ingest_place.cu) and
                 ``ingest_place_plain``; ``fused_ingest_body``, the
-                single-dispatch ingest graph in torch ops
-ops_gap.py    — the write path's entry points: ``ingest_place`` and
-                ``fused_ingest`` over the frozen arrays
+                single-dispatch ingest graph in torch ops; ``gap_place``
+                (launches csrc/gap_place.cu, Eq. 3) and
+                ``gap_place_plain``
+ops_gap.py    — device Eq. 3 (``gap_positions_device``, its tables
+                ``prepare_gap_tables`` and the host oracle
+                ``gap_positions_oracle``) and the write path's entry
+                points ``ingest_place`` and ``fused_ingest``
 _build.py     — nvcc + ctypes build of csrc/*.cu at first use
 """
+
+from .ops_gap import gap_positions_device, gap_positions_oracle
+
+__all__ = ["gap_positions_device", "gap_positions_oracle"]

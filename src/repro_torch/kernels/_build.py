@@ -23,7 +23,7 @@ __all__ = ["NVCC_FLAGS", "SOURCES", "build", "load", "ptxas_report"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-SOURCES = ("fused_lookup", "ingest_place")
+SOURCES = ("fused_lookup", "ingest_place", "gap_place", "lookup_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,5 +1,6 @@
-"""§5.3 ingest placement: the CUDA kernel's wrapper, its plain torch
-version, and the fused single-dispatch ingest graph.
+"""§5.3 ingest placement and Eq. 3 gap placement: the CUDA kernels'
+wrappers, their plain torch versions, and the fused single-dispatch
+ingest graph.
 
 Counterpart of ``repro.kernels.gap_place``:
 
@@ -15,7 +16,11 @@ Counterpart of ``repro.kernels.gap_place``:
 * ``fused_ingest_body`` — placement -> partition -> slot scatter +
   carried-key repair -> CSR merge -> rank-row / window-bound refresh,
   as torch ops around ``ingest_place`` (the reference's ``use_pallas``
-  arm: the kernel on CUDA, the plain version on the CPU).
+  arm: the kernel on CUDA, the plain version on the CPU);
+* ``gap_place`` launches ``csrc/gap_place.cu`` (the port of the TPU
+  kernel ``gap_place_call``, Eq. 3 target positions for sorted keys)
+  for CUDA tensors; ``gap_place_plain`` is its torch version.
+  ``gap_place.launches`` counts kernel launches.
 
 Narrow (f32-exact) indexes pass zero-length ``*_lo`` key tables; the
 kernel and the plain version read them as zeros, as the reference's
@@ -32,7 +37,7 @@ import torch
 from . import _build
 
 __all__ = ["ingest_place", "ingest_place_plain", "fused_ingest_body",
-           "split_flags"]
+           "split_flags", "gap_place", "gap_place_plain"]
 
 _SPLITTER = 4097.0  # 2^12 + 1 (Veltkamp split for f32)
 _TOL_SCALE = 2e-9   # rounds to the f32 the reference's jnp.float32 gives
@@ -542,3 +547,82 @@ def fused_ingest_body(
                                           "amax", include_self=True)
     return head + (new_shi, new_slo, new_pl, new_ph, new_off, new_lhi,
                    new_llo, new_lpl, new_lph, new_rank, new_elo, new_ehi)
+
+
+# ---------------------------------------------------------------------------
+# Eq. 3 gap placement: kernel wrapper and plain version
+# ---------------------------------------------------------------------------
+
+_GAP_ARG_NAMES = ("keys_padded", "seg_first_key", "base", "x0", "scale")
+
+
+def _check_gap(args):
+    dev = args[0].device
+    for name, t in zip(_GAP_ARG_NAMES, args):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, keys on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be torch.float32, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be 1-D and contiguous")
+    k_pad = args[1].shape[0]
+    if k_pad == 0:
+        raise ValueError("the segment tables must be non-empty")
+    if any(t.shape[0] != k_pad for t in args[2:]):
+        raise ValueError("base, x0 and scale must match seg_first_key")
+    return dev
+
+
+def gap_place_plain(keys_padded, seg_first_key, base, x0, scale, *,
+                    key_tile: int = 1024, seg_chunk: int = 512):
+    """The kernel's function in plain torch ops on any device: Eq. 3
+    target positions ``base[seg] + (x - x0[seg]) * scale[seg]`` with
+    ``seg = searchsorted(seg_first_key, x, right) - 1``, clipped (the
+    masked count of the reference's kernel: the table is sorted).
+    ``key_tile`` / ``seg_chunk`` are the reference's tiling, accepted
+    for its signature; one torch op per f32 step, so no FMA."""
+    del key_tile, seg_chunk
+    k_pad = seg_first_key.shape[0]
+    seg = (torch.searchsorted(seg_first_key, keys_padded, right=True)
+           - 1).clamp(0, k_pad - 1)
+    return base[seg] + (keys_padded - x0[seg]) * scale[seg]
+
+
+def gap_place(keys_padded, seg_first_key, base, x0, scale, *,
+              key_tile: int = 1024, seg_chunk: int = 512):
+    """One launch of the Eq. 3 kernel: f32 target positions for the
+    sorted, +inf padded keys against the (Kpad,) tables of
+    ``ops_gap.prepare_gap_tables``.  ``key_tile`` / ``seg_chunk`` are
+    the reference's tiling (the padding ``gap_positions_device``
+    applies), accepted for its signature.  CPU tensors run
+    ``gap_place_plain``; CUDA tensors launch the kernel or raise.
+    ``gap_place.launches`` counts kernel launches."""
+    del key_tile, seg_chunk
+    args = (keys_padded, seg_first_key, base, x0, scale)
+    dev = _check_gap(args)
+    if dev.type == "cpu":
+        return gap_place_plain(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"gap_place runs on cuda or cpu, not {dev}")
+    lib = _build.load("gap_place")
+    fn = lib.gap_place_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+    n = keys_padded.shape[0]
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[t.data_ptr() for t in args], out.data_ptr(), n,
+                 int(seg_first_key.shape[0]), stream)
+    if err != 0:
+        raise RuntimeError(f"gap_place kernel launch failed: CUDA error "
+                           f"{err}")
+    gap_place.launches += 1
+    return out
+
+
+gap_place.launches = 0

@@ -14,6 +14,13 @@ escape lists (local indices in ascending order, padded with
 raises on anything the kernel does not take; for CPU tensors it runs
 ``fused_lookup_plain``, which computes the same function with torch
 ops.  ``fused_lookup.launches`` counts kernel launches.
+
+``lookup_kernel`` / ``lookup_kernel_plain`` are the same pair for the
+legacy narrow-key kernel ``csrc/lookup_kernel.cu``, the counterpart of
+``repro.kernels.lookup.lookup_kernel_call`` (the TPU kernel
+``_lookup_kernel``) that the explicitly requested ``"pallas"`` backend
+searches with: slot, found, escape flag and prediction per query of
+each tile, in the tile's two ``w_tile`` slot-key blocks.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ import torch
 from . import _build
 from .ref import _bisect, _ple
 
-__all__ = ["fused_lookup", "fused_lookup_plain", "window_base"]
+__all__ = ["fused_lookup", "fused_lookup_plain", "lookup_kernel",
+           "lookup_kernel_plain", "window_base"]
 
 _ARG_NAMES = ("queries_sorted", "queries_lo", "tile_block", "radix_table",
               "radix_scale", "seg_first_key", "seg_first_key_lo",
@@ -313,3 +321,130 @@ def fused_lookup_plain(
     fb_loc[t_idx, pos[t_idx, j_idx]] = j_idx.int()
     return (slot.int(), resolved.int(), out, out_hi, fb, fb_loc.view(-1),
             fb_cnt)
+
+
+# ---------------------------------------------------------------------------
+# the legacy narrow-key lookup kernel (the "pallas" backend's search)
+# ---------------------------------------------------------------------------
+
+_LEGACY_ARG_NAMES = ("queries_sorted", "tile_block", "seg_first_key",
+                     "seg_slope", "seg_icept", "slot_key_padded")
+_SMEM_MAX = 232_448   # dynamic shared memory a block can opt into (H100)
+
+
+def _check_legacy(args, *, q_tile, w_tile):
+    dev = args[0].device
+    for name, t in zip(_LEGACY_ARG_NAMES, args):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
+        want = torch.int32 if name == "tile_block" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be 1-D and contiguous")
+    q, tile_block, segk, slope, icept, sk = args
+    n_q, k_pad, m_pad = q.shape[0], segk.shape[0], sk.shape[0]
+    if q_tile <= 0 or n_q % q_tile:
+        raise ValueError("pad queries to a multiple of q_tile")
+    if tile_block.shape[0] != n_q // q_tile:
+        raise ValueError("tile_block needs one entry per tile")
+    if w_tile <= 0 or m_pad % w_tile or m_pad < 2 * w_tile:
+        raise ValueError("slot keys must be padded to >= 2 w_tile blocks")
+    if k_pad == 0:
+        raise ValueError("the segment tables must be non-empty")
+    if slope.shape[0] != k_pad or icept.shape[0] != k_pad:
+        raise ValueError("segment tables differ in length")
+    if 2 * w_tile * 4 > _SMEM_MAX:
+        raise ValueError(f"w_tile {w_tile}: the 2 * w_tile window does not "
+                         "fit in shared memory")
+    return dev
+
+
+def lookup_kernel(queries_sorted, tile_block, seg_first_key, seg_slope,
+                  seg_icept, slot_key_padded, *, q_tile: int = 256,
+                  w_tile: int = 2048, seg_chunk: int = 512,
+                  win_chunk: int = 512):
+    """One launch of the legacy narrow-key lookup kernel: ``(slot i32,
+    found bool, fb bool, pred f32)`` per sorted, +inf padded query,
+    each tile searched in the two ``w_tile`` slot-key blocks from
+    ``tile_block[i]`` (clamped to ``[0, Mpad / w_tile - 2]``).
+    ``seg_chunk`` / ``win_chunk`` are the reference's VMEM chunking,
+    accepted for its signature.  CPU tensors run
+    ``lookup_kernel_plain``; CUDA tensors launch the kernel or raise.
+    ``lookup_kernel.launches`` counts kernel launches."""
+    del seg_chunk, win_chunk
+    args = (queries_sorted, tile_block, seg_first_key, seg_slope,
+            seg_icept, slot_key_padded)
+    dev = _check_legacy(args, q_tile=q_tile, w_tile=w_tile)
+    if dev.type == "cpu":
+        return lookup_kernel_plain(*args, q_tile=q_tile, w_tile=w_tile)
+    if dev.type != "cuda":
+        raise ValueError(f"lookup_kernel runs on cuda or cpu, not {dev}")
+    lib = _build.load("lookup_kernel")
+    fn = lib.lookup_kernel_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+    n_q = queries_sorted.shape[0]
+    slot = torch.empty(n_q, dtype=torch.int32, device=dev)
+    found = torch.empty(n_q, dtype=torch.bool, device=dev)
+    fb = torch.empty(n_q, dtype=torch.bool, device=dev)
+    pred = torch.empty(n_q, dtype=torch.float32, device=dev)
+    outs = (slot, found, fb, pred)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[t.data_ptr() for t in args], *[t.data_ptr() for t in outs],
+                 n_q // q_tile, q_tile, w_tile, int(seg_first_key.shape[0]),
+                 int(slot_key_padded.shape[0]), stream)
+    if err != 0:
+        raise RuntimeError(f"lookup_kernel launch failed: CUDA error {err}")
+    lookup_kernel.launches += 1
+    return outs
+
+
+lookup_kernel.launches = 0
+
+
+def lookup_kernel_plain(queries_sorted, tile_block, seg_first_key,
+                        seg_slope, seg_icept, slot_key_padded, *,
+                        q_tile: int = 256, w_tile: int = 2048,
+                        seg_chunk: int = 512, win_chunk: int = 512):
+    """The kernel's function in plain torch ops on any device, with the
+    reference kernel's counts taken literally (masked sums of
+    ``key <= q`` and ``key == q``, in chunks of rows), where the kernel
+    bisects.  ``seg_chunk`` / ``win_chunk`` are the reference's
+    tiling, accepted for its signature."""
+    del seg_chunk, win_chunk
+    q, segk, sk = queries_sorted, seg_first_key, slot_key_padded
+    dev = q.device
+    n_q, k_pad, m_pad = q.shape[0], segk.shape[0], sk.shape[0]
+    num_tiles = n_q // q_tile
+    two_w = 2 * w_tile
+
+    seg_cnt = torch.empty(n_q, dtype=torch.long, device=dev)
+    rows = max(1, _WHOLE_WINDOW_ELEMS // k_pad)
+    for r0 in range(0, n_q, rows):
+        seg_cnt[r0:r0 + rows] = (segk[None, :]
+                                 <= q[r0:r0 + rows, None]).sum(dim=1)
+    seg = (seg_cnt - 1).clamp(0, k_pad - 1)
+    pred = seg_slope[seg] * (q - segk[seg]) + seg_icept[seg]
+
+    base_t = tile_block.long().clamp(0, m_pad // w_tile - 2) * w_tile
+    rank = torch.empty((num_tiles, q_tile), dtype=torch.long, device=dev)
+    eq = torch.empty((num_tiles, q_tile), dtype=torch.long, device=dev)
+    qt = q.view(num_tiles, q_tile, 1)
+    offs = torch.arange(two_w, device=dev)
+    tiles = max(1, _WHOLE_WINDOW_ELEMS // (q_tile * two_w))
+    for t0 in range(0, num_tiles, tiles):
+        ks = sk[base_t[t0:t0 + tiles, None] + offs][:, None, :]
+        qc = qt[t0:t0 + tiles]
+        rank[t0:t0 + tiles] = (ks <= qc).sum(dim=2)
+        eq[t0:t0 + tiles] = (ks == qc).sum(dim=2)
+    rank, eq = rank.view(-1), eq.view(-1)
+    base = base_t.repeat_interleave(q_tile)
+    slot = (base + rank - 1).int()
+    fb = ((rank == 0) & (base > 0)) | (rank == two_w)
+    return slot, eq > 0, fb, pred

@@ -1,21 +1,30 @@
-"""Lookup engine: the torch code around the fused CUDA kernel.
+"""Lookup engine: the torch code around the CUDA lookup kernels.
 
-Counterpart of the ``"fused-pallas"`` and ``"oracle"`` stages of
-``repro.kernels.ops._pipeline``, of ``_route_segment`` (radix form),
+Counterpart of the ``"fused-pallas"``, ``"pallas"``, ``"xla"`` and
+``"oracle"`` stages of ``repro.kernels.ops._pipeline``, of
+``_route_segment``, ``_xla_window_lookup``, ``_compact_fallback``,
 ``_fused_fixup`` and ``batched_lookup``, and of ``QueryEngine`` (its
 lookup side, and its write side: delta swaps, bound and rank-row
-refreshes, ingest placement and the fused ingest).  One batch on the
-fused stage is:
+refreshes, ingest placement and the fused ingest).  The port names the
+reference's ``"fused-pallas"`` stage ``"fused"``.  One batch on it is:
 
     sort -> radix route + window base per query -> tile schedule
-    (``tile_block``) -> ONE kernel launch -> fixup of the escaped
-    queries by the full-array oracle -> unsort
+    (``tile_block``) -> ONE launch of the fused kernel -> fixup of the
+    escaped queries by the full-array oracle -> unsort
 
-The fixup re-resolves only the queries the kernel flagged, gathered
-from its per-tile compacted lists into one buffer of at most
-``fb_cap`` queries; when more escape, the batch is overflowed and the
-engine re-dispatches it to the oracle stage (counted in ``stats``, with
-a sticky per-bucket capacity boost).
+The legacy stages, requested explicitly (the handle's ``"pallas"`` and
+``"xla-windowed"`` backends):
+
+* ``"pallas"`` (narrow keys only): sort -> ``predict_ref`` tile
+  schedule -> ONE launch of the legacy kernel (``lookup_kernel``) ->
+  compacted fallback -> epilogue -> unsort;
+* ``"xla"``: per-query window from the error bounds -> flat rank count
+  or fixed-trip bisect -> compacted fallback -> epilogue, in torch ops.
+
+Each re-resolves only the queries its search flagged, in a buffer of at
+most ``fb_cap`` queries; when more escape, the batch is overflowed and
+the caller re-runs it on the oracle stage (counted in ``stats``, with a
+sticky per-bucket capacity boost in the engine).
 """
 
 from __future__ import annotations
@@ -27,12 +36,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .bounds import (_flat_width, _fused_flat_width, auto_q_tile,
-                     build_radix_router, build_rank_router,
+from .bounds import (_bisect_trips, _flat_width, _fused_flat_width,
+                     auto_q_tile, build_radix_router, build_rank_router,
                      query_window_bounds)
 from .freeze import IndexArrays, _pad_pow, split_key_pair
-from .lookup import _clip, _slot_clip_hi, fused_lookup, route_segment
-from .ref import epilogue, oracle_search
+from .lookup import (_clip, _slot_clip_hi, fused_lookup, lookup_kernel,
+                     route_segment)
+from .ref import (_bisect, _pair_bisect, _peq, _ple, epilogue,
+                  oracle_search, predict_ref)
 
 __all__ = ["QueryEngine", "batched_lookup", "FB_FRAC"]
 
@@ -68,6 +79,13 @@ def tile_schedule(qs, qls, a: IndexArrays, icept_fold, radix_table,
         dx = dx + (qls - a.seg_first_key_lo[seg])
     lo = _clip(a.seg_slope[seg] * dx + icept_fold[seg],
                _slot_clip_hi(a.n_slots))
+    return tile_blocks(lo, a, q_tile=q_tile, w_tile=w_tile)
+
+
+def tile_blocks(lo, a: IndexArrays, *, q_tile: int, w_tile: int):
+    """The lowest window base of each tile of ``q_tile`` sorted queries,
+    quantized to ``w_tile`` blocks and clipped to the last block pair
+    (``lo`` is already clipped to the slots, NaN to 0)."""
     tile_lo = lo.view(-1, q_tile).amin(dim=1)
     m_pad = a.slot_key.shape[0]
     return torch.clamp(torch.floor(tile_lo / w_tile).int(),
@@ -125,20 +143,157 @@ def fused_fixup(qs, qls, slot, resolved, out, out_hi, fb_loc, fb_cnt,
     return fb_count, False
 
 
+def compact_fallback(q, ql, slot, found, fb, a: IndexArrays, *,
+                     fb_cap: int):
+    """Re-resolve ONLY the flagged queries with the full-array oracle,
+    in place, in a buffer of at most ``fb_cap`` (the reference's
+    cumsum + scatter compaction, as the flagged indices in order).
+    Skipped when no flag is set.  Returns ``(fb_count, overflow)``; on
+    overflow nothing is patched — the caller re-runs the batch on the
+    oracle stage, as the reference's callers do with its results."""
+    fb_count = int(fb.sum().item())
+    if fb_count == 0 or fb_count > fb_cap:
+        return fb_count, fb_count > fb_cap
+    idx = torch.nonzero(fb).squeeze(1)
+    slot_f, found_f = oracle_search(q[idx], ql[idx] if a.key_wide else ql,
+                                    a.slot_key, a.slot_key_lo, a.key_wide)
+    slot[idx] = slot_f
+    found[idx] = found_f
+    return fb_count, False
+
+
+def route_segment_exact(q, ql, a: IndexArrays):
+    """Exact segment routing (the branch of the reference's
+    ``_route_segment`` without a radix table): searchsorted over the
+    segment first keys, or a pair bisect when keys are wide."""
+    segk = a.seg_first_key
+    k_pad = segk.shape[0]
+    if a.key_wide:
+        trips = int(np.ceil(np.log2(max(k_pad, 2)))) + 1
+        lo0 = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+        hi0 = torch.full(q.shape, k_pad - 1, dtype=torch.int32,
+                         device=q.device)
+        seg = _pair_bisect(segk, a.seg_first_key_lo, q, ql, lo0, hi0, trips)
+        return seg.clamp(0, k_pad - 1).long()
+    return (torch.searchsorted(segk, q, right=True) - 1).clamp(0, k_pad - 1)
+
+
+def xla_window_lookup(q, ql, a: IndexArrays, err_lo_pad, err_hi_pad, *,
+                      trips: int, flat_w: int, radix_table=None,
+                      radix_scale=None):
+    """Per-query bounded window search (the reference's
+    ``_xla_window_lookup``, permutation-free): the error bounds give
+    each query a slot window ``[lo0, hi0]``; a flat rank count over
+    ``flat_w`` slots from ``lo0`` when ``flat_w > 0``, else a
+    fixed-trip bisect.  Queries whose bracket escapes the window raise
+    the fallback flag.  With ``radix_table`` the segment routing is the
+    approximate radix route (sound: an edge rank raises the flag).
+    Returns ``(slot i32, found, fb)``."""
+    sk, skl = a.slot_key, a.slot_key_lo
+    m_pad = sk.shape[0]
+    wide = a.key_wide
+    icept_lo = a.seg_icept + err_lo_pad - 1.0
+    icept_hi = a.seg_icept + err_hi_pad + 1.0
+    if radix_table is not None:
+        seg = route_segment(q, ql, radix_table, radix_scale, wide)
+    else:
+        seg = route_segment_exact(q, ql, a)
+    dx = q - a.seg_first_key[seg]
+    if wide:
+        dx = dx + (ql - a.seg_first_key_lo[seg])
+    sl = a.seg_slope[seg]
+    clip_hi = _slot_clip_hi(a.n_slots)
+    lo0 = _clip(torch.floor(sl * dx + icept_lo[seg]), clip_hi).int()
+    hi0 = _clip(torch.ceil(sl * dx + icept_hi[seg]), clip_hi).int()
+    hi0 = torch.maximum(hi0, lo0)
+    finite = torch.isfinite(q)
+
+    if flat_w:
+        offs = torch.arange(flat_w, device=q.device)
+        idx = (lo0.long()[:, None] + offs).clamp(max=m_pad - 1)
+        ks = sk[idx]
+        edge = (lo0.long() + flat_w).clamp(max=m_pad - 1)
+        if wide:
+            ksl = skl[idx]
+            le = _ple(ks, ksl, q[:, None], ql[:, None])
+            eq = _peq(ks, ksl, q[:, None], ql[:, None])
+            at_edge = _ple(sk[edge], skl[edge], q, ql)
+        else:
+            le = ks <= q[:, None]
+            eq = ks == q[:, None]
+            at_edge = sk[edge] <= q
+        rank = le.sum(dim=1).int()
+        slot = lo0 - 1 + rank
+        found = (slot >= 0) & eq.any(dim=1)
+        fb_lo = (rank == 0) & (lo0 > 0)
+        fb_hi = (rank == flat_w) & at_edge
+        return slot, found, (fb_lo | fb_hi) & finite
+
+    if wide:
+        slot = _pair_bisect(sk, skl, q, ql, lo0 - 1, hi0, trips)
+    else:
+        slot = _bisect(lo0 - 1, hi0, trips,
+                       lambda mid: sk[mid.clamp(0, m_pad - 1).long()] <= q)
+    safe = slot.clamp(0, m_pad - 1).long()
+    edge = (hi0 + 1).clamp(max=m_pad - 1).long()
+    if wide:
+        found = (slot >= 0) & _peq(sk[safe], skl[safe], q, ql)
+        at_edge = _ple(sk[edge], skl[edge], q, ql)
+    else:
+        found = (slot >= 0) & (sk[safe] == q)
+        at_edge = sk[edge] <= q
+    fb_hi = (slot == hi0) & at_edge
+    fb_lo = (slot == lo0 - 1) & (lo0 > 0)
+    return slot, found, (fb_lo | fb_hi) & finite
+
+
+def pallas_search(qs, a: IndexArrays, err_lo_pad, *, q_tile: int,
+                  w_tile: int):
+    """The legacy stage's search over sorted narrow queries: the
+    ``predict_ref`` tile schedule, then one launch of the legacy kernel.
+    Returns ``(slot, found, fb)`` with the +inf padding rows' flags
+    masked (they hit the window edge and are sliced away)."""
+    y_hat, seg = predict_ref(qs, a.seg_first_key, a.seg_slope, a.seg_icept)
+    lo = _clip(y_hat + err_lo_pad[seg] - 1.0, _slot_clip_hi(a.n_slots))
+    tile_block = tile_blocks(lo, a, q_tile=q_tile, w_tile=w_tile)
+    slot, found, fb, _pred = lookup_kernel(
+        qs, tile_block, a.seg_first_key, a.seg_slope, a.seg_icept,
+        a.slot_key, q_tile=q_tile, w_tile=w_tile)
+    return slot, found, fb & torch.isfinite(qs)
+
+
+STAGES = ("fused", "pallas", "xla", "oracle")
+
+
 def pipeline(qh, ql, a: IndexArrays, err_lo_pad, radix_table, radix_scale,
              *, stage: str, q_tile: int, w_tile: int, flat_w: int,
-             fb_cap: int, assume_sorted: bool):
-    """One batch through ``stage`` ("fused" or "oracle").  Returns
+             fb_cap: int, assume_sorted: bool, err_hi_pad=None,
+             trips: int = 1, radix: bool = False):
+    """One batch through ``stage`` (one of ``STAGES``).  Returns
     ``(out, out_hi, slot, resolved, fb_count, overflow)`` as tensors on
-    the index's device (counts as ints)."""
+    the index's device (counts as ints).  ``err_hi_pad`` / ``trips`` /
+    ``radix`` (radix routing) serve the "xla" stage."""
+    if stage not in STAGES:
+        raise ValueError(f"unknown stage {stage!r}")
     if stage == "oracle":
         slot, found = oracle_search(qh, ql, a.slot_key, a.slot_key_lo,
                                     a.key_wide)
         out, out_hi, resolved = epilogue(qh, ql, slot, found, a,
                                          a.max_chain)
         return out, out_hi, slot, resolved, 0, False
-    if stage != "fused":
-        raise ValueError(f"unknown stage {stage!r}")
+    if stage == "xla":  # permutation-free
+        slot, found, fb = xla_window_lookup(
+            qh, ql, a, err_lo_pad, err_hi_pad, trips=trips, flat_w=flat_w,
+            radix_table=radix_table if radix else None,
+            radix_scale=radix_scale if radix else None)
+        fb_count, overflow = compact_fallback(qh, ql, slot, found, fb, a,
+                                              fb_cap=fb_cap)
+        out, out_hi, resolved = epilogue(qh, ql, slot, found, a,
+                                         a.max_chain)
+        return out, out_hi, slot, resolved, fb_count, overflow
+    if stage == "pallas" and a.key_wide:
+        raise ValueError("the pallas backend does not support wide "
+                         "(f32 hi/lo pair) keys; use 'xla'")
     if assume_sorted:
         qs, qls, order = qh, ql, None
     else:
@@ -150,14 +305,22 @@ def pipeline(qh, ql, a: IndexArrays, err_lo_pad, radix_table, radix_scale,
             order = torch.sort(qh, stable=True).indices
             qls = ql
         qs = qh[order]
-    slot, res, out, out_hi, _fb, fb_loc, fb_cnt = fused_lookup(
-        *fused_args(qs, qls, a, err_lo_pad, radix_table, radix_scale,
-                    q_tile=q_tile, w_tile=w_tile),
-        **fused_statics(a, q_tile=q_tile, w_tile=w_tile, flat_w=flat_w))
-    resolved = res.bool()
-    fb_count, overflow = fused_fixup(qs, qls, slot, resolved, out, out_hi,
-                                     fb_loc, fb_cnt, a, q_tile=q_tile,
-                                     fb_cap=fb_cap)
+    if stage == "fused":
+        slot, res, out, out_hi, _fb, fb_loc, fb_cnt = fused_lookup(
+            *fused_args(qs, qls, a, err_lo_pad, radix_table, radix_scale,
+                        q_tile=q_tile, w_tile=w_tile),
+            **fused_statics(a, q_tile=q_tile, w_tile=w_tile, flat_w=flat_w))
+        resolved = res.bool()
+        fb_count, overflow = fused_fixup(qs, qls, slot, resolved, out,
+                                         out_hi, fb_loc, fb_cnt, a,
+                                         q_tile=q_tile, fb_cap=fb_cap)
+    else:
+        slot, found, fb = pallas_search(qs, a, err_lo_pad, q_tile=q_tile,
+                                        w_tile=w_tile)
+        fb_count, overflow = compact_fallback(qs, qls, slot, found, fb, a,
+                                              fb_cap=fb_cap)
+        out, out_hi, resolved = epilogue(qs, qls, slot, found, a,
+                                         a.max_chain)
     if order is None:
         return out, out_hi, slot, resolved, fb_count, overflow
 
@@ -178,43 +341,66 @@ def _pad_bounds(err, k_pad: int, device) -> torch.Tensor:
     ).to(device)
 
 
+class _EscapeCounter:
+    count = 0
+
+
+# overflowed batches ``batched_lookup`` re-ran on the oracle stage
+_ESCAPES = _EscapeCounter()
+
+
 def batched_lookup(arrays: IndexArrays, err_lo_by_seg, queries, *,
                    q_tile: int = 0, w_tile: int = 2048,
-                   backend: str = "fused", err_hi_by_seg=None,
-                   queries_sorted: bool = False, fb_frac: float = FB_FRAC):
+                   use_kernel: bool = True, backend: Optional[str] = None,
+                   err_hi_by_seg=None, queries_sorted: bool = False,
+                   fb_frac: float = FB_FRAC):
     """Full device lookup: ``(payloads i64, slots, found, #fallbacks)``
     as host numpy arrays (payload -1 = miss).
 
-    ``backend`` is "fused" (the kernel) or "oracle" (full-array search).
-    On compaction overflow the batch is re-run on the oracle stage.
+    ``backend`` picks the stage: "fused" (the fused kernel), "pallas"
+    (the legacy kernel; narrow keys — wide-key arrays route to "xla"),
+    "xla" (windowed rank / bisect in torch ops, permutation-free) or
+    "oracle" (full-array search).  Default: "pallas" when
+    ``use_kernel`` else "oracle", as in the reference.  On compaction
+    overflow the batch is re-run on the oracle stage (``_ESCAPES``
+    counts it).
     """
-    if backend not in ("fused", "oracle"):
+    backend = backend or ("pallas" if use_kernel else "oracle")
+    if backend not in STAGES:
         raise ValueError(f"unknown backend {backend!r}")
     a = arrays
+    if backend == "pallas" and a.key_wide:
+        backend = "xla"  # the legacy kernel is narrow-only
     qh_np, ql_np = split_queries(queries, a.key_wide)
     n_q = qh_np.shape[0]
     if q_tile <= 0:
         q_tile = auto_q_tile(n_q, a.n_slots, w_tile)
-    if backend == "fused":
+    tile_granular = backend in ("fused", "pallas")
+    if tile_granular:
         qh_np = _pad_pow(qh_np, q_tile, np.float32(np.inf))
         if a.key_wide:
             ql_np = _pad_pow(ql_np, q_tile, np.float32(0))
     err_lo_np = np.asarray(err_lo_by_seg, np.float32)
     err_hi_np = (np.zeros_like(err_lo_np) if err_hi_by_seg is None
                  else np.asarray(err_hi_by_seg, np.float32))
-    flat_w = _fused_flat_width(err_lo_np, err_hi_np)
+    flat_w = (_fused_flat_width(err_lo_np, err_hi_np) if backend == "fused"
+              else _flat_width(err_lo_np, err_hi_np))
     k_pad = int(a.seg_first_key.shape[0])
     dev = a.device
     table, scale = build_radix_router(a)
     fb_cap = int(min(qh_np.shape[0],
-                     max(q_tile, int(np.ceil(fb_frac * qh_np.shape[0])))))
+                     max(q_tile if tile_granular else 64,
+                         int(np.ceil(fb_frac * qh_np.shape[0])))))
     out, out_hi, slot, found, fb, overflow = pipeline(
         torch.from_numpy(qh_np).to(dev), torch.from_numpy(ql_np).to(dev),
         a, _pad_bounds(err_lo_np, k_pad, dev),
         torch.from_numpy(table).to(dev), torch.from_numpy(scale).to(dev),
         stage=backend, q_tile=q_tile, w_tile=w_tile, flat_w=flat_w,
-        fb_cap=fb_cap, assume_sorted=bool(queries_sorted))
-    if overflow:
+        fb_cap=fb_cap, assume_sorted=bool(queries_sorted),
+        err_hi_pad=_pad_bounds(err_hi_np, k_pad, dev),
+        trips=_bisect_trips(err_lo_np, err_hi_np))
+    if backend != "oracle" and overflow:
+        _ESCAPES.count += 1
         return batched_lookup(arrays, err_lo_by_seg, queries,
                               q_tile=q_tile, w_tile=w_tile,
                               backend="oracle", err_hi_by_seg=err_hi_by_seg,
@@ -229,27 +415,38 @@ class QueryEngine:
     Pads batches up to power-of-two buckets (``min_bucket`` and up),
     keeps the padded error bounds and the radix router resident on the
     index's device, and picks per bucket: ``q_tile`` by
-    ``auto_q_tile``, the flat width (the wide fused width up to
-    ``fused_flat_max_bucket``, the legacy width above it) and the
-    escape buffer ``fb_cap`` (``fb_frac`` of the bucket, at least one
-    tile, times a sticky per-bucket boost after an overflow).
+    ``auto_q_tile``, the flat width (for the fused stage the wide fused
+    width up to ``fused_flat_max_bucket``, the legacy width above it;
+    the legacy width for the "pallas" / "xla" stages) and the escape
+    buffer ``fb_cap`` (``fb_frac`` of the bucket, at least one tile on
+    the tile-granular stages or 64, times a sticky per-bucket boost
+    after an overflow).
 
-    ``stats`` counts calls, fallbacks (escapes the fixup re-resolved)
-    and oracle escapes (overflowed batches re-run on the oracle stage);
-    ``last_stage`` names the stage that served the last call and
-    ``last_escapes`` the escapes its first stage flagged (more than
-    ``fb_cap`` when the call overflowed to the oracle stage).
+    Calls run the "fused" stage unless they ask for "pallas" (wide keys
+    route it to "xla"), "xla" (below ``xla_min_bucket`` downgraded to
+    "oracle" unless forced) or "oracle".  ``stats`` counts calls, fallbacks (escapes the fixup
+    re-resolved) and oracle escapes (overflowed batches re-run on the
+    oracle stage); ``last_stage`` names the stage that served the last
+    call and ``last_escapes`` the escapes its first stage flagged (more
+    than ``fb_cap`` when the call overflowed to the oracle stage).
     """
 
     def __init__(self, arrays: IndexArrays, err_lo_by_seg,
                  err_hi_by_seg=None, *, w_tile: int = 2048,
                  fb_frac: float = FB_FRAC, min_bucket: int = 256,
+                 xla_min_bucket: int = 8192,
                  fused_flat_max_bucket: int = 8192):
         self.arrays = arrays
+        # the fused kernel is the default; the legacy "pallas" / "xla"
+        # stages stay as debug / reference backends
         self.backend = "fused"
         self.w_tile = w_tile
         self.fb_frac = fb_frac
         self.min_bucket = max(32, int(min_bucket))
+        # below this bucket a non-forced "xla" request runs the oracle
+        # stage (the legacy windowed path's extra ops cost more than the
+        # full search they avoid)
+        self.xla_min_bucket = int(xla_min_bucket)
         self.fused_flat_max_bucket = int(fused_flat_max_bucket)
         self.err_lo = np.asarray(err_lo_by_seg, np.float32)
         self.err_hi = (None if err_hi_by_seg is None
@@ -258,6 +455,7 @@ class QueryEngine:
                      else self.err_hi)
         dev = arrays.device
         self._upload_bounds(self.err_lo, err_hi_np)
+        self._trips = _bisect_trips(self.err_lo, err_hi_np)
         self._flat_w = _flat_width(self.err_lo, err_hi_np)
         self._fused_flat_w = _fused_flat_width(self.err_lo, err_hi_np)
         table, scale = build_radix_router(arrays)
@@ -311,6 +509,7 @@ class QueryEngine:
     def _set_bound_statics(self, err_lo, err_hi) -> None:
         self.err_lo = np.asarray(err_lo, np.float32)
         self.err_hi = np.asarray(err_hi, np.float32)
+        self._trips = _bisect_trips(self.err_lo, self.err_hi)
         self._flat_w = _flat_width(self.err_lo, self.err_hi)
         self._fused_flat_w = _fused_flat_width(self.err_lo, self.err_hi)
 
@@ -431,13 +630,17 @@ class QueryEngine:
         return pipeline(qj, qlj, self.arrays, self._elo, self._radix_table,
                         self._radix_scale, stage=stage, q_tile=q_tile,
                         w_tile=self.w_tile, flat_w=flat_w, fb_cap=fb_cap,
-                        assume_sorted=queries_sorted)
+                        assume_sorted=queries_sorted, err_hi_pad=self._ehi,
+                        trips=self._trips, radix=stage in ("xla", "fused"))
 
     def lookup(self, queries, *, queries_sorted: bool = False,
-               backend: Optional[str] = None):
+               backend: Optional[str] = None, force_backend: bool = False):
         """``(payloads i64, slots, found, fb_count)`` as host numpy
         arrays sliced to ``len(queries)``.  ``backend`` overrides the
-        engine default for this call ("fused" / "oracle")."""
+        engine default for this call ("fused" / "pallas" / "xla" /
+        "oracle"); wide keys route "pallas" to "xla" (a capability,
+        always applied); below ``xla_min_bucket`` an "xla" request runs
+        the oracle stage unless ``force_backend``."""
         a = self.arrays
         qh, ql = split_queries(queries, a.key_wide)
         n_q = qh.shape[0]
@@ -454,18 +657,24 @@ class QueryEngine:
                 qlp = ql
         q_tile = min(b, auto_q_tile(b, a.n_slots, self.w_tile))
         stage = backend or self.backend
-        if stage not in ("fused", "oracle"):
+        if stage not in STAGES:
             raise ValueError(f"unknown backend {stage!r}")
+        if stage == "pallas" and a.key_wide:
+            stage = "xla"  # capability fallback (the legacy kernel)
+        if stage == "xla" and b < self.xla_min_bucket and not force_backend:
+            stage = "oracle"  # size-aware scheduling (see __init__)
         self.last_stage = stage
         boost = self._cap_boost.get(b, 1)
-        fb_cap = int(min(b, boost * max(q_tile,
+        tile_granular = stage in ("fused", "pallas")
+        fb_cap = int(min(b, boost * max(q_tile if tile_granular else 64,
                                         int(np.ceil(self.fb_frac * b)))))
         dev = a.device
         qj = torch.from_numpy(qp).to(dev)
         qlj = torch.from_numpy(qlp).to(dev)
+        flat_w = (self._fused_width_for(b) if stage == "fused"
+                  else self._flat_w)
         out, out_hi, slot, found, fb, overflow = self._dispatch(
-            qj, qlj, stage, q_tile, fb_cap, bool(queries_sorted),
-            self._fused_width_for(b))
+            qj, qlj, stage, q_tile, fb_cap, bool(queries_sorted), flat_w)
         self.last_escapes = int(fb)
         if stage != "oracle" and fb_cap < b and overflow:
             self.stats["oracle_escapes"] += 1

@@ -1,11 +1,12 @@
-"""The §5.3 write path's device entry points: per-key placement
-primitives and the single-dispatch fused ingest.
+"""The device entry points of gap insertion: Eq. 3 target positions
+for all keys, and the §5.3 write path's per-key placement primitives
+and single-dispatch fused ingest.
 
-Counterpart of the ingest half of ``repro.kernels.ops_gap``
-(``ingest_place``, ``FUSED_ABORT_BITS``, ``fused_ingest``).  Both take
-the frozen ``IndexArrays`` and host f64 keys, run on the index's
-device through ``gap_place`` (the CUDA kernel on the card, its plain
-version on the CPU), and hand the host numpy results back.
+Counterpart of ``repro.kernels.ops_gap`` (``prepare_gap_tables``,
+``gap_positions_device``, ``gap_positions_oracle``, ``ingest_place``,
+``FUSED_ABORT_BITS``, ``fused_ingest``).  Each runs on its device
+through the kernels of ``gap_place`` (the CUDA kernel on the card, its
+plain version on the CPU) and hands host numpy results back.
 """
 
 from __future__ import annotations
@@ -13,10 +14,81 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .freeze import _split_i64, split_key_pair
-from .gap_place import fused_ingest_body, ingest_place as _place, split_flags
+from ..device import resolve_device
+from .freeze import _pad_pow, _split_i64, split_key_pair
+from .gap_place import (fused_ingest_body, gap_place,
+                        ingest_place as _place, split_flags)
 
-__all__ = ["ingest_place", "fused_ingest", "FUSED_ABORT_BITS"]
+__all__ = ["prepare_gap_tables", "gap_positions_device",
+           "gap_positions_oracle", "ingest_place", "fused_ingest",
+           "FUSED_ABORT_BITS"]
+
+def prepare_gap_tables(x: np.ndarray, y: np.ndarray, plm, rho: float,
+                       seg_chunk: int = 512):
+    """Fold Eq. 3 into per-segment (first_key, base, x0, scale) tables.
+
+    Mirrors core.gaps.gap_positions' segment anchoring (first/last present
+    key per segment), done once host-side in O(n).
+    """
+    seg = plm.segment_of(x)
+    K = plm.n_segments
+    n = x.shape[0]
+    idx = np.arange(n, dtype=np.int64)
+    first = np.full(K, n, np.int64)
+    last = np.full(K, -1, np.int64)
+    np.minimum.at(first, seg, idx)
+    np.maximum.at(last, seg, idx)
+    present = first < n
+    f = np.minimum(first, n - 1)
+    l = np.clip(last, 0, n - 1)
+    y_first = np.where(present, y[f], 0.0)
+    y_last = np.where(present, y[l], 0.0)
+    x_first = np.where(present, x[f], 0.0)
+    x_last = np.where(present, x[l], 1.0)
+    U = np.where(present, rho * (y_last - y_first), 0.0)
+    S = np.concatenate([[0.0], np.cumsum(U)[:-1]])
+    dx = np.where(x_last > x_first, x_last - x_first, 1.0)
+    scale = (y_last - y_first) * (1.0 + rho) / dx
+    base = y_first + S
+
+    pad = lambda a, fill: _pad_pow(np.asarray(a, np.float32), seg_chunk,
+                                   np.float32(fill))
+    return (pad(plm.seg_first_key, np.inf), pad(base, 0.0),
+            pad(x_first, 0.0), pad(scale, 0.0))
+
+
+def gap_positions_device(x: np.ndarray, plm, rho: float, *, device=None,
+                         key_tile: int = 1024,
+                         seg_chunk: int = 512) -> np.ndarray:
+    """Device Eq. 3: monotone target positions (host f64) for all keys.
+
+    Builds the tables with ``prepare_gap_tables``, pads the f32 keys
+    with +inf to a multiple of ``key_tile``, launches ``gap_place`` on
+    ``device`` (cuda by default) and takes the running max there, whose
+    f32 values are those of ``np.maximum.accumulate`` on the same
+    values (the boundary-tie guard of core.gaps.gap_positions).
+    """
+    dev = resolve_device(device)
+    x = np.asarray(x, np.float64)
+    n = x.shape[0]
+    y = np.arange(n, dtype=np.float64)
+    tables = prepare_gap_tables(x, y, plm, rho, seg_chunk)
+    xp = _pad_pow(x.astype(np.float32), key_tile, np.float32(np.inf))
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    out = gap_place(up(xp), *map(up, tables), key_tile=key_tile,
+                    seg_chunk=seg_chunk)
+    yg = torch.cummax(out[:n], dim=0).values
+    return yg.cpu().numpy().astype(np.float64)
+
+
+def gap_positions_oracle(x: np.ndarray, plm, rho: float) -> np.ndarray:
+    """The host f64 oracle — delegates to the core implementation."""
+    from ..core.gaps import gap_positions
+
+    x = np.asarray(x, np.float64)
+    return gap_positions(x, np.arange(x.shape[0], dtype=np.float64), plm,
+                         rho)
+
 
 # abort-reason bit names (the graph's ``reasons`` bitmask), for stats
 FUSED_ABORT_BITS = (

@@ -1,6 +1,6 @@
 """Device oracle stage in plain torch.
 
-Counterpart of ``repro.kernels.ref`` (``lookup_ref``,
+Counterpart of ``repro.kernels.ref`` (``lookup_ref``, ``predict_ref``,
 ``chain_hit_index``) and of the pair helpers and epilogue in
 ``repro.kernels.ops`` (``_ple``, ``_peq``, ``_pair_bisect``,
 ``_pair_oracle``, ``_epilogue``).  For each query q:
@@ -18,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["lookup_ref", "chain_hit_index", "pair_oracle", "epilogue"]
+__all__ = ["lookup_ref", "predict_ref", "chain_hit_index", "pair_oracle",
+           "epilogue"]
 
 
 def _ple(kh, kl, qh, ql):
@@ -64,6 +65,18 @@ def pair_oracle(qh, ql, slot_key, slot_key_lo):
     safe = slot.clamp_min(0).long()
     found = (slot >= 0) & _peq(slot_key[safe], slot_key_lo[safe], qh, ql)
     return slot, found
+
+
+def predict_ref(queries, seg_first_key, seg_slope, seg_icept):
+    """Segment routing + linear prediction (f32): ``(y_hat, seg)``.
+
+    One torch op per step, so the product is rounded before the sum
+    (XLA on the CPU may contract the reference's line into an FMA).
+    """
+    seg = (torch.searchsorted(seg_first_key, queries, right=True)
+           - 1).clamp(0, seg_first_key.shape[0] - 1)
+    fk = seg_first_key[seg]
+    return seg_slope[seg] * (queries - fk) + seg_icept[seg], seg
 
 
 def lookup_ref(queries, slot_key):

@@ -100,7 +100,7 @@ def test_wide_payloads_roundtrip():
     q = _mixed_queries(rng, keys, n_hit=1000, n_miss=200)
     truth = port.gapped.lookup_batch(q)
     assert truth.max() > np.iinfo(np.int32).max
-    got = ops.batched_lookup(arrs, port.mech.plm.err_lo, q,
+    got = ops.batched_lookup(arrs, port.mech.plm.err_lo, q, backend="fused",
                              err_hi_by_seg=port.mech.plm.err_hi)
     want = ref_batched_lookup(ref_freeze(ref), ref.mech.plm.err_lo, q,
                               backend="fused-pallas",

@@ -77,3 +77,30 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
                     flat_w=8, max_chain=0, n_slots=10, key_wide=False,
                     wide=False)
     assert called == ["kernel"]
+
+
+@pytest.mark.parametrize("wrapper", ["gap_place", "lookup_kernel"])
+def test_cuda_tensor_never_reaches_the_new_plain_versions(monkeypatch,
+                                                          wrapper):
+    """The Eq. 3 and legacy-lookup wrappers take their plain versions
+    only for CPU tensors: a CUDA tensor goes to the kernel's build and
+    launch, which raises here (no nvcc), and the count stays."""
+    from repro_torch.kernels import _build, gap_place as gp, lookup as lk
+    mod, check = ((gp, "_check_gap") if wrapper == "gap_place"
+                  else (lk, "_check_legacy"))
+    fn = getattr(mod, wrapper)
+    called = []
+    monkeypatch.setattr(mod, f"{wrapper}_plain",
+                        lambda *a, **k: called.append("plain"))
+    monkeypatch.setattr(mod, check, lambda *a, **k: torch.device("cuda"))
+
+    def no_build(name):
+        called.append(name)
+        raise RuntimeError("no nvcc")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    launches = fn.launches
+    n_args = 5 if wrapper == "gap_place" else 6
+    with pytest.raises(RuntimeError, match="no nvcc"):
+        fn(*([torch.zeros(1)] * n_args))
+    assert called == [wrapper] and fn.launches == launches

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain torch versions on
-the card: the fused lookup (all seven outputs) and the ingest placement
-(``p``, ``pv``, ``ub``, ``flags``), identical CUDA inputs, bit for
-bit.  Marked
+the card: the fused lookup (all seven outputs), the ingest placement
+(``p``, ``pv``, ``ub``, ``flags``), Eq. 3 gap placement (positions;
+NaN equals NaN in the +inf padding rows) and the legacy lookup kernel
+(slot, found, fb, pred), identical CUDA inputs, bit for bit.  Marked
 ``gpu``: each test skips itself without a CUDA device.  This file
 imports no JAX, so it also runs where only the port is installed:
 
@@ -13,8 +14,9 @@ import pytest
 import torch
 
 from repro_torch.core import Index
-from repro_torch.kernels import freeze, gap_place, ops
-from repro_torch.kernels.lookup import fused_lookup, fused_lookup_plain
+from repro_torch.kernels import freeze, gap_place, ops, ops_gap
+from repro_torch.kernels.lookup import (fused_lookup, fused_lookup_plain,
+                                        lookup_kernel, lookup_kernel_plain)
 
 
 def _index(seed, span):
@@ -98,3 +100,72 @@ def test_ingest_place_matches_plain_on_the_card(name, seed, span):
     assert gap_place.ingest_place.launches == launches + 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
+
+
+def _same(g, w):
+    """Equal values, dtypes and shapes; NaN equals NaN."""
+    if g.dtype != w.dtype or g.shape != w.shape:
+        return False
+    if g.is_floating_point():
+        return bool(((g == w) | (g.isnan() & w.isnan())).all())
+    return torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("span,key_tile,seg_chunk",
+                         [(2 ** 22, 256, 128), (2 ** 40, 2048, 1024)],
+                         ids=["narrow_256_128", "wide_2048_1024"])
+def test_gap_place_matches_plain_on_the_card(span, key_tile, seg_chunk):
+    """The Eq. 3 kernel against ``gap_place_plain`` on identical CUDA
+    inputs, +inf padding rows and keys below the first segment
+    included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    idx, _ = _index(6, span)
+    x = idx.keys
+    y = np.arange(x.size, dtype=np.float64)
+    tables = ops_gap.prepare_gap_tables(x, y, idx.mech.plm, 0.15,
+                                        seg_chunk)
+    xs = np.concatenate([[x[0] - 1e3, x[0] - 1.0], x])
+    xp = freeze._pad_pow(xs.astype(np.float32), key_tile,
+                         np.float32(np.inf))
+    args = [torch.from_numpy(a).cuda() for a in (xp, *tables)]
+    launches = gap_place.gap_place.launches
+    got = gap_place.gap_place(*args, key_tile=key_tile, seg_chunk=seg_chunk)
+    want = gap_place.gap_place_plain(*args)
+    torch.cuda.synchronize()
+    assert gap_place.gap_place.launches == launches + 1
+    assert _same(got, want)
+    assert got[xs.size:].isnan().all() and got[:xs.size].isfinite().all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_tile,w_tile,win_chunk",
+                         [(128, 512, 128), (256, 2048, 512),
+                          (512, 4096, 1024)])
+def test_lookup_kernel_matches_plain_on_the_card(q_tile, w_tile, win_chunk):
+    """The legacy lookup kernel against ``lookup_kernel_plain`` (which
+    counts literally where the kernel bisects) on identical CUDA
+    inputs, windows at the first and the last block pair included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    idx, q = _index(7, 2 ** 22)
+    a = freeze.from_learned_index(idx, "cuda", w_tile=w_tile)
+    qs = np.sort(np.concatenate([q, [idx.keys[0] - 5.0,
+                                     idx.keys[-1] + 5.0]]))
+    qp = np.concatenate([qs, np.full((-qs.size) % q_tile + q_tile, np.inf)])
+    qt = torch.from_numpy(qp.astype(np.float32)).cuda()
+    n_tiles = qp.size // q_tile
+    max_block = a.slot_key.shape[0] // w_tile - 2
+    tb = torch.from_numpy(np.linspace(0, max_block, n_tiles).astype(
+        np.int32)).cuda()
+    args = (qt, tb, a.seg_first_key, a.seg_slope, a.seg_icept, a.slot_key)
+    tiling = dict(q_tile=q_tile, w_tile=w_tile, win_chunk=win_chunk)
+    launches = lookup_kernel.launches
+    got = lookup_kernel(*args, **tiling)
+    want = lookup_kernel_plain(*args, **tiling)
+    torch.cuda.synchronize()
+    assert lookup_kernel.launches == launches + 1
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    assert got[1].any() and got[2].any()
