@@ -15,7 +15,10 @@ phase:
 2. ``fused_lookup`` against ``fused_lookup_plain`` on identical CUDA
    inputs, bit for bit in all seven outputs: narrow keys (< 2^24) in
    flat and whole-window mode, wide keys (< 2^40, the f32 hi/lo pair)
-   with chains at max_chain in both modes, and int64 payloads;
+   with chains at max_chain in both modes, and int64 payloads; then on
+   each of those three indexes every flat width of ``SWEEP_FLAT_W``
+   (0, 1, 31, 32, 33, 256) at q_tile 32, 256 and 512, with tiles at
+   the first and the last block pair;
 3. the read path at real scale: ``Index.build(keys, method="pgm",
    eps=64, gap_rho=0.15, sample_rate=0.01)`` over 32M unique integer
    keys below 2^40, then lookups of 4,096 and 2^20 queries (about 70%
@@ -23,13 +26,20 @@ phase:
    out of range), every answer held against the host oracle
    ``GappedArray.lookup_batch``; the kernel is timed at the main
    path's shapes beside its plain version, its bound and
-   ``torch.searchsorted`` as a partial yardstick;
+   ``torch.searchsorted`` as a partial yardstick, and its device time
+   at flat widths 8, 32 and 256 on the same inputs;
 4. ``ingest_place`` against ``ingest_place_plain`` on identical CUDA
    inputs, bit for bit in all four outputs (p, pv, ub, flags): narrow
    and wide keys, keys next to the longest chain, keys inside the
    rounding-escape band, keys below the first slot and above the last,
    +inf padding rows; the escape-patched primitives held against the
-   host oracle ``GappedArray.placement_primitives``;
+   host oracle ``GappedArray.placement_primitives``.  Then the cases of
+   the searches from ``p``: on each index, per segment the key whose
+   ``p`` lies farthest from its ``ub``, keys whose ``p`` clips to 0 and
+   to ``n_slots - 1``, keys below the first slot and above the last,
+   the longest chain and its neighbours, +inf padding; and a wide index
+   with 10,000 neighbouring keys removed, queried at those keys, so
+   that ``pv`` walks the whole gap run;
 5. the fused write path at the largest size the fused gate admits
    (``n_slots < 2^22``: ``--fused-keys``, 3.6M keys by default): the
    read-heavy dynamic workload of the paper (w = 0.3,
@@ -88,6 +98,13 @@ legacy kernel is narrow-only (keys below 2^24, as in the reference),
 so phase 9 builds its own index; 8M of the 16.8M integers below 2^24
 is about half the key space.
 
+Every kernel timing reports ``ms`` (CUDA events around 20 back-to-back
+wrapper calls, over the count: host and device together),
+``device_ms`` (the kernel alone, by torch.profiler), ``graph_ms`` (the
+20 calls replayed from a CUDA graph) and ``host_us`` (the wrapper's
+enqueue time); a one-element torch op is timed the same way as the
+launch floor.
+
 Each path runs with the kernels' launch counts set to 0 just before it
 and read just after.  Then the kernels' JSON line, the card's name and
 power limit as nvidia-smi gives them, and last ``{"ok": true,
@@ -144,6 +161,104 @@ def cuda_ms(fn, launches: int = 20, runs: int = 5, warm: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / launches)
     return statistics.median(times)
+
+
+def profiled_device_ms(fn, op: str, calls: int = 20) -> tuple:
+    """Device time per launch of the kernels whose name holds ``op``
+    over ``calls`` calls of ``fn()``, by torch.profiler: their summed
+    device time over the number of them it recorded (it may drop some
+    events of a session, so the count is its own, not ``calls``); with
+    the names and counts of everything the calls ran on the device.
+    ``(None, seen)`` when no such kernel was recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    mine_us, mine_n, seen = 0.0, 0, []
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            seen.append({"op": ev.key[:60], "count": ev.count,
+                         "ms": us / 1e3})
+            if op in ev.key:
+                mine_us += us
+                mine_n += ev.count
+    return (mine_us / 1e3 / mine_n if mine_n else None), seen
+
+
+def graph_ms(fn, calls: int = 20, runs: int = 5) -> float:
+    """ms per call of ``fn()`` replayed from a CUDA graph of ``calls``
+    back-to-back calls (no host work between launches): CUDA events
+    around each replay, the median of ``runs``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del g
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 20, runs: int = 5) -> float:
+    """Host time to enqueue one call of ``fn()`` (µs): the host clock
+    around ``calls`` calls that end before the device does, the median
+    of ``runs``."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def kernel_times(fn, kernel: str) -> dict:
+    """A wrapper's times at one shape: ``ms`` (CUDA events around 20
+    back-to-back calls, host and device together), ``device_ms`` (the
+    kernel alone: the profiler's time of the kernel named ``kernel``,
+    or CUDA-graph replay where the profiler records none), ``graph_ms``
+    (CUDA-graph replay of 20 calls: device time plus the gaps between
+    graph nodes) and ``host_us`` (the wrapper's enqueue time)."""
+    ms = cuda_ms(fn)
+    dev_ms, seen = profiled_device_ms(fn, kernel)
+    g_ms = graph_ms(fn)
+    return {"ms": ms, "device_ms": dev_ms if dev_ms is not None else g_ms,
+            "device_ms_by": ("profiler" if dev_ms is not None
+                             else "cuda graph"),
+            "graph_ms": g_ms, "host_us": host_us(fn), "device_ops": seen}
+
+
+def launch_floor(smi) -> dict:
+    """The cost of any launch: a one-element torch op (``add_`` on a
+    1-element CUDA tensor), timed as the kernels are."""
+    one = torch.zeros(1, device="cuda")
+    row = {"op": "one-element add_",
+           **kernel_times(lambda: one.add_(1.0), "")}
+    emit("launch_floor", card=smi, **row)
+    return row
 
 
 def mixed_queries(rng, keys, chain_keys, n, lo_bound):
@@ -296,7 +411,66 @@ def phase_cases(rng) -> list:
                      "launches": fused_lookup.launches - launches0,
                      "outputs_equal": 7, "tolerance": TOL})
         emit("kernel_vs_plain", **rows[-1])
+    for (span, wpay), (idx, keys) in built.items():
+        label = ("narrow" if span <= 2 ** 24 else "wide") + (
+            "_payload_i64" if wpay else "")
+        ga = idx.gapped
+        chain = longest_chain_keys(ga)
+        q = mixed_queries(rng, keys, ga.links.chain_keys, 1 << 16, keys[0])
+        q[:chain.size] = chain
+        rows.append(sweep_cases(f"sweep_{label}", idx, q))
+        emit("kernel_vs_plain_sweep", **rows[-1])
     return rows
+
+
+SWEEP_FLAT_W = (0, 1, 31, 32, 33, 256)   # 0: whole window; 256: the cap
+SWEEP_Q_TILES = (32, 256, 512)   # 512: the kernel's second launch bound
+
+
+def sweep_cases(name, idx, q) -> dict:
+    """The fused kernel against its plain version at every flat width of
+    ``SWEEP_FLAT_W`` and q_tile of ``SWEEP_Q_TILES`` (the engine's tile
+    schedule, with the first tile's window moved to the last block pair
+    and the last tile's to the first), bit for bit in all seven
+    outputs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lookup import (fused_launch_shape, fused_lookup,
+                                            fused_lookup_plain)
+    eng = idx.sync_device()
+    a = eng.arrays
+    qh, ql = ops.split_queries(np.sort(q), a.key_wide)
+    qh_t = torch.from_numpy(qh).cuda()
+    ql_t = torch.from_numpy(ql).cuda()
+    last_pair = a.slot_key.shape[0] // eng.w_tile - 2
+    shapes, escapes, found = [], 0, 0
+    for q_tile in SWEEP_Q_TILES:
+        args = ops.fused_args(qh_t, ql_t, a, eng._elo, eng._radix_table,
+                              eng._radix_scale, q_tile=q_tile,
+                              w_tile=eng.w_tile)
+        tb = args[2].clone()
+        tb[0], tb[-1] = last_pair, 0
+        args = args[:2] + (tb,) + args[3:]
+        for fw in SWEEP_FLAT_W:
+            statics = ops.fused_statics(a, q_tile=q_tile, w_tile=eng.w_tile,
+                                        flat_w=fw)
+            got = fused_lookup(*args, **statics)
+            want = fused_lookup_plain(*args, **statics)
+            torch.cuda.synchronize()
+            compare_outputs(f"{name}_fw{fw}_qt{q_tile}", got, want)
+            escapes += int(got[4].sum())
+            found += int(got[1].sum())
+            tiles, smem = fused_launch_shape(
+                tb.shape[0], q_tile, eng.w_tile, fw, a.key_wide,
+                torch.cuda.get_device_properties(0).multi_processor_count)
+            shapes.append({"flat_w": fw, "q_tile": q_tile,
+                           "tiles_per_cta": tiles, "smem": smem})
+    return {"case": name, "queries": int(q.size), "key_wide": a.key_wide,
+            "wide": a.wide, "max_chain_frozen": a.max_chain,
+            "flat_w": list(SWEEP_FLAT_W), "q_tile": list(SWEEP_Q_TILES),
+            "edge_windows": "first tile at the last block pair, last tile "
+                            "at the first",
+            "launch_shapes": shapes, "escapes": escapes,
+            "resolved": found, "outputs_equal": 7, "tolerance": TOL}
 
 
 def fused_bytes(args, statics, got) -> int:
@@ -471,17 +645,25 @@ def phase_main(rng, n_keys, seed, smi, profile=False) -> dict:
     per_batch = {}
     for n_b, q in batches.items():
         args, statics, got, err = kernel_case(f"main_{n_b}", idx, q)
-        k_ms = cuda_ms(lambda: fused_lookup(*args, **statics))
+        k_t = kernel_times(lambda: fused_lookup(*args, **statics),
+                           "fused_lookup_kernel")
         p_ms = cuda_ms(lambda: fused_lookup_plain(*args, **statics),
                        launches=5)
         sk, qs = args[9], args[0]
         lib_ms = cuda_ms(lambda: torch.searchsorted(sk, qs, right=True))
+        # the kernel's device time against its flat width, same inputs
+        # (other widths give other answers; this times the rank loop)
+        by_fw = {fw: profiled_device_ms(
+            lambda: fused_lookup(*args, **dict(statics, flat_w=fw)),
+            "fused_lookup_kernel")[0] for fw in (8, 32, 256)}
         nbytes = fused_bytes(args, statics, got)
         nops = fused_ops(statics, qs.shape[0])
         bound_ms = max(nbytes / H100_BYTES_PER_S,
                        nops / H100_F32_OPS_PER_S) * 1e3
         per_batch[n_b] = dict(
-            ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            **k_t, plain_ms=p_ms, library_ms=lib_ms,
+            device_ms_by_flat_w=by_fw,
+            bound_ms=bound_ms,
             bound_by=("bytes" if nbytes / H100_BYTES_PER_S
                       >= nops / H100_F32_OPS_PER_S else "operations"),
             max_abs_err=err, bytes=nbytes, ops=nops,
@@ -607,7 +789,76 @@ def phase_place_cases(rng) -> list:
         emit("place_vs_plain", **rows[-1])
         if not rows[-1]["escapes_in_band_keys"]:
             raise AssertionError(f"place_{name}: no key in the escape band")
+        rows.append(place_search_case(rng, f"search_{name}", idx, keys))
+        emit("place_vs_plain", **rows[-1])
+    idx, keys = build_case_index(rng, 2 ** 40, 200_000, n_mids=20_000)
+    run = keys[50_000:60_000]             # 10,000 neighbours: one gap run
+    idx.remove(run)
+    rows.append(place_search_case(rng, "search_long_gap_run", idx, keys,
+                                  inside=run))
+    emit("place_vs_plain", **rows[-1])
+    if rows[-1]["max_p_minus_pv"] < 8_000:
+        raise AssertionError("search_long_gap_run: no key walked the run")
     return rows
+
+
+def far_keys(rng, a, lo, hi, n_cand=1 << 18):
+    """Per segment, the absent key (of ``n_cand`` drawn) whose predicted
+    slot lies farthest from its ``ub``: the search from ``p`` walks the
+    segment's full error distance."""
+    from repro_torch.kernels.gap_place import ingest_place_plain
+    cand = np.unique(np.floor(rng.uniform(lo, hi, n_cand)))
+    args = place_args(a, cand)
+    p, _pv, ub, _f = ingest_place_plain(*args, n_slots=a.n_slots)
+    dist = (p.long() - ub.long()).abs().cpu().numpy()
+    seg = np.searchsorted(a.seg_first_key.cpu().numpy(),
+                          cand.astype(np.float32), side="right")
+    order = np.lexsort((-dist, seg))
+    first = order[np.r_[True, seg[order][1:] != seg[order][:-1]]]
+    return cand[first], int(dist.max())
+
+
+def place_search_case(rng, name, idx, keys, inside=None) -> dict:
+    """The new searches of ``ingest_place`` against the plain version's
+    whole-array bisects: keys at each segment's full error distance
+    from ``ub``, keys whose ``p`` clips to 0 and to ``n_slots - 1``,
+    keys below the first slot and above the last, keys next to the
+    longest chain, ``inside`` (keys of a deleted range: ``pv`` walks
+    its gap run) and +inf padding rows; all four outputs bit for
+    bit."""
+    ga = idx.gapped
+    a = idx.sync_device().arrays
+    far, far_dist = far_keys(rng, a, keys[0], keys[-1])
+    chain = longest_chain_keys(ga)
+    near_chain = np.concatenate([chain - 1.0, chain + 1.0, chain])
+    steps = 2.0 ** np.arange(0, 40, 3)
+    edges = np.concatenate([keys[0] - steps, keys[-1] + steps,
+                            [keys[0], keys[-1]]])
+    inside = np.zeros(0) if inside is None else inside
+    batch = np.concatenate([far, near_chain, edges, inside,
+                            np.floor(rng.uniform(keys[0], keys[-1], 4096))])
+    n_pad = 1 << int(batch.size + 64 - 1).bit_length()
+    got, _err = place_vs_plain(name, place_args(a, batch, n_pad), a.n_slots)
+    p, pv, ub = (t.long().cpu().numpy() for t in got[:3])
+    m_pad = int(a.slot_key.shape[0])
+    row = {"case": name, "n_slots": int(a.n_slots), "m_pad": m_pad,
+           "key_wide": a.key_wide, "batch": int(batch.size),
+           "padded": n_pad, "far_keys": int(far.size),
+           "max_p_minus_ub": int(np.abs(p - ub)[:batch.size].max()),
+           "max_p_minus_ub_drawn": far_dist,
+           "max_p_minus_pv": int((p - pv)[:batch.size].max()),
+           "p_at_0": int((p == 0).sum()),
+           "p_at_last_slot": int((p == a.n_slots - 1).sum()),
+           "ub_below_first": int((ub == -1).sum()),
+           "ub_at_last": int((ub == m_pad - 1).sum()),
+           "pv_none": int((pv == -1).sum()),
+           "near_chain_keys": int(near_chain.size),
+           "deleted_range_keys": int(inside.size),
+           "outputs_equal": 4, "tolerance": TOL}
+    for k in ("p_at_0", "p_at_last_slot", "ub_below_first", "ub_at_last"):
+        if not row[k]:
+            raise AssertionError(f"{name}: no row with {k}")
+    return row
 
 
 def place_bytes(args, got) -> int:
@@ -672,7 +923,8 @@ def time_place(idx, keys, smi, label) -> dict:
     args = place_args(a, keys)
     n_slots = a.n_slots
     got, err = place_vs_plain(f"timing_{label}", args, n_slots)
-    k_ms = cuda_ms(lambda: ingest_place(*args, n_slots=n_slots))
+    k_t = kernel_times(lambda: ingest_place(*args, n_slots=n_slots),
+                       "ingest_place_kernel")
     p_ms = cuda_ms(lambda: ingest_place_plain(*args, n_slots=n_slots),
                    launches=5)
     sk, xh = args[8], args[0]
@@ -680,7 +932,7 @@ def time_place(idx, keys, smi, label) -> dict:
     nbytes = place_bytes(args, got)
     nops = place_ops(args)
     t_b, t_o = nbytes / H100_BYTES_PER_S, nops / H100_F32_OPS_PER_S
-    row = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+    row = dict(**k_t, plain_ms=p_ms, library_ms=lib_ms,
                bound_ms=max(t_b, t_o) * 1e3,
                bound_by="bytes" if t_b >= t_o else "operations",
                bytes=nbytes, ops=nops, batch=int(keys.size),
@@ -1234,14 +1486,14 @@ def phase_eq3(main_res, smi) -> dict:
                              f"0.5, monotone {monotone}, budget {budget}")
     args, _ = eq3_args(keys, plm, rho, 1024, 512)
     err = eq3_vs_plain("eq3_main", args, n, 1024, 512)
-    k_ms = cuda_ms(lambda: gap_place(*args))
+    k_t = kernel_times(lambda: gap_place(*args), "gap_place_kernel")
     p_ms = cuda_ms(lambda: gap_place_plain(*args), launches=5)
     segk, xp = args[1], args[0]
     lib_ms = cuda_ms(lambda: torch.searchsorted(segk, xp, right=True))
     nbytes = eq3_bytes(args)
     nops = n * (int(segk.numel()).bit_length() + 3)
     t_b, t_o = nbytes / H100_BYTES_PER_S, nops / H100_F32_OPS_PER_S
-    row = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+    row = dict(**k_t, plain_ms=p_ms, library_ms=lib_ms,
                bound_ms=max(t_b, t_o) * 1e3,
                bound_by="bytes" if t_b >= t_o else "operations",
                bytes=nbytes, ops=nops, max_abs_err=err, launches=launches)
@@ -1369,7 +1621,8 @@ def phase_legacy(rng, seed, smi, n_keys, main_res) -> dict:
     args = legacy_args(a, q, eng.err_lo, q_tile=q_tile, w_tile=eng.w_tile)
     tiling = dict(q_tile=q_tile, w_tile=eng.w_tile)
     got, err = legacy_vs_plain("legacy_main", args, tiling)
-    k_ms = cuda_ms(lambda: lookup_kernel(*args, **tiling))
+    k_t = kernel_times(lambda: lookup_kernel(*args, **tiling),
+                       "lookup_kernel")
     p_ms = cuda_ms(lambda: lookup_kernel_plain(*args, **tiling),
                    launches=5)
     sk, qs = args[5], args[0]
@@ -1379,7 +1632,7 @@ def phase_legacy(rng, seed, smi, n_keys, main_res) -> dict:
              + int(a.seg_first_key.numel()).bit_length() + 6)
     nops = qs.numel() * per_q
     t_b, t_o = nbytes / H100_BYTES_PER_S, nops / H100_F32_OPS_PER_S
-    row = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+    row = dict(**k_t, plain_ms=p_ms, library_ms=lib_ms,
                bound_ms=max(t_b, t_o) * 1e3,
                bound_by="bytes" if t_b >= t_o else "operations",
                bytes=nbytes, ops=nops, max_abs_err=err, launches=launches,
@@ -1439,6 +1692,7 @@ def main() -> int:
          ptxas={n: _build.ptxas_report(n).strip().splitlines()
                 for n in _build.SOURCES})
 
+    floor = launch_floor(smi)
     rng = np.random.default_rng(args.seed)
     cases = phase_cases(rng)
     main_res = phase_main(rng, args.n_keys, args.seed, smi, args.profile)
@@ -1463,19 +1717,24 @@ def main() -> int:
         raise AssertionError("jax was imported during the run")
 
     big = main_res["per_batch"][max(main_res["per_batch"])]
+
+    def times(row):
+        return {k: row[k] for k in ("ms", "device_ms", "graph_ms", "host_us",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
+
     kernels = [{
         "name": "fused_lookup",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_lookup.cu",
         "replaces": "src/repro/kernels/lookup.py:415",
-        "launches": main_res["launches"],
+        # the read path, then the write phases' lookup checks
+        "launches": (main_res["launches"]
+                     + fused_res["launches"]["fused_lookup"]
+                     + two_res["launches"]["fused_lookup"]),
         "max_abs_err": max(b["max_abs_err"]
                            for b in main_res["per_batch"].values()),
-        "ms": big["ms"],
-        "plain_ms": big["plain_ms"],
-        "bound_ms": big["bound_ms"],
-        "bound_by": big["bound_by"],
-        "library_ms": big["library_ms"],
+        **times(big),
     }, {
         "name": "ingest_place",
         "route": "cuda",
@@ -1484,11 +1743,7 @@ def main() -> int:
         "launches": (fused_res["launches"]["ingest_place"]
                      + two_res["launches"]["ingest_place"]),
         "max_abs_err": place_timing["max_abs_err"],
-        "ms": place_timing["ms"],
-        "plain_ms": place_timing["plain_ms"],
-        "bound_ms": place_timing["bound_ms"],
-        "bound_by": place_timing["bound_by"],
-        "library_ms": place_timing["library_ms"],
+        **times(place_timing),
     }, {
         "name": "gap_place",
         "route": "cuda",
@@ -1498,11 +1753,7 @@ def main() -> int:
         "max_abs_err": max([eq3["max_abs_err"]]
                            + [r["max_abs_err"] for r in legacy_rows
                               if r["kernel"] == "gap_place"]),
-        "ms": eq3["ms"],
-        "plain_ms": eq3["plain_ms"],
-        "bound_ms": eq3["bound_ms"],
-        "bound_by": eq3["bound_by"],
-        "library_ms": eq3["library_ms"],
+        **times(eq3),
     }, {
         "name": "lookup_kernel",
         "route": "cuda",
@@ -1512,13 +1763,11 @@ def main() -> int:
         "max_abs_err": max([legacy["max_abs_err"]]
                            + [r["max_abs_err"] for r in legacy_rows
                               if r["kernel"] == "lookup_kernel"]),
-        "ms": legacy["ms"],
-        "plain_ms": legacy["plain_ms"],
-        "bound_ms": legacy["bound_ms"],
-        "bound_by": legacy["bound_by"],
-        "library_ms": legacy["library_ms"],
+        **times(legacy),
     }]
     emit("summary", card=smi, cases=len(cases), place_cases=len(place_rows),
+         launch_floor={k: floor[k] for k in ("ms", "device_ms", "graph_ms",
+                                             "host_us")},
          read_path=main_res["main"],
          fused_write_path=fused_res["launches"],
          fused_commit_rate_w03=fused_res["w03_fused_commit_rate"],

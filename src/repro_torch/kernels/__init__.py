@@ -25,7 +25,8 @@ ops_gap.py    — device Eq. 3 (``gap_positions_device``, its tables
                 ``prepare_gap_tables`` and the host oracle
                 ``gap_positions_oracle``) and the write path's entry
                 points ``ingest_place`` and ``fused_ingest``
-_build.py     — nvcc + ctypes build of csrc/*.cu at first use
+_build.py     — nvcc + ctypes build of csrc/*.cu at first use, and the
+                wrappers' per-call checks and launch
 """
 
 from .ops_gap import gap_positions_device, gap_positions_oracle

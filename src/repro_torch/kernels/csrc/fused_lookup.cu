@@ -6,28 +6,55 @@
 //
 //   1. radix route to a segment: one multiply + one table gather;
 //   2. window base lo0 = floor(slope * dx + icept_fold), clipped;
-//   3. flat mode (flat_w > 0): rank over the flat_w + 1 slot keys from
-//      lo0; whole-window mode (flat_w == 0): rank over all 2 * w_tile
-//      slot keys of the tile's window;
+//   3. flat mode (flat_w > 0): rank = count of the flat_w + 1 slot keys
+//      from lo0 (inside the tile's window) that are <= q; whole-window
+//      mode (flat_w == 0): rank over all 2 * w_tile slot keys of the
+//      tile's window;
 //   4. found + payload gather (i32, or an i32 hi/lo pair when wide);
 //   5. CSR chain bisect of bit_length(max_chain) trips;
 //   6. escape flags and the per-tile compaction into fb_loc / fb_cnt.
 //
 // Compares are lexicographic on f32 (hi, lo) pairs when key_wide.
 //
-// What bounds it on this card: bytes.  Per query it does a few dozen
-// compares against dependent gathers (radix table -> segment tables ->
-// slot keys -> payload -> CSR offsets -> link keys), so it is a
-// memory-bound gather and compare with an arithmetic intensity far
-// below the H100's ridge point.  What the design does about it: one CTA
-// per query tile of sorted queries and one thread per query, so the
-// tile's queries read neighbouring slot keys and their gathers fall on
-// the same cache lines (the window is the tile's two w_tile blocks,
-// 16 KiB of keys at w_tile = 2048, which L1/L2 hold); every read goes
-// through the read-only path (__ldg); the TPU's (q_tile x q_tile)
-// one-hot compaction matrices become one warp ballot and a block prefix
-// sum.  Shared-memory staging of the window and cp.async/TMA are left
-// for later work.
+// What bounds it on this card: the latency of dependent DRAM gathers,
+// and the bytes of the windows.  A query waits on a chain of reads
+// (radix table -> segment tables -> window keys -> payload or CSR
+// offsets -> link keys), each a DRAM round trip at 36.75M slots; and
+// at 2^20 sorted queries the flat windows together cover most of the
+// slot keys, so the kernel streams nearly the whole key array as well.
+// The L1 request rate of a per-thread window scan is not what limits
+// it: on the H100 a coalesced count at the same register count ran no
+// faster than the one-thread-per-query scan; more resident warps and
+// fewer bytes did (PERF.md).  What the design does about it:
+//
+//   * 32 registers a thread, eight 256-thread CTAs an SM: 64 resident
+//     warps (the earlier kernel had 32) to overlap the round trips.
+//   * Several tiles per CTA.  With q_tile 32 a CTA runs up to 8 tiles,
+//     one warp each; a small batch keeps one tile per CTA so its few
+//     tiles spread over the SMs (lookup.fused_launch_shape picks).  A
+//     one-warp tile compacts its escapes by ballot alone, with no CTA
+//     barrier; a larger tile still takes a prefix over its warps.  Each
+//     tile writes its own fb_loc / fb_cnt.
+//   * Coalesced flat rank on the hi halves.  For each of a warp's 32
+//     queries in turn (broadcast by shuffle) the lanes read 32
+//     consecutive hi keys and __ballot_sync + __popc count those below
+//     q, in (flat_w + 1) / 32 full rounds; the (flat_w + 1) % 32 keys
+//     past them each thread reads for its own query.  A key whose hi
+//     half equals q's (a tie) is decided by its lo half, which only the
+//     ties load, so the lo array is mostly not read.  The count equals
+//     the plain version's literal count.
+//   * found from the count: with the window unclipped on the left and
+//     1 <= rank <= flat_w the key at slot is the last counted one, and
+//     it equals q exactly when some counted key does, because the slot
+//     keys are non-decreasing (a gap carries its right neighbour's key,
+//     the padding is +inf); other cases read the key at slot.
+//   * Whole-window mode stages the tile's 2 * w_tile window (hi, and lo
+//     when key_wide) in shared memory once, with 16-B loads where
+//     aligned, and each query bisects it for the upper bound, which is
+//     the literal count for non-decreasing keys.  A window too large
+//     for shared memory is bisected in place.
+//   * The payload gather and the chain bisect stay in global memory;
+//     the payload is read only when found, the chain only when not.
 //
 // Numerics: compile with -fmad=false; lo0 and the radix bucket are
 // written with __fmul_rn/__fadd_rn/__fsub_rn besides, so no product is
@@ -42,6 +69,11 @@
 #include <stdint.h>
 
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxWarps = 32;           // 1,024 threads
+constexpr int kSmallCta = 256;          // up to 8 tiles of 32 queries
+constexpr int kSmallCtaPerSm = 8;       // -> 32 registers a thread
 
 struct Args {
   const float* q;           // (Qpad,) sorted, +inf padded
@@ -69,6 +101,10 @@ struct Args {
   uint8_t* fb;
   int* fbloc;
   int* fbcnt;
+  int num_tiles;
+  int q_tile;
+  int tiles_per_cta;
+  int stage_window;         // whole-window mode: window in shared memory
   int r_size;
   int l_size;
   int w_tile;
@@ -89,133 +125,240 @@ __device__ __forceinline__ bool ple(float kh, float kl, float qh, float ql,
   return key_wide ? (kh < qh) || (kh == qh && kl <= ql) : kh <= qh;
 }
 
-__global__ void fused_lookup_kernel(Args a) {
-  __shared__ int warp_cnt[32];
-  const int tile = blockIdx.x;
-  const int qt = blockDim.x;
-  const int t = threadIdx.x;
-  const int i = tile * qt + t;
-  const int two_w = 2 * a.w_tile;
-  const int base = __ldg(a.tile_block + tile) * a.w_tile;
-
-  const float q = __ldg(a.q + i);
-  const float ql = a.key_wide ? __ldg(a.ql + i) : 0.0f;
-  const bool finite = isfinite(q);
-
-  int slot;
-  bool fb;
-  if (a.flat_w > 0) {
-    const float rv0 = __ldg(a.radix_scale);
-    const float rv1 = __ldg(a.radix_scale + 1);
-    const float rv2 = __ldg(a.radix_scale + 2);
-    float x = __fsub_rn(q, rv0);
-    if (a.key_wide) x = __fadd_rn(x, __fsub_rn(ql, rv1));
-    int bkt = (int)clip_f(__fmul_rn(x, rv2), (float)(a.r_size - 1));
-    const int seg = __ldg(a.radix_table + bkt);
-    float dx = __fsub_rn(q, __ldg(a.segk + seg));
-    if (a.key_wide) dx = __fadd_rn(dx, __fsub_rn(ql, __ldg(a.segkl + seg)));
-    const float v = floorf(
-        __fadd_rn(__fmul_rn(__ldg(a.slope + seg), dx), __ldg(a.iclo + seg)));
-    const int lo0 = (int)clip_f(v, a.slot_hi);
-    const int loc0 = lo0 - base;
-    int rank = 0;
-    for (int j = 0; j <= a.flat_w; ++j) {
-      const int idx = loc0 + j;
-      const bool inb = idx >= 0 && idx < two_w;
-      const int idxc = min(max(idx, 0), two_w - 1);
-      const float kh = __ldg(a.sk + base + idxc);
-      const float kl = a.key_wide ? __ldg(a.skl + base + idxc) : 0.0f;
-      rank += (inb && ple(kh, kl, q, ql, a.key_wide)) ? 1 : 0;
-    }
-    slot = lo0 - 1 + min(rank, a.flat_w);
-    const bool window_ok = loc0 >= 0 && loc0 + a.flat_w + 1 <= two_w;
-    fb = (rank == 0 && lo0 > 0) || rank == a.flat_w + 1 || !window_ok;
+// Copy n floats from src (global) to dst (shared) with the q_tile
+// threads of one tile; 16-B loads when both ends allow.
+__device__ __forceinline__ void stage(float* dst, const float* src, int n,
+                                      int t, int nt) {
+  if (((reinterpret_cast<uintptr_t>(src) & 15) == 0) && (n & 3) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int k = t; k < (n >> 2); k += nt) d4[k] = __ldg(s4 + k);
   } else {
-    int rank = 0;
-    for (int k = 0; k < two_w; ++k) {
-      const float kh = __ldg(a.sk + base + k);
-      const float kl = a.key_wide ? __ldg(a.skl + base + k) : 0.0f;
-      rank += ple(kh, kl, q, ql, a.key_wide) ? 1 : 0;
-    }
-    slot = base + rank - 1;
-    fb = (rank == 0 && base > 0) || rank == two_w;
+    for (int k = t; k < n; k += nt) dst[k] = __ldg(src + k);
   }
-  fb = fb && finite;
+}
 
-  // ---- epilogue: found + payload + CSR chain bisect ------------------
-  const int sloc = slot - base;
-  const bool okx = slot >= 0 && sloc >= 0 && sloc < two_w;
-  const int slc = min(max(sloc, 0), two_w - 1);
-  bool found = okx && __ldg(a.sk + base + slc) == q;
-  if (a.key_wide) found = found && __ldg(a.skl + base + slc) == ql;
-  int out = found ? __ldg(a.pay + base + slc) : -1;
-  int out_hi = (a.wide && found) ? __ldg(a.payhi + base + slc) : -1;
-  bool resolved = found;
-  if (a.trips > 0) {
-    const int start = __ldg(a.off + base + slc);
-    const int end = __ldg(a.off + base + slc + 1);
-    const bool scan = okx && !found && end > start;
-    const int l_max = a.l_size - 1;
-    int lo = start - 1, hi = end - 1;
-    for (int trip = 0; trip < a.trips; ++trip) {
-      const bool upd = lo < hi;
-      const int mid = (lo + hi + 1) >> 1;
-      const int midc = min(max(mid, 0), l_max);
-      const float kh = __ldg(a.lk + midc);
-      const float kl = a.key_wide ? __ldg(a.lkl + midc) : 0.0f;
-      const bool go = ple(kh, kl, q, ql, a.key_wide);
-      if (upd) {
-        if (go) lo = mid; else hi = mid - 1;
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+fused_lookup_kernel(Args a) {
+  extern __shared__ float4 win_raw[];       // 16-B aligned
+  __shared__ int warp_cnt[kMaxWarps];
+  float* win_smem = reinterpret_cast<float*>(win_raw);
+  const int qt = a.q_tile;
+  const int t = threadIdx.x;
+  const int tl = t / qt;                    // tile within the CTA
+  const int loc = t - tl * qt;              // query within the tile
+  const int tile = blockIdx.x * a.tiles_per_cta + tl;
+  const bool live = tile < a.num_tiles;     // whole warps live or not
+  const int lane = t & 31;
+  const int two_w = 2 * a.w_tile;
+  const int base = live ? __ldg(a.tile_block + tile) * a.w_tile : 0;
+
+  // the tile's window keys: staged in shared memory (whole-window
+  // mode) or read in place
+  const float* wh = a.sk + base;
+  const float* wl = a.key_wide ? a.skl + base : nullptr;
+  if (a.stage_window) {
+    float* sh = win_smem + static_cast<size_t>(tl) * two_w
+        * (a.key_wide ? 2 : 1);
+    if (live) {
+      stage(sh, wh, two_w, loc, qt);
+      if (a.key_wide) stage(sh + two_w, wl, two_w, loc, qt);
+    }
+    wh = sh;
+    if (a.key_wide) wl = sh + two_w;
+  }
+  if (a.stage_window) __syncthreads();
+
+  const int i = tile * qt + loc;
+  int slot = 0;
+  bool fb = false;
+  bool found_known = false, found_flat = false;
+  if (live) {
+    const float q = __ldg(a.q + i);
+    const float ql = a.key_wide ? __ldg(a.ql + i) : 0.0f;
+    const bool finite = isfinite(q);
+
+    if (a.flat_w > 0) {
+      const float rv0 = __ldg(a.radix_scale);
+      const float rv1 = __ldg(a.radix_scale + 1);
+      const float rv2 = __ldg(a.radix_scale + 2);
+      float x = __fsub_rn(q, rv0);
+      if (a.key_wide) x = __fadd_rn(x, __fsub_rn(ql, rv1));
+      const int bkt = (int)clip_f(__fmul_rn(x, rv2), (float)(a.r_size - 1));
+      const int seg = __ldg(a.radix_table + bkt);
+      float dx = __fsub_rn(q, __ldg(a.segk + seg));
+      if (a.key_wide) dx = __fadd_rn(dx, __fsub_rn(ql, __ldg(a.segkl + seg)));
+      const float v = floorf(
+          __fadd_rn(__fmul_rn(__ldg(a.slope + seg), dx), __ldg(a.iclo + seg)));
+      const int lo0 = (int)clip_f(v, a.slot_hi);
+      const int loc0 = lo0 - base;
+
+      // rank = the count of window keys <= q, taken on the hi halves
+      // first: a key whose hi half is below q's counts, one whose hi
+      // half equals q's (a tie) is decided by its lo half, which only
+      // ties load.  Full rounds: the warp counts one query's 32
+      // consecutive keys at a time.
+      int rank = 0;
+      bool anyeq = false;                   // some counted key == q
+      const int full = (a.flat_w + 1) >> 5;
+      for (int r = 0; r < full; ++r) {
+        unsigned mytie = 0;
+#pragma unroll 2
+        for (int s = 0; s < 32; ++s) {
+          const float qs = __shfl_sync(kFull, q, s);
+          const int idx = __shfl_sync(kFull, loc0, s) + (r << 5) + lane;
+          const bool inb = idx >= 0 && idx < two_w;
+          const float kh = inb ? __ldg(wh + idx) : 0.0f;
+          const bool lt = inb && (a.key_wide ? kh < qs : kh <= qs);
+          const bool tie = inb && kh == qs;
+          const int c = __popc(__ballot_sync(kFull, lt));
+          const unsigned tm = __ballot_sync(kFull, tie);
+          if (lane == s) {
+            rank += c;
+            mytie = tm;
+          }
+        }
+        // this thread's query: its ties in round r (narrow keys: its
+        // equal keys, already counted)
+        while (mytie) {
+          const int b = __ffs(mytie) - 1;
+          mytie &= mytie - 1u;
+          if (a.key_wide) {
+            const float kl = __ldg(wl + loc0 + (r << 5) + b);
+            rank += kl <= ql ? 1 : 0;
+            anyeq = anyeq || kl == ql;
+          } else {
+            anyeq = true;
+          }
+        }
+      }
+      // the keys past the full rounds: each thread for its own query
+      for (int j = full << 5; j <= a.flat_w; ++j) {
+        const int idx = loc0 + j;
+        if (idx >= 0 && idx < two_w) {
+          const float kh = __ldg(wh + idx);
+          if (a.key_wide ? kh < q : kh <= q) {
+            ++rank;
+            anyeq = anyeq || kh == q;       // narrow keys only
+          } else if (a.key_wide && kh == q) {
+            const float kl = __ldg(wl + idx);
+            rank += kl <= ql ? 1 : 0;
+            anyeq = anyeq || kl == ql;
+          }
+        }
+      }
+      slot = lo0 - 1 + min(rank, a.flat_w);
+      const bool window_ok = loc0 >= 0 && loc0 + a.flat_w + 1 <= two_w;
+      fb = (rank == 0 && lo0 > 0) || rank == a.flat_w + 1 || !window_ok;
+      // with the window unclipped on the left and 1 <= rank <= flat_w,
+      // the key at slot is the last one counted, which equals q exactly
+      // when some counted key does (the keys are non-decreasing)
+      found_known = loc0 >= 0 && rank >= 1 && rank <= a.flat_w;
+      found_flat = anyeq;
+    } else {
+      // upper bound over the non-decreasing window keys
+      int lo = 0, hi = two_w;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const float kl = a.key_wide ? wl[mid] : 0.0f;
+        if (ple(wh[mid], kl, q, ql, a.key_wide)) lo = mid + 1; else hi = mid;
+      }
+      const int rank = lo;
+      slot = base + rank - 1;
+      fb = (rank == 0 && base > 0) || rank == two_w;
+    }
+    fb = fb && finite;
+
+    // ---- epilogue: found + payload + CSR chain bisect ----------------
+    const int sloc = slot - base;
+    const bool okx = slot >= 0 && sloc >= 0 && sloc < two_w;
+    const int slc = min(max(sloc, 0), two_w - 1);
+    bool found;
+    if (found_known) {
+      found = okx && found_flat;
+    } else {
+      found = okx && wh[slc] == q;
+      if (a.key_wide) found = found && wl[slc] == ql;
+    }
+    int out = found ? __ldg(a.pay + base + slc) : -1;
+    int out_hi = (a.wide && found) ? __ldg(a.payhi + base + slc) : -1;
+    bool resolved = found;
+    if (a.trips > 0 && okx && !found) {
+      const int start = __ldg(a.off + base + slc);
+      const int end = __ldg(a.off + base + slc + 1);
+      if (end > start) {
+        const int l_max = a.l_size - 1;
+        int lo = start - 1, hi = end - 1;
+        for (int trip = 0; trip < a.trips && lo < hi; ++trip) {
+          const int mid = (lo + hi + 1) >> 1;
+          const int midc = min(max(mid, 0), l_max);
+          const float kh = __ldg(a.lk + midc);
+          const float kl = a.key_wide ? __ldg(a.lkl + midc) : 0.0f;
+          if (ple(kh, kl, q, ql, a.key_wide)) lo = mid; else hi = mid - 1;
+        }
+        const int locc = min(max(lo, 0), l_max);
+        bool eq = __ldg(a.lk + locc) == q;
+        if (a.key_wide) eq = eq && __ldg(a.lkl + locc) == ql;
+        if (lo >= start && eq) {
+          out = __ldg(a.lp + locc);
+          if (a.wide) out_hi = __ldg(a.lph + locc);
+          resolved = true;
+        }
       }
     }
-    const int locc = min(max(lo, 0), l_max);
-    bool eq = __ldg(a.lk + locc) == q;
-    if (a.key_wide) eq = eq && __ldg(a.lkl + locc) == ql;
-    const bool hit = scan && lo >= start && eq;
-    if (hit) {
-      out = __ldg(a.lp + locc);
-      if (a.wide) out_hi = __ldg(a.lph + locc);
-    }
-    resolved = resolved || hit;
+
+    a.slot[i] = slot;
+    a.res[i] = resolved ? 1 : 0;
+    a.out[i] = out;
+    if (a.wide) a.outhi[i] = out_hi;
+    a.fb[i] = fb ? 1 : 0;
   }
 
-  a.slot[i] = slot;
-  a.res[i] = resolved ? 1 : 0;
-  a.out[i] = out;
-  if (a.wide) a.outhi[i] = out_hi;
-  a.fb[i] = fb ? 1 : 0;
-
-  // ---- per-tile compaction: ballot + block prefix sum -----------------
-  const int lane = t & 31;
+  // ---- per-tile compaction: ballot + prefix over the tile's warps -----
+  const unsigned mask = __ballot_sync(kFull, fb);
+  if (qt == 32) {                           // one warp, no barrier
+    if (!live) return;
+    int* tile_loc = a.fbloc + static_cast<size_t>(tile) * 32;
+    const int count = __popc(mask);
+    if (fb) tile_loc[__popc(mask & ((1u << lane) - 1u))] = loc;
+    if (loc >= count) tile_loc[loc] = 32;
+    if (loc == 0) a.fbcnt[tile] = count;
+    return;
+  }
   const int warp = t >> 5;
-  const int n_warps = qt >> 5;
-  const unsigned mask = __ballot_sync(0xffffffffu, fb);
   if (lane == 0) warp_cnt[warp] = __popc(mask);
   __syncthreads();
+  if (!live) return;
+  const int w0 = (tl * qt) >> 5;            // the tile's first warp
+  const int n_warps = qt >> 5;
   int before = 0, count = 0;
   for (int w = 0; w < n_warps; ++w) {
-    const int c = warp_cnt[w];
-    before += (w < warp) ? c : 0;
+    const int c = warp_cnt[w0 + w];
+    before += (w0 + w < warp) ? c : 0;
     count += c;
   }
-  int* tile_loc = a.fbloc + tile * qt;
-  if (fb) tile_loc[before + __popc(mask & ((1u << lane) - 1u))] = t;
-  if (t >= count) tile_loc[t] = qt;
-  if (t == 0) a.fbcnt[tile] = count;
+  int* tile_loc = a.fbloc + static_cast<size_t>(tile) * qt;
+  if (fb) tile_loc[before + __popc(mask & ((1u << lane) - 1u))] = loc;
+  if (loc >= count) tile_loc[loc] = qt;
+  if (loc == 0) a.fbcnt[tile] = count;
 }
 
 }  // namespace
 
+// ``outs`` is one int32 buffer: slot, res, out, fb_loc (n_q each),
+// fb_cnt (num_tiles), then out_hi (n_q) when wide; ``fb`` is n_q bytes.
+// ``smem`` is the dynamic shared memory of whole-window staging (0: the
+// window is read in place).
 extern "C" int fused_lookup_launch(
     const void* q, const void* ql, const void* tile_block,
     const void* radix_table, const void* radix_scale, const void* segk,
     const void* segkl, const void* slope, const void* iclo, const void* sk,
     const void* skl, const void* pay, const void* payhi, const void* off,
     const void* lk, const void* lkl, const void* lp, const void* lph,
-    void* slot, void* res, void* out, void* outhi, void* fb, void* fbloc,
-    void* fbcnt, int num_tiles, int q_tile, int r_size, int l_size,
-    int w_tile, int flat_w, int trips, float slot_hi, int key_wide,
-    int wide, void* stream) {
+    void* outs, void* fb, int num_tiles, int q_tile, int tiles_per_cta,
+    int smem, int r_size, int l_size, int w_tile, int flat_w, int trips,
+    float slot_hi, int key_wide, int wide, void* stream) {
   Args a;
   a.q = static_cast<const float*>(q);
   a.ql = static_cast<const float*>(ql);
@@ -235,13 +378,19 @@ extern "C" int fused_lookup_launch(
   a.lkl = static_cast<const float*>(lkl);
   a.lp = static_cast<const int*>(lp);
   a.lph = static_cast<const int*>(lph);
-  a.slot = static_cast<int*>(slot);
-  a.res = static_cast<int*>(res);
-  a.out = static_cast<int*>(out);
-  a.outhi = static_cast<int*>(outhi);
+  const size_t n = static_cast<size_t>(num_tiles) * q_tile;
+  int* o = static_cast<int*>(outs);
+  a.slot = o;
+  a.res = o + n;
+  a.out = o + 2 * n;
+  a.fbloc = o + 3 * n;
+  a.fbcnt = o + 4 * n;
+  a.outhi = o + 4 * n + num_tiles;
   a.fb = static_cast<uint8_t*>(fb);
-  a.fbloc = static_cast<int*>(fbloc);
-  a.fbcnt = static_cast<int*>(fbcnt);
+  a.num_tiles = num_tiles;
+  a.q_tile = q_tile;
+  a.tiles_per_cta = tiles_per_cta;
+  a.stage_window = smem > 0 && flat_w == 0 ? 1 : 0;
   a.r_size = r_size;
   a.l_size = l_size;
   a.w_tile = w_tile;
@@ -250,9 +399,22 @@ extern "C" int fused_lookup_launch(
   a.slot_hi = slot_hi;
   a.key_wide = key_wide;
   a.wide = wide;
+  // up to 256 threads: 32 registers, eight CTAs (64 warps) an SM; more
+  // (q_tile 512, 1,024): one tile a CTA at the compiler's register count
+  const int threads = tiles_per_cta * q_tile;
+  void (*kernel)(Args) = threads <= kSmallCta
+      ? fused_lookup_kernel<kSmallCta, kSmallCtaPerSm>
+      : fused_lookup_kernel<kMaxWarps * 32, 1>;
+  // static and dynamic shared memory together past 48 KiB need the
+  // opt-in
+  if (smem + kMaxWarps * static_cast<int>(sizeof(int)) > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (num_tiles > 0) {
-    fused_lookup_kernel<<<num_tiles, q_tile, 0,
-                          static_cast<cudaStream_t>(stream)>>>(a);
+    const int ctas = (num_tiles + tiles_per_cta - 1) / tiles_per_cta;
+    kernel<<<ctas, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

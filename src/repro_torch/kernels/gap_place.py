@@ -30,8 +30,6 @@ so nothing is contracted into an FMA.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
@@ -218,20 +216,12 @@ def _place_plain(x_hi, x_lo, segk_hi, segk_lo, slope_hi, slope_lo,
 _ARG_NAMES = ("x_hi", "x_lo", "segk_hi", "segk_lo", "slope_hi", "slope_lo",
               "icept_hi", "icept_lo", "slot_hi", "slot_lo", "link_offsets",
               "link_hi", "link_lo")
+_ARG_DTYPES = tuple(torch.int32 if n == "link_offsets" else torch.float32
+                    for n in _ARG_NAMES)
 
 
 def _check(args):
-    dev = args[0].device
-    for name, t in zip(_ARG_NAMES, args):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x_hi on {dev}")
-        want = torch.int32 if name == "link_offsets" else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {want}, got {t.dtype}")
-        if t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be 1-D and contiguous")
+    dev = _build.check_1d(args, _ARG_NAMES, _ARG_DTYPES, "x_hi")
     (x_hi, x_lo, segk_hi, segk_lo, slope_hi, slope_lo, icept_hi, icept_lo,
      slot_hi, slot_lo, off, link_hi, link_lo) = args
     k_pad, m_pad = segk_hi.shape[0], slot_hi.shape[0]
@@ -291,29 +281,21 @@ ingest_place.launches = 0
 
 
 def _launch(args, dev, *, n_slots: int):
-    lib = _build.load("ingest_place")
-    fn = lib.ingest_place_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p]
-    x_hi = args[0]
-    n = x_hi.shape[0]
-    i32 = dict(dtype=torch.int32, device=dev)
-    outs = tuple(torch.empty(n, **i32) for _ in range(4))
+    """One launch: the four outputs are views of one int32 buffer."""
+    fn = _build.entry("ingest_place", "p" * 14 + "i" * 8)
+    n = args[0].shape[0]
+    buf = torch.empty(4 * n, dtype=torch.int32, device=dev)
     segk_lo, slot_lo, link_hi, link_lo = args[3], args[9], args[11], args[12]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in args], *[t.data_ptr() for t in outs],
-                 n, int(args[2].shape[0]), int(args[8].shape[0]),
-                 int(link_hi.shape[0]), n_slots, int(segk_lo.shape[0] > 0),
-                 int(slot_lo.shape[0] > 0), int(link_lo.shape[0] > 0),
-                 stream)
+    err = _build.launch(
+        fn, dev, *[t.data_ptr() for t in args], buf.data_ptr(), n,
+        args[2].shape[0], args[8].shape[0], link_hi.shape[0], n_slots,
+        int(segk_lo.shape[0] > 0), int(slot_lo.shape[0] > 0),
+        int(link_lo.shape[0] > 0))
     if err != 0:
         raise RuntimeError(f"ingest_place kernel launch failed: CUDA error "
                            f"{err}")
     ingest_place.launches += 1
-    return outs
+    return buf.view(4, n).unbind(0)
 
 
 # ---------------------------------------------------------------------------
@@ -557,16 +539,8 @@ _GAP_ARG_NAMES = ("keys_padded", "seg_first_key", "base", "x0", "scale")
 
 
 def _check_gap(args):
-    dev = args[0].device
-    for name, t in zip(_GAP_ARG_NAMES, args):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, keys on {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be torch.float32, got {t.dtype}")
-        if t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be 1-D and contiguous")
+    dev = _build.check_1d(args, _GAP_ARG_NAMES,
+                          (torch.float32,) * len(_GAP_ARG_NAMES), "keys")
     k_pad = args[1].shape[0]
     if k_pad == 0:
         raise ValueError("the segment tables must be non-empty")
@@ -606,18 +580,11 @@ def gap_place(keys_padded, seg_first_key, base, x0, scale, *,
         return gap_place_plain(*args)
     if dev.type != "cuda":
         raise ValueError(f"gap_place runs on cuda or cpu, not {dev}")
-    lib = _build.load("gap_place")
-    fn = lib.gap_place_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
+    fn = _build.entry("gap_place", "pppppp" + "ii")
     n = keys_padded.shape[0]
     out = torch.empty(n, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in args], out.data_ptr(), n,
-                 int(seg_first_key.shape[0]), stream)
+    err = _build.launch(fn, dev, *[t.data_ptr() for t in args],
+                        out.data_ptr(), n, seg_first_key.shape[0])
     if err != 0:
         raise RuntimeError(f"gap_place kernel launch failed: CUDA error "
                            f"{err}")

@@ -25,16 +25,14 @@ each tile, in the tile's two ``w_tile`` slot-key blocks.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from . import _build
 from .ref import _bisect, _ple
 
-__all__ = ["fused_lookup", "fused_lookup_plain", "lookup_kernel",
-           "lookup_kernel_plain", "window_base"]
+__all__ = ["fused_launch_shape", "fused_lookup", "fused_lookup_plain",
+           "lookup_kernel", "lookup_kernel_plain", "window_base"]
 
 _ARG_NAMES = ("queries_sorted", "queries_lo", "tile_block", "radix_table",
               "radix_scale", "seg_first_key", "seg_first_key_lo",
@@ -48,6 +46,10 @@ _ARG_DTYPES = (torch.float32, torch.float32, torch.int32, torch.int32,
                torch.int32, torch.int32, torch.float32, torch.float32,
                torch.int32, torch.int32)
 _WHOLE_WINDOW_ELEMS = 1 << 24  # (rows x 2*w_tile) compare chunk, plain
+_SMEM_MAX = 232_448   # dynamic shared memory a block can opt into (H100)
+_FUSED_STATIC_SMEM = 128      # fused_lookup_kernel's warp counts
+_WIN_BUDGET = 64 * 1024       # whole-window staging per fused CTA
+_SM_COUNTS: dict = {}
 
 
 def _slot_clip_hi(n_slots: int) -> float:
@@ -87,16 +89,7 @@ def window_base(q, ql, radix_table, radix_scale, seg_first_key,
 
 
 def _check(args, *, q_tile, w_tile, flat_w, key_wide, wide):
-    dev = args[0].device
-    for name, t, dt in zip(_ARG_NAMES, args, _ARG_DTYPES):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be 1-D and contiguous")
+    dev = _build.check_1d(args, _ARG_NAMES, _ARG_DTYPES, "queries")
     (q, ql, tile_block, radix_table, radix_scale, segk, segkl, slope, iclo,
      sk, skl, pay, payhi, off, lk, lkl, lp, lph) = args
     n_q, m_pad = q.shape[0], sk.shape[0]
@@ -181,40 +174,66 @@ def fused_lookup(
 fused_lookup.launches = 0
 
 
+def fused_launch_shape(num_tiles: int, q_tile: int, w_tile: int,
+                       flat_w: int, key_wide: bool,
+                       n_sm: int = 132) -> tuple:
+    """``(tiles_per_cta, smem_bytes)`` of one ``fused_lookup`` launch.
+
+    A CTA runs up to ``256 // q_tile`` tiles (one warp each at q_tile
+    32), but no more than spreads the batch's tiles four CTAs deep over
+    the card's ``n_sm`` SMs, so a small batch keeps one tile per CTA.
+    Whole-window mode (``flat_w == 0``) stages each tile's 2·w_tile
+    window keys in dynamic shared memory: at most ``_WIN_BUDGET`` bytes
+    of windows per CTA (one window whatever its size), none when one
+    window does not fit beside the kernel's static shared memory (the
+    kernel then bisects the window in place).  Flat mode stages
+    nothing."""
+    tiles = max(1, min(256 // q_tile, num_tiles // (4 * n_sm)))
+    if flat_w:
+        return tiles, 0
+    win = 2 * w_tile * (8 if key_wide else 4)
+    if win > _SMEM_MAX - _FUSED_STATIC_SMEM:
+        return tiles, 0
+    tiles = max(1, min(tiles, _WIN_BUDGET // win))
+    return tiles, tiles * win
+
+
+def _sm_count(dev) -> int:
+    n = _SM_COUNTS.get(dev.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(dev).multi_processor_count
+        _SM_COUNTS[dev.index] = n
+    return n
+
+
 def _launch(args, dev, *, q_tile, w_tile, flat_w, max_chain, n_slots,
             key_wide, wide):
-    lib = _build.load("fused_lookup")
-    fn = lib.fused_lookup_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+    """One launch: the outputs are views of one int32 buffer (``fb``
+    its tail's bytes; ``n_q`` is a multiple of 32)."""
+    fn = _build.entry("fused_lookup", "p" * 20 + "i" * 9 + "f" + "ii")
     n_q = args[0].shape[0]
     num_tiles = n_q // q_tile
     link_keys = args[14]
     has_links = link_keys.shape[0] > 0 and max_chain > 0
-    i32 = dict(dtype=torch.int32, device=dev)
-    slot = torch.empty(n_q, **i32)
-    res = torch.empty(n_q, **i32)
-    out = torch.empty(n_q, **i32)
-    out_hi = torch.empty(n_q if wide else 0, **i32)
-    fb = torch.empty(n_q, dtype=torch.bool, device=dev)
-    fb_loc = torch.empty(n_q, **i32)
-    fb_cnt = torch.empty(num_tiles, **i32)
-    outs = (slot, res, out, out_hi, fb, fb_loc, fb_cnt)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in args], *[t.data_ptr() for t in outs],
-                 num_tiles, q_tile, int(args[3].shape[0]),
-                 int(link_keys.shape[0]), w_tile, flat_w,
-                 int(max_chain).bit_length() if has_links else 0,
-                 _slot_clip_hi(n_slots), int(key_wide), int(wide), stream)
+    n_hi = n_q if wide else 0
+    buf = torch.empty(4 * n_q + num_tiles + n_hi + n_q // 4,
+                      dtype=torch.int32, device=dev)
+    slot, res, out, fb_loc, fb_cnt, out_hi, fb_words = buf.split(
+        [n_q, n_q, n_q, n_q, num_tiles, n_hi, n_q // 4])
+    fb = fb_words.view(torch.bool)
+    tiles, smem = fused_launch_shape(num_tiles, q_tile, w_tile, flat_w,
+                                     key_wide, _sm_count(dev))
+    err = _build.launch(
+        fn, dev, *[t.data_ptr() for t in args], buf.data_ptr(),
+        fb.data_ptr(), num_tiles, q_tile, tiles, smem, args[3].shape[0],
+        link_keys.shape[0], w_tile, flat_w,
+        int(max_chain).bit_length() if has_links else 0,
+        _slot_clip_hi(n_slots), int(key_wide), int(wide))
     if err != 0:
         raise RuntimeError(f"fused_lookup kernel launch failed: CUDA error "
                            f"{err}")
     fused_lookup.launches += 1
-    return outs
+    return slot, res, out, out_hi, fb, fb_loc, fb_cnt
 
 
 def fused_lookup_plain(
@@ -329,21 +348,13 @@ def fused_lookup_plain(
 
 _LEGACY_ARG_NAMES = ("queries_sorted", "tile_block", "seg_first_key",
                      "seg_slope", "seg_icept", "slot_key_padded")
-_SMEM_MAX = 232_448   # dynamic shared memory a block can opt into (H100)
+_LEGACY_DTYPES = tuple(torch.int32 if n == "tile_block" else torch.float32
+                       for n in _LEGACY_ARG_NAMES)
 
 
 def _check_legacy(args, *, q_tile, w_tile):
-    dev = args[0].device
-    for name, t in zip(_LEGACY_ARG_NAMES, args):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
-        want = torch.int32 if name == "tile_block" else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {want}, got {t.dtype}")
-        if t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be 1-D and contiguous")
+    dev = _build.check_1d(args, _LEGACY_ARG_NAMES, _LEGACY_DTYPES,
+                          "queries")
     q, tile_block, segk, slope, icept, sk = args
     n_q, k_pad, m_pad = q.shape[0], segk.shape[0], sk.shape[0]
     if q_tile <= 0 or n_q % q_tile:
@@ -382,23 +393,17 @@ def lookup_kernel(queries_sorted, tile_block, seg_first_key, seg_slope,
         return lookup_kernel_plain(*args, q_tile=q_tile, w_tile=w_tile)
     if dev.type != "cuda":
         raise ValueError(f"lookup_kernel runs on cuda or cpu, not {dev}")
-    lib = _build.load("lookup_kernel")
-    fn = lib.lookup_kernel_launch
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
+    fn = _build.entry("lookup_kernel", "p" * 10 + "i" * 5)
     n_q = queries_sorted.shape[0]
     slot = torch.empty(n_q, dtype=torch.int32, device=dev)
     found = torch.empty(n_q, dtype=torch.bool, device=dev)
     fb = torch.empty(n_q, dtype=torch.bool, device=dev)
     pred = torch.empty(n_q, dtype=torch.float32, device=dev)
     outs = (slot, found, fb, pred)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in args], *[t.data_ptr() for t in outs],
-                 n_q // q_tile, q_tile, w_tile, int(seg_first_key.shape[0]),
-                 int(slot_key_padded.shape[0]), stream)
+    err = _build.launch(fn, dev, *[t.data_ptr() for t in args],
+                        *[t.data_ptr() for t in outs], n_q // q_tile, q_tile,
+                        w_tile, seg_first_key.shape[0],
+                        slot_key_padded.shape[0])
     if err != 0:
         raise RuntimeError(f"lookup_kernel launch failed: CUDA error {err}")
     lookup_kernel.launches += 1
