@@ -71,20 +71,33 @@ phase:
    shapes (q_tile, w_tile, win_chunk) = (128, 512, 128), (256, 2048,
    512), (512, 4096, 1024), queries below and above the keys, +inf
    padding, and windows at the first and the last block pair.  The
-   plain legacy version counts literally where the kernel bisects;
+   plain legacy version counts literally where the kernel bisects.
+   Then the cases of the two kernels' brackets (inputs built by
+   tests/test_torch_kernel_gpu.py): Eq. 3 on shuffled keys over many
+   and over few segments, a one-segment table, keys below the first
+   segment, +inf padding from mid-chunk, ragged and unaligned key
+   counts; the legacy kernel on tiles below and above their window,
+   all-padding tiles, slices that are the whole window, runs of equal
+   keys at both slice edges, unsorted tiles with a NaN, and q_tile 32,
+   128, 256, 1024 by w_tile 512, 2048, 8192 over a real index;
 8. device Eq. 3 at full size: ``gap_positions_device`` over the read
    phase's 32M keys with its index's model (rho = 0.15), held against
    the f64 oracle ``gap_positions_oracle`` at the reference's tolerance
    (rtol 2e-5, atol 0.5), monotone, within the budget ``rho * n + 1``;
    the kernel timed at that size beside its plain version, its byte
-   bound and ``torch.searchsorted`` over the segment table;
+   bound and ``torch.searchsorted`` over the segment table, with the
+   premise of its design counted on the host from the same inputs
+   (chunks whose keys span more than one segment);
 9. the legacy backends at full size: a narrow index of
    ``--narrow-keys`` (8M) unique integer keys below 2^24 (about 9.2M
    slots), ``Index.lookup(backend="pallas")`` at 2^20 mixed queries,
    which the kernel must serve (not the oracle stage), and at 4,096
    (the stage that served is recorded); ``backend="xla-windowed"`` at
    2^20 on this index and on the read phase's wide index; every answer
-   held against the host oracle; the kernel timed at the 2^20 shapes.
+   held against the host oracle; the kernel timed at the 2^20 shapes,
+   with the premise of its design counted on the host from the same
+   inputs (the bytes the tiles' slices stage against whole windows,
+   the slice widths, tiles in one segment).
 
 Scale: SOSD's key sets (Marcus et al., Benchmarking Learned Indexes,
 VLDB 2020) hold 200M keys; the read phase cuts that to 32M so the host
@@ -1447,6 +1460,85 @@ def phase_legacy_cases(rng) -> list:
     return rows
 
 
+def phase_bracket_cases() -> list:
+    """Phase 7, continued: the cases the two kernels' bracket designs
+    introduce, on the inputs tests/test_torch_kernel_gpu.py builds,
+    each held against the plain version bit for bit, with each case's
+    premise counts."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_kernel_gpu as kc
+    rows = []
+    for case in kc.GAP_CASES:
+        args, n_real = kc.gap_case_args(case)
+        name = f"eq3_{case}"
+        err = eq3_vs_plain(name, args, n_real, 1024, 512)
+        rows.append({"case": name, "kernel": "gap_place",
+                     "n_keys": n_real, "padded": int(args[0].numel()),
+                     "k_pad": int(args[1].numel()),
+                     "premise": eq3_premise(args), "max_abs_err": err,
+                     "tolerance": TOL + " (NaN equals NaN)"})
+        emit("legacy_kernel_vs_plain", **rows[-1])
+    shapes = ([(c, 128, 2048) for c in kc.LEGACY_CASES]
+              + [("tiling", qt, wt) for qt, wt in kc.LEGACY_TILINGS])
+    for case, q_tile, w_tile in shapes:
+        args = (kc.legacy_case_args(case) if case != "tiling"
+                else kc.legacy_tiling_args(q_tile, w_tile))
+        tiling = dict(q_tile=q_tile, w_tile=w_tile)
+        name = f"legacy_{case}_{q_tile}_{w_tile}"
+        got, err = legacy_vs_plain(name, args, tiling)
+        rows.append({"case": name, "kernel": "lookup_kernel",
+                     "queries": int(args[0].numel()),
+                     "premise": legacy_premise(args, q_tile, w_tile),
+                     "found": int(got[1].sum()),
+                     "escapes": int(got[2].sum()), "max_abs_err": err,
+                     "outputs_equal": 4,
+                     "tolerance": TOL + " (NaN equals NaN)"})
+        emit("legacy_kernel_vs_plain", **rows[-1])
+    return rows
+
+
+def eq3_premise(args) -> dict:
+    """The Eq. 3 kernel's premise on these inputs, counted on the host:
+    chunks of ``GAP_CHUNK`` keys whose least and greatest key fall in
+    different segments (those bisect inside their bracket), and chunks
+    whose bracket has more table rows than are staged."""
+    from repro_torch.kernels.gap_place import (GAP_CHUNK, GAP_ROW_CAP,
+                                               gap_place_brackets)
+    segk = args[1].cpu()
+    lo, hi = gap_place_brackets(args[0].cpu(), segk)
+    k_pad = segk.numel()
+    rows = hi.clamp(max=k_pad - 1) - (lo - 1).clamp(min=0) + 1
+    spanning = int((lo != hi).sum())
+    return {"chunk_keys": GAP_CHUNK, "chunks": lo.numel(),
+            "chunks_spanning_segments": spanning,
+            "share_spanning": spanning / lo.numel(),
+            "chunks_over_row_cap": int((rows > GAP_ROW_CAP).sum()),
+            "row_cap": GAP_ROW_CAP}
+
+
+def legacy_premise(args, q_tile, w_tile) -> dict:
+    """The legacy kernel's premise on these inputs, counted on the host:
+    the bytes the tiles staged as whole windows (the earlier design) and
+    as the slices this one stages (``lookup_kernel_brackets``, not
+    counting the rounding to 16-byte bounds), the slice widths, tiles
+    whose slice does not fit the buffer, and tiles in one segment."""
+    from repro_torch.kernels.lookup import (LEGACY_SLICE_CAP,
+                                            lookup_kernel_brackets)
+    start, _, r_hi, s_lo, s_hi = lookup_kernel_brackets(
+        *(args[i].cpu() for i in (0, 1, 2, 5)), q_tile=q_tile,
+        w_tile=w_tile)
+    width = (r_hi - start).clamp(min=0)
+    fits = width <= LEGACY_SLICE_CAP
+    return {"tiles": width.numel(),
+            "window_bytes_whole": width.numel() * 2 * w_tile * 4,
+            "slice_bytes_staged": int(width[fits].sum()) * 4,
+            "slice_width_median": float(width.double().median()),
+            "slice_width_max": int(width.max()),
+            "slice_cap": LEGACY_SLICE_CAP,
+            "tiles_wider_than_buffer": int((~fits).sum()),
+            "tiles_in_one_segment": int((s_lo == s_hi).sum())}
+
+
 def eq3_bytes(args) -> int:
     """Each key read once (4 bytes), each position written once, and
     the four tables read once."""
@@ -1505,7 +1597,7 @@ def phase_eq3(main_res, smi) -> dict:
                                              / np.maximum(ora, 1.0))),
          positions_past_tolerance=bad, tolerance="rtol 2e-5, atol 0.5",
          monotone=monotone, gaps_inserted=budget,
-         budget=rho * n + 1.0, **row,
+         budget=rho * n + 1.0, **row, premise=eq3_premise(args),
          library_call="torch.searchsorted(seg_first_key, keys, right=True):"
                       " the segment routing only",
          kernel_vs_plain=TOL + " (NaN equals NaN)")
@@ -1638,6 +1730,7 @@ def phase_legacy(rng, seed, smi, n_keys, main_res) -> dict:
                bytes=nbytes, ops=nops, max_abs_err=err, launches=launches,
                q_tile=q_tile, escapes=int(got[2][:q.size].sum()))
     emit("legacy_timing", card=smi, batch=int(q.size), **row,
+         premise=legacy_premise(args, q_tile, eng.w_tile),
          library_call="torch.searchsorted(slot_key, q, right=True): slot "
                       "only, over the whole array",
          kernel_vs_plain=TOL + " (NaN equals NaN)")
@@ -1709,7 +1802,7 @@ def main() -> int:
     place_timing = time_place(two_res.pop("index"),
                               two_res["held_left"][:16_384], smi,
                               "two_dispatch")
-    legacy_rows = phase_legacy_cases(rng)
+    legacy_rows = phase_legacy_cases(rng) + phase_bracket_cases()
     eq3 = phase_eq3(main_res, smi)
     legacy = phase_legacy(rng, args.seed, smi, args.narrow_keys, main_res)
     del main_res["index"], main_res["keys"]

@@ -8,7 +8,8 @@ ref.py        — the device oracle stage and the epilogue, plain torch
 lookup.py     — ``fused_lookup`` (launches csrc/fused_lookup.cu) and
                 ``fused_lookup_plain`` (the same function in torch ops);
                 ``lookup_kernel`` / ``lookup_kernel_plain``, the legacy
-                narrow-key kernel (csrc/lookup_kernel.cu)
+                narrow-key kernel (csrc/lookup_kernel.cu), and
+                ``lookup_kernel_brackets``, the tile brackets it stages
 ops.py        — sort, tile schedule, launch, escape fixup, unsort for
                 the fused stage, the legacy "pallas" / "xla" stages and
                 the oracle; ``batched_lookup`` and ``QueryEngine``
@@ -19,8 +20,9 @@ delta.py      — ``freeze_state`` (engine + host mirror) and
 gap_place.py  — ``ingest_place`` (launches csrc/ingest_place.cu) and
                 ``ingest_place_plain``; ``fused_ingest_body``, the
                 single-dispatch ingest graph in torch ops; ``gap_place``
-                (launches csrc/gap_place.cu, Eq. 3) and
-                ``gap_place_plain``
+                (launches csrc/gap_place.cu, Eq. 3),
+                ``gap_place_plain`` and ``gap_place_brackets``, the
+                chunk brackets it routes in
 ops_gap.py    — device Eq. 3 (``gap_positions_device``, its tables
                 ``prepare_gap_tables`` and the host oracle
                 ``gap_positions_oracle``) and the write path's entry

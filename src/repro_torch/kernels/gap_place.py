@@ -19,8 +19,9 @@ Counterpart of ``repro.kernels.gap_place``:
   arm: the kernel on CUDA, the plain version on the CPU);
 * ``gap_place`` launches ``csrc/gap_place.cu`` (the port of the TPU
   kernel ``gap_place_call``, Eq. 3 target positions for sorted keys)
-  for CUDA tensors; ``gap_place_plain`` is its torch version.
-  ``gap_place.launches`` counts kernel launches.
+  for CUDA tensors; ``gap_place_plain`` is its torch version, and
+  ``gap_place_brackets`` the per-chunk segment brackets the kernel
+  routes in.  ``gap_place.launches`` counts kernel launches.
 
 Narrow (f32-exact) indexes pass zero-length ``*_lo`` key tables; the
 kernel and the plain version read them as zeros, as the reference's
@@ -35,7 +36,8 @@ import torch
 from . import _build
 
 __all__ = ["ingest_place", "ingest_place_plain", "fused_ingest_body",
-           "split_flags", "gap_place", "gap_place_plain"]
+           "split_flags", "gap_place", "gap_place_brackets",
+           "gap_place_plain"]
 
 _SPLITTER = 4097.0  # 2^12 + 1 (Veltkamp split for f32)
 _TOL_SCALE = 2e-9   # rounds to the f32 the reference's jnp.float32 gives
@@ -536,6 +538,8 @@ def fused_ingest_body(
 # ---------------------------------------------------------------------------
 
 _GAP_ARG_NAMES = ("keys_padded", "seg_first_key", "base", "x0", "scale")
+GAP_CHUNK = 4096    # keys a CTA of csrc/gap_place.cu takes
+GAP_ROW_CAP = 256   # table rows it stages for a chunk
 
 
 def _check_gap(args):
@@ -562,6 +566,24 @@ def gap_place_plain(keys_padded, seg_first_key, base, x0, scale, *,
     seg = (torch.searchsorted(seg_first_key, keys_padded, right=True)
            - 1).clamp(0, k_pad - 1)
     return base[seg] + (keys_padded - x0[seg]) * scale[seg]
+
+
+def gap_place_brackets(keys_padded, seg_first_key):
+    """The brackets ``csrc/gap_place.cu`` routes in, per chunk of
+    ``GAP_CHUNK`` keys, computed from its inputs with torch ops on any
+    device: ``(lo, hi)``, the counts of segment first keys <= the
+    chunk's least and greatest key (NaN skipped).  A chunk with ``lo ==
+    hi`` lies in one segment and needs no search; the kernel stages the
+    table rows ``[max(lo - 1, 0), min(hi, Kpad - 1)]`` when there are
+    at most ``GAP_ROW_CAP`` of them."""
+    x = keys_padded
+    pad = (-x.shape[0]) % GAP_CHUNK
+    x = torch.cat([x, x.new_full((pad,), float("nan"))]).view(-1, GAP_CHUNK)
+    inf = float("inf")
+    x_min = torch.where(x.isnan(), inf, x).amin(dim=1)
+    x_max = torch.where(x.isnan(), -inf, x).amax(dim=1)
+    return (torch.searchsorted(seg_first_key, x_min, right=True),
+            torch.searchsorted(seg_first_key, x_max, right=True))
 
 
 def gap_place(keys_padded, seg_first_key, base, x0, scale, *,

@@ -21,6 +21,9 @@ legacy narrow-key kernel ``csrc/lookup_kernel.cu``, the counterpart of
 ``_lookup_kernel``) that the explicitly requested ``"pallas"`` backend
 searches with: slot, found, escape flag and prediction per query of
 each tile, in the tile's two ``w_tile`` slot-key blocks.
+``lookup_kernel_brackets`` computes, from the same inputs, the rank and
+segment brackets the kernel searches each tile in and the slice of the
+window it stages.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from . import _build
 from .ref import _bisect, _ple
 
 __all__ = ["fused_launch_shape", "fused_lookup", "fused_lookup_plain",
-           "lookup_kernel", "lookup_kernel_plain", "window_base"]
+           "lookup_kernel", "lookup_kernel_brackets", "lookup_kernel_plain",
+           "window_base"]
 
 _ARG_NAMES = ("queries_sorted", "queries_lo", "tile_block", "radix_table",
               "radix_scale", "seg_first_key", "seg_first_key_lo",
@@ -50,6 +54,8 @@ _SMEM_MAX = 232_448   # dynamic shared memory a block can opt into (H100)
 _FUSED_STATIC_SMEM = 128      # fused_lookup_kernel's warp counts
 _WIN_BUDGET = 64 * 1024       # whole-window staging per fused CTA
 _SM_COUNTS: dict = {}
+LEGACY_SLICE_CAP = 2048  # window keys csrc/lookup_kernel.cu stages
+LEGACY_RANK_SLACK = 128  # the width its window brackets stop at
 
 
 def _slot_clip_hi(n_slots: int) -> float:
@@ -367,9 +373,6 @@ def _check_legacy(args, *, q_tile, w_tile):
         raise ValueError("the segment tables must be non-empty")
     if slope.shape[0] != k_pad or icept.shape[0] != k_pad:
         raise ValueError("segment tables differ in length")
-    if 2 * w_tile * 4 > _SMEM_MAX:
-        raise ValueError(f"w_tile {w_tile}: the 2 * w_tile window does not "
-                         "fit in shared memory")
     return dev
 
 
@@ -395,15 +398,15 @@ def lookup_kernel(queries_sorted, tile_block, seg_first_key, seg_slope,
         raise ValueError(f"lookup_kernel runs on cuda or cpu, not {dev}")
     fn = _build.entry("lookup_kernel", "p" * 10 + "i" * 5)
     n_q = queries_sorted.shape[0]
-    slot = torch.empty(n_q, dtype=torch.int32, device=dev)
-    found = torch.empty(n_q, dtype=torch.bool, device=dev)
-    fb = torch.empty(n_q, dtype=torch.bool, device=dev)
-    pred = torch.empty(n_q, dtype=torch.float32, device=dev)
-    outs = (slot, found, fb, pred)
-    err = _build.launch(fn, dev, *[t.data_ptr() for t in args],
-                        *[t.data_ptr() for t in outs], n_q // q_tile, q_tile,
-                        w_tile, seg_first_key.shape[0],
-                        slot_key_padded.shape[0])
+    # four allocations: on the card's stack one buffer split into typed
+    # views costs more host time than four torch.empty calls
+    outs = (torch.empty(n_q, dtype=torch.int32, device=dev),
+            torch.empty(n_q, dtype=torch.bool, device=dev),
+            torch.empty(n_q, dtype=torch.bool, device=dev),
+            torch.empty(n_q, dtype=torch.float32, device=dev))
+    err = _build.launch(fn, dev, *[t.data_ptr() for t in args + outs],
+                        n_q // q_tile, q_tile, w_tile,
+                        seg_first_key.shape[0], slot_key_padded.shape[0])
     if err != 0:
         raise RuntimeError(f"lookup_kernel launch failed: CUDA error {err}")
     lookup_kernel.launches += 1
@@ -411,6 +414,57 @@ def lookup_kernel(queries_sorted, tile_block, seg_first_key, seg_slope,
 
 
 lookup_kernel.launches = 0
+
+
+def _narrow(count, n: int, slack: int):
+    """The range ``csrc/lookup_kernel.cu``'s ``warp_bracket`` returns for
+    ``count`` (the number of keys <= v among ``n`` non-decreasing keys):
+    32-ary rounds from ``[0, n]`` until the range is at most ``slack``
+    wide.  A round's ballot counts the strides that end at or below the
+    count, ``(count - lo) // stride``."""
+    lo = torch.zeros_like(count)
+    hi = torch.full_like(count, n)
+    while True:
+        wide = hi - lo > slack
+        if not bool(wide.any()):
+            return lo, hi
+        s = (hi - lo + 31) >> 5
+        c = (count - lo) // s.clamp(min=1)
+        lo, hi = (torch.where(wide, lo + c * s, lo),
+                  torch.where(wide, torch.minimum(hi, lo + (c + 1) * s - 1),
+                              hi))
+
+
+def lookup_kernel_brackets(queries_sorted, tile_block, seg_first_key,
+                           slot_key_padded, *, q_tile: int, w_tile: int,
+                           slack: int = LEGACY_RANK_SLACK):
+    """The brackets ``csrc/lookup_kernel.cu`` searches in, per tile,
+    computed from its inputs with torch ops on any device: ``(start,
+    rank_lo, rank_hi, seg_lo, seg_hi)``.  Every query's window rank
+    lies in ``[rank_lo, rank_hi]``: the low end of the range the
+    kernel's search narrows for the tile's least query (NaN skipped) and
+    the high end of the one for its greatest, each at most ``slack``
+    wide (0: the exact ranks).  ``start = max(rank_lo - 1, 0)``;
+    ``seg_lo`` / ``seg_hi`` are the counts of segment first keys <=
+    those two queries.  The kernel stages the slice ``[start,
+    rank_hi)`` (rounded out to 16-byte bounds when aligned) if it holds
+    at most ``LEGACY_SLICE_CAP`` keys, and routes a query's segment only
+    between the two counts.  Valid for non-decreasing slot keys."""
+    m_pad = slot_key_padded.shape[0]
+    q = queries_sorted.view(-1, q_tile)
+    inf = float("inf")
+    q_min = torch.where(q.isnan(), inf, q).amin(dim=1)
+    q_max = torch.where(q.isnan(), -inf, q).amax(dim=1)
+    base = tile_block.long().clamp(0, m_pad // w_tile - 2) * w_tile
+
+    def rank(v):
+        c = torch.searchsorted(slot_key_padded, v, right=True)
+        return _narrow((c - base).clamp(0, 2 * w_tile), 2 * w_tile, slack)
+
+    r_lo, r_hi = rank(q_min)[0], rank(q_max)[1]
+    return ((r_lo - 1).clamp(min=0), r_lo, r_hi,
+            torch.searchsorted(seg_first_key, q_min, right=True),
+            torch.searchsorted(seg_first_key, q_max, right=True))
 
 
 def lookup_kernel_plain(queries_sorted, tile_block, seg_first_key,

@@ -11,7 +11,10 @@
   are NaN on both sides;
 * ``gap_positions_device(device="cpu")`` against the reference's and
   against the f64 oracle at the reference's tolerance (rtol 2e-5,
-  atol 0.5), monotone, within the rho budget.
+  atol 0.5), monotone, within the rho budget;
+* the ordering the CUDA kernel's chunk brackets rest on: the f32 first
+  keys of ``prepare_gap_tables`` non-decreasing and +inf padded, for
+  narrow and wide keys, PGM and FITing, at rho 0.05, 0.15 and 0.3.
 
 The cases are those of tests/test_kernels_gap_place.py, plus one key
 set below 2^40.
@@ -141,3 +144,32 @@ def test_gap_positions_device_default_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         gap_positions_device(x, plm, 0.2)
+
+
+TABLE_CASES = [(m, bits, rho) for m in ("pgm", "fiting") for bits in (22, 40)
+               for rho in (0.05, 0.15, 0.3)]
+
+
+@pytest.mark.parametrize("mech,bits,rho", TABLE_CASES, ids=[
+    f"{m}-{'narrow' if b == 22 else 'wide'}-rho{r}"
+    for m, b, r in TABLE_CASES])
+def test_gap_table_first_keys_sorted_and_padded(mech, bits, rho):
+    """``csrc/gap_place.cu`` brackets a chunk's segments by its least and
+    greatest key: the f32 first keys of ``prepare_gap_tables`` must be
+    non-decreasing and +inf padded (the other tables 0 padded), for
+    narrow and wide keys, PGM and FITing, at each rho."""
+    x = _keys(bits, 30_000, 6)
+    kw = dict(eps=32) if mech == "fiting" else dict(eps=32, recursive=False)
+    port, _ = _plms(mech, kw, x)
+    segk, base, x0, scale = prepare_gap_tables(
+        x, np.arange(x.size, dtype=np.float64), port, rho, 512)
+    k = port.n_segments
+    assert segk.dtype == np.float32 and segk.size % 512 == 0
+    assert np.all(segk[:-1] <= segk[1:])
+    assert np.isfinite(segk[:k]).all() and np.isposinf(segk[k:]).all()
+    assert np.array_equal(segk[:k], port.seg_first_key.astype(np.float32))
+    for t in (base, x0, scale):
+        assert t.size == segk.size and not t[k:].any()
+    # every key routes to a real row
+    cnt = np.searchsorted(segk, x.astype(np.float32), side="right")
+    assert cnt.min() >= 1 and cnt.max() <= k

@@ -6,9 +6,14 @@ NaN equals NaN in the +inf padding rows) and the legacy lookup kernel
 sweep and search cases hold the kernels' searches (the coalesced flat
 rank and the whole-window bisect of the fused lookup; the searches
 from the predicted slot of the ingest placement) against the plain
-versions' literal counts and whole-array bisects.  Marked
-``gpu``: each test skips itself without a CUDA device.  This file
-imports no JAX, so it also runs where only the port is installed:
+versions' literal counts and whole-array bisects; the bracket cases
+hold the chunk brackets of the Eq. 3 kernel and the tile brackets and
+staged slices of the legacy kernel the same way.  Marked ``gpu``: each
+test skips itself without a CUDA device.  The bracket cases' inputs
+(``gap_case_args``, ``legacy_case_args``, ``legacy_tiling_args``) are
+also what ``chip_smoke.py`` phase 7 runs and what
+tests/test_torch_slot_order.py checks on the CPU.  This file imports
+no JAX, so it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernel_gpu.py
 """
@@ -18,19 +23,20 @@ import pytest
 import torch
 
 from repro_torch.core import Index
+from repro_torch.core.mechanisms import PGMMechanism
 from repro_torch.kernels import freeze, gap_place, lookup, ops, ops_gap
 from repro_torch.kernels.lookup import (fused_lookup, fused_lookup_plain,
                                         lookup_kernel, lookup_kernel_plain)
 
 
-def _index(seed, span, payloads=None):
+def _index(seed, span, payloads=None, device="cuda"):
     rng = np.random.default_rng(seed)
     keys = np.unique(rng.choice(span, 25_000, replace=False)
                      ).astype(np.float64)
     if payloads is not None:
         payloads = payloads + np.arange(keys.size, dtype=np.int64)
     idx = Index.build(keys, method="pgm", eps=64, gap_rho=0.15,
-                      device="cuda", payloads=payloads)
+                      device=device, payloads=payloads)
     mids = np.setdiff1d(keys[:-1] + np.rint(np.diff(keys) * 0.5),
                         keys)[:3000]
     idx.gapped.insert_batch(mids, 7_000_000 + np.arange(mids.size))
@@ -364,3 +370,253 @@ def test_ingest_place_searches_on_the_card(name, seed, span):
     assert (ub == -1).any() and (ub == a.slot_key.shape[0] - 1).any()
     if name == "gap_run":
         assert (p - pv).max() > 2_000
+
+
+# ---------------------------------------------------------------------------
+# the bracket designs of csrc/gap_place.cu (4,096-key chunks, at most
+# 256 staged table rows) and csrc/lookup_kernel.cu (a staged slice of at
+# most 2,048 window keys): the cases each design introduces
+# ---------------------------------------------------------------------------
+
+_CHUNK = gap_place.GAP_CHUNK
+GAP_CASES = ["shuffled", "shuffled_few", "one_segment", "below_first",
+             "padding_mid_chunk", "ragged", "unaligned"]
+
+
+def gap_case_args(case, device="cuda"):
+    """``gap_place``'s tensor arguments for ``case`` on ``device``:
+    ``[keys, segk, base, x0, scale]`` (f32), and the number of real
+    (non-padding) keys.
+
+    * ``shuffled``: keys in random order over 761 segments, so every
+      chunk's bracket spans more rows than are staged;
+    * ``shuffled_few``: the same over 17 segments, so every
+      chunk's bracket is staged and each key bisects it;
+    * ``one_segment``: a table of one real row (+inf padded);
+    * ``below_first``: 5,000 keys below the first segment, then the
+      keys (whole chunks routed below the table);
+    * ``padding_mid_chunk``: +inf padding from the middle of a chunk,
+      and a count that is no multiple of the chunk;
+    * ``ragged``: a count that is a multiple of neither the chunk nor 4;
+    * ``unaligned``: sorted keys that start 4 bytes past a 16-byte
+      boundary (the kernel's 4-byte path).
+    """
+    rng = np.random.default_rng(20)
+    x = np.unique(rng.choice(2 ** 40, 60_000, replace=False)
+                  ).astype(np.float64)
+    eps = {"shuffled": 4, "shuffled_few": 32, "one_segment": 1e12}.get(
+        case, 64)
+    mech = PGMMechanism(eps=eps, recursive=False).fit(
+        x, np.arange(x.size, dtype=np.float64))
+    if case == "one_segment":
+        assert mech.plm.n_segments == 1
+    tables = ops_gap.prepare_gap_tables(
+        x, np.arange(x.size, dtype=np.float64), mech.plm, 0.15, 512)
+    keys = x.astype(np.float32)
+    n_real = keys.size
+    if case.startswith("shuffled"):
+        keys = rng.permutation(keys)
+    elif case == "below_first":
+        keys = np.concatenate([np.linspace(x[0] - 2.0 ** 30, x[0] - 1.0,
+                                           5000).astype(np.float32), keys])
+        n_real = keys.size
+    elif case == "padding_mid_chunk":
+        keys = keys[:3 * _CHUNK + 1500]
+        n_real = keys.size
+        keys = np.concatenate([keys, np.full(_CHUNK - 1000, np.inf,
+                                             np.float32)])
+    elif case == "ragged":
+        keys = keys[:5 * _CHUNK + 1001]
+        n_real = keys.size
+    args = [torch.from_numpy(a).to(device) for a in (keys, *tables)]
+    if case == "unaligned":
+        args[0] = _offset(args[0])
+    return args, n_real
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GAP_CASES)
+def test_gap_place_bracket_cases_on_the_card(case):
+    """The Eq. 3 kernel's chunk brackets against ``gap_place_plain`` on
+    identical CUDA inputs, bit for bit (NaN equals NaN in the +inf
+    padding rows): shuffled keys, a one-segment table, keys below the
+    first segment, padding from mid-chunk, ragged and unaligned
+    counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, n_real = gap_case_args(case)
+    if case == "unaligned":
+        assert args[0].data_ptr() % 16 == 4
+    launches = gap_place.gap_place.launches
+    got = gap_place.gap_place(*args)
+    want = gap_place.gap_place_plain(*args)
+    torch.cuda.synchronize()
+    assert gap_place.gap_place.launches == launches + 1
+    assert _same(got, want)
+    assert got[:n_real].isfinite().all() and got[n_real:].isnan().all()
+
+
+LEGACY_CASES = ["below_above", "all_padding", "whole_window", "gap_edges",
+                "unsorted"]
+
+
+def legacy_case_args(case, device="cuda", q_tile=128, w_tile=2048,
+                     seed=21):
+    """Synthetic tensor arguments of ``lookup_kernel`` for ``case`` on
+    ``device``: ``(queries, tile_block, segk, slope, icept,
+    slot_keys)``, for ``q_tile`` / ``w_tile`` tiling.  The slot
+    keys are non-decreasing with runs of equal keys (the gaps) and a
+    +inf tail; the segment table is sorted and +inf padded.  Ordinary
+    tiles (sorted queries, the block under their least query) surround
+    the case's own tiles:
+
+    * ``below_above``: tiles whose queries all lie below their window,
+      and tiles whose queries all lie above it;
+    * ``all_padding``: a tile of +inf only, at the last block pair and
+      at the first;
+    * ``whole_window``: tiles whose queries reach below and above the
+      window, so the slice is the whole window (wider than the staged
+      buffer at w_tile 2,048);
+    * ``gap_edges``: tiles whose least query sits just below a run of
+      equal keys and whose greatest equals the key of another run, so
+      both slice edges fall in runs;
+    * ``unsorted``: tiles of shuffled queries, one with a NaN.
+    """
+    rng = np.random.default_rng(seed)
+    n_blocks = 24
+    m_pad = n_blocks * w_tile
+    n_real = m_pad - w_tile // 2 - 7
+    steps = rng.choice([0.0, 1.0, 2.0, 5.0], n_real, p=[0.3, 0.4, 0.2, 0.1])
+    steps[rng.choice(n_real, 40, replace=False)] = 0.0
+    keys = 1000.0 + np.cumsum(steps)
+    for r in rng.choice(n_real - 200, 12, replace=False):   # long runs
+        keys[r:r + 150] = keys[r]
+    keys = np.maximum.accumulate(keys)
+    sk = np.concatenate([keys, np.full(m_pad - n_real, np.inf)]
+                        ).astype(np.float32)
+    first = keys[::3000]
+    k_pad = 512
+    segk = np.concatenate([first, np.full(k_pad - first.size, np.inf)]
+                          ).astype(np.float32)
+    slope = rng.uniform(0.3, 0.7, k_pad).astype(np.float32)
+    icept = (np.arange(k_pad) * 3000.0).astype(np.float32)
+    max_block = n_blocks - 2
+
+    def tile_at(q):
+        q = np.sort(np.asarray(q, np.float32))
+        pos = np.searchsorted(sk, q[0], side="left")
+        return q, min(max(int(pos) // w_tile, 0), max_block)
+
+    tiles = []
+    for _ in range(6):                                # ordinary tiles
+        c = rng.integers(0, n_real - q_tile * 8)
+        tiles.append(tile_at(keys[c + rng.integers(0, q_tile * 8, q_tile)]
+                             + rng.choice([0.0, 0.5], q_tile)))
+    lo_key, hi_key = keys[0], keys[-1]
+    if case == "below_above":
+        tiles.append((np.sort(rng.uniform(lo_key, keys[3 * w_tile],
+                                          q_tile)).astype(np.float32),
+                      max_block))
+        tiles.append((np.sort(rng.uniform(keys[-3 * w_tile], hi_key + 50.0,
+                                          q_tile)).astype(np.float32), 0))
+        tiles.append((np.full(q_tile, lo_key - 10.0, np.float32), 5))
+    elif case == "all_padding":
+        tiles.append((np.full(q_tile, np.inf, np.float32), max_block))
+        tiles.append((np.full(q_tile, np.inf, np.float32), 0))
+    elif case == "whole_window":
+        for blk in (0, 7, max_block):
+            w0, w1 = sk[blk * w_tile], sk[blk * w_tile + 2 * w_tile - 1]
+            w1 = w1 if np.isfinite(w1) else hi_key
+            q = rng.uniform(w0 - 20.0, w1 + 20.0, q_tile)
+            q[:2] = [w0 - 20.0, w1 + 20.0]
+            tiles.append((np.sort(q).astype(np.float32), blk))
+    elif case == "gap_edges":
+        run_starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+        run_len = np.diff(np.r_[run_starts, keys.size])
+        long_runs = run_starts[run_len >= 3]
+        for t in range(4):
+            a, b = np.sort(rng.choice(long_runs, 2, replace=False))
+            if keys[b] - keys[a] > 1500:
+                b = long_runs[np.searchsorted(long_runs, a) + 1]
+            inner = keys[a + rng.integers(0, b - a + 1, q_tile - 2)]
+            q = np.concatenate([[keys[a] - 0.5, keys[b]], inner])
+            tiles.append(tile_at(q))
+    elif case == "unsorted":
+        for t in range(4):
+            c = rng.integers(0, n_real - q_tile * 8)
+            q, blk = tile_at(keys[c + rng.integers(0, q_tile * 8, q_tile)]
+                             + 0.5 * rng.integers(0, 2, q_tile))
+            q = rng.permutation(q)
+            if t == 0:
+                q[q_tile // 2] = np.nan
+            tiles.append((q, blk))
+    order = rng.permutation(len(tiles))
+    q = np.concatenate([tiles[i][0] for i in order]).astype(np.float32)
+    tb = np.array([tiles[i][1] for i in order], np.int32)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (q, tb, segk, slope, icept, sk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", LEGACY_CASES)
+def test_lookup_kernel_bracket_cases_on_the_card(case):
+    """The legacy kernel's tile brackets against ``lookup_kernel_plain``
+    (literal counts) on identical CUDA inputs, all four outputs bit for
+    bit: tiles below and above their window, all-padding tiles, a slice
+    that is the whole window, runs of equal keys at both slice edges,
+    unsorted tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = legacy_case_args(case)
+    tiling = dict(q_tile=128, w_tile=2048)
+    launches = lookup_kernel.launches
+    got = lookup_kernel(*args, **tiling)
+    want = lookup_kernel_plain(*args, **tiling)
+    torch.cuda.synchronize()
+    assert lookup_kernel.launches == launches + 1
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    if case in ("below_above", "all_padding", "whole_window"):
+        assert got[2].any()
+
+
+LEGACY_TILINGS = [(qt, wt) for qt in (32, 128, 256, 1024)
+                  for wt in (512, 2048, 8192)]
+
+
+def legacy_tiling_args(q_tile, w_tile, device="cuda"):
+    """``lookup_kernel``'s arguments for sorted mixed queries (hits, gap
+    keys, misses, both ends) over a narrow 25,000-key index frozen at
+    ``w_tile``, with the ``pallas`` stage's own tile schedule."""
+    idx, q = _index(22, 2 ** 22, device=device)
+    a = freeze.from_learned_index(idx, device, w_tile=w_tile)
+    qs = np.sort(np.concatenate([q, q + 0.5]))
+    qp = np.concatenate([qs, np.full((-qs.size) % q_tile, np.inf)])
+    qt = torch.from_numpy(qp.astype(np.float32)).to(device)
+    elo = ops._pad_bounds(idx.mech.plm.err_lo, a.seg_first_key.shape[0],
+                          device)
+    y_hat, seg = ops.predict_ref(qt, a.seg_first_key, a.seg_slope,
+                                 a.seg_icept)
+    lo = lookup._clip(y_hat + elo[seg] - 1.0,
+                      lookup._slot_clip_hi(a.n_slots))
+    tb = ops.tile_blocks(lo, a, q_tile=q_tile, w_tile=w_tile)
+    return (qt, tb, a.seg_first_key, a.seg_slope, a.seg_icept, a.slot_key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_tile,w_tile", LEGACY_TILINGS,
+                         ids=[f"qt{a}-wt{b}" for a, b in LEGACY_TILINGS])
+def test_lookup_kernel_tilings_on_the_card(q_tile, w_tile):
+    """q_tile 32-1024 by w_tile 512-8192 (a 64 KiB window at 8,192),
+    sorted mixed queries over a real narrow index with the ``pallas``
+    stage's own tile schedule, all four outputs bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = legacy_tiling_args(q_tile, w_tile)
+    tiling = dict(q_tile=q_tile, w_tile=w_tile)
+    got = lookup_kernel(*args, **tiling)
+    want = lookup_kernel_plain(*args, **tiling)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    assert got[1].any()

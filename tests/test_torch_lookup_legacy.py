@@ -134,9 +134,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="int32"):
         lookup_kernel(q, tb.long(), tab, tab, tab, sk, q_tile=32,
                       w_tile=2048)
-    with pytest.raises(ValueError, match="shared memory"):
-        lookup_kernel(q, tb, tab, tab, tab, torch.zeros(2 ** 16),
-                      q_tile=32, w_tile=2 ** 15, win_chunk=512)
+    # a window wider than shared memory is taken: the kernel stages only
+    # a tile's slice, and searches a slice too wide for its buffer in
+    # place
+    slot, found, fb, pred = lookup_kernel(
+        q, tb, tab, tab, tab, torch.zeros(2 ** 16), q_tile=32,
+        w_tile=2 ** 15, win_chunk=512)
+    assert slot.shape == found.shape == fb.shape == pred.shape == (64,)
 
 
 # ---------------------------------------------------------------------------

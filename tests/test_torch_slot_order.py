@@ -18,6 +18,14 @@ commit, for narrow and wide keys, PGM and FITing.
 ``fused_launch_shape`` is the launch configuration ``fused_lookup``
 computes in Python: tiles per CTA and dynamic shared memory, held
 within the card's limits for every shape the engine can produce.
+
+``csrc/lookup_kernel.cu`` and ``csrc/gap_place.cu`` search each tile or
+chunk only inside the brackets its least and greatest key give, which
+holds for the legacy narrow freeze's non-decreasing slot keys and
+segment first keys (checked at w_tile 512, 2048, 4096); the card
+tests' bracket cases are checked here to reach the paths they are
+named for (``lookup_kernel_brackets``, ``gap_place_brackets``), and
+the brackets to hold every key's count.
 """
 
 import numpy as np
@@ -25,7 +33,9 @@ import pytest
 import torch
 
 from repro_torch.core import Index
-from repro_torch.kernels import lookup
+from repro_torch.kernels import freeze, gap_place, lookup
+from test_torch_kernel_gpu import (GAP_CASES, LEGACY_CASES, gap_case_args,
+                                   legacy_case_args)
 
 
 def _nondecreasing(hi, lo):
@@ -215,3 +225,144 @@ def test_fused_launch_shape_at_engine_shapes(n_q, q_tile, flat_w, key_wide,
                                              want):
     assert lookup.fused_launch_shape(n_q // q_tile, q_tile, 2048, flat_w,
                                      key_wide, 132) == want
+
+
+# ---------------------------------------------------------------------------
+# the legacy kernel's and the Eq. 3 kernel's brackets
+# ---------------------------------------------------------------------------
+
+LEGACY_FREEZE = [(m, w) for m in ("pgm", "fiting") for w in (512, 2048, 4096)]
+
+
+@pytest.mark.parametrize("method,w_tile", LEGACY_FREEZE,
+                         ids=[f"{m}-w{w}" for m, w in LEGACY_FREEZE])
+def test_legacy_freeze_keys_nondecreasing(method, w_tile):
+    """``csrc/lookup_kernel.cu`` brackets a tile's ranks and segments by
+    its least and greatest query: the narrow freeze it reads (keys below
+    2^24, gap runs from an insert batch) must have non-decreasing slot
+    keys and segment first keys, +inf padded, at each w_tile."""
+    rng = np.random.default_rng(w_tile)
+    keys = np.unique(rng.choice(2 ** 24, 20_000, replace=False)
+                     ).astype(np.float64)
+    idx = Index.build(keys, method=method, eps=64, gap_rho=0.15,
+                      rng=np.random.default_rng(0), device="cpu")
+    idx.gapped.insert_batch(_spread(keys, 1500),
+                            5_000_000 + np.arange(1500))
+    a = freeze.from_learned_index(idx, "cpu", w_tile=w_tile)
+    assert not a.key_wide
+    sk, segk = a.slot_key.numpy(), a.seg_first_key.numpy()
+    assert sk.size % w_tile == 0 and sk.size >= 2 * w_tile
+    assert np.all(sk[:-1] <= sk[1:]) and np.all(segk[:-1] <= segk[1:])
+    # trailing gaps and the padding read +inf
+    assert np.isfinite(sk[0]) and np.isposinf(sk[a.n_slots:]).all()
+    n_seg = idx.mech.plm.n_segments
+    assert np.isinf(segk[n_seg:]).all() and np.isfinite(segk[:n_seg]).all()
+    # equal neighbours (gap runs) are present: the bracket must hold them
+    assert np.any(sk[:a.n_slots - 1] == sk[1:a.n_slots])
+
+
+def _tile_has(case, start, r_lo, r_hi, q, sk, base, w):
+    """Whether some tile of a ``legacy_case_args`` case reaches what the
+    case is for."""
+    two_w = 2 * w
+    width = r_hi - start
+    if case == "below_above":
+        return (bool(((r_hi == 0) & (base > 0)).any())
+                and bool((r_lo == two_w).any()))
+    if case == "all_padding":
+        return bool(torch.isinf(q).all(dim=1).any())
+    if case == "whole_window":
+        return bool(((r_lo == 0) & (r_hi == two_w)).any()) and bool(
+            (width > lookup.LEGACY_SLICE_CAP).any())
+    if case == "gap_edges":     # the exact bracket's edges fall in runs
+        hit = False
+        for t in range(q.shape[0]):
+            win = sk[int(base[t]):int(base[t]) + two_w]
+            lo, hi = int(r_lo[t]), int(r_hi[t])
+            if 0 < lo and hi < two_w and hi - lo >= 2:
+                hit |= bool(win[lo] == win[lo + 1]
+                            and win[hi - 1] == win[hi - 2])
+        return hit
+    if case == "unsorted":
+        qs = torch.where(q.isnan(), float("inf"), q)
+        return (bool((qs[:, 1:] < qs[:, :-1]).any())
+                and bool(q.isnan().any()))
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", LEGACY_CASES)
+def test_legacy_kernel_cases_reach_their_brackets(case):
+    """The card tests' legacy-kernel cases (tests/test_torch_kernel_gpu.py)
+    reach the paths they are named for, by ``lookup_kernel_brackets``
+    on the same inputs; and the brackets hold every query's rank and
+    segment count, by the plain version on the CPU."""
+    q_tile, w_tile = 128, 2048
+    args = legacy_case_args(case, "cpu")
+    qt, tb, segk, _slope, _icept, sk = args
+    tiling = dict(q_tile=q_tile, w_tile=w_tile)
+    base = tb.long().clamp(0, sk.shape[0] // w_tile - 2) * w_tile
+    q = qt.view(-1, q_tile)
+    exact = lookup.lookup_kernel_brackets(qt, tb, segk, sk, slack=0,
+                                          **tiling)
+    assert _tile_has(case, *exact[:3], q, sk, base, w_tile)
+    # the kernel's brackets: at most the slack wider at each end
+    start, r_lo, r_hi, seg_lo, seg_hi = lookup.lookup_kernel_brackets(
+        qt, tb, segk, sk, **tiling)
+    slack = lookup.LEGACY_RANK_SLACK
+    assert bool(((r_lo <= exact[1]) & (r_lo >= exact[1] - slack)
+                 & (r_hi >= exact[2]) & (r_hi <= exact[2] + slack)).all())
+    slot, _found, _fb, _pred = lookup.lookup_kernel(
+        *args, q_tile=q_tile, w_tile=w_tile)
+    rank = (slot.long() + 1 - base.repeat_interleave(q_tile)).view(-1,
+                                                                   q_tile)
+    cnt = torch.searchsorted(segk, qt, right=True).view(-1, q_tile)
+    real = ~q.isnan()
+    assert bool(((rank >= r_lo[:, None]) & (rank <= r_hi[:, None]))[real]
+                .all())
+    assert bool(((cnt >= seg_lo[:, None]) & (cnt <= seg_hi[:, None]))[real]
+                .all())
+
+
+def test_legacy_kernel_cases_tiles_mostly_in_one_segment():
+    """Ordinary tiles of the cases route with no segment search: their
+    least and greatest query share a segment count."""
+    seen = same = 0
+    for case in LEGACY_CASES:
+        qt, tb, segk, _s, _i, sk = legacy_case_args(case, "cpu")
+        _, _, _, lo, hi = lookup.lookup_kernel_brackets(
+            qt, tb, segk, sk, q_tile=128, w_tile=2048)
+        seen += lo.numel()
+        same += int((lo == hi).sum())
+    assert same >= seen // 2
+
+
+@pytest.mark.parametrize("case", GAP_CASES)
+def test_gap_place_cases_reach_their_brackets(case):
+    """The card tests' Eq. 3 cases reach the paths they are named for,
+    by ``gap_place_brackets`` on the same inputs; and the chunk
+    brackets hold every real key's segment count."""
+    args, n_real = gap_case_args(case, "cpu")
+    x, segk = args[0], args[1]
+    lo, hi = gap_place.gap_place_brackets(x, segk)
+    n, k_pad, chunk = x.shape[0], segk.shape[0], gap_place.GAP_CHUNK
+    rows = torch.minimum(hi, torch.tensor(k_pad - 1)) \
+        - (lo - 1).clamp(min=0) + 1
+    if case == "shuffled":
+        assert bool((rows > gap_place.GAP_ROW_CAP).all())
+    elif case == "shuffled_few":
+        assert bool(((lo < hi) & (rows <= gap_place.GAP_ROW_CAP)).all())
+    elif case == "one_segment":
+        assert int(torch.isfinite(segk).sum()) == 1
+        assert bool((lo == hi).all())
+    elif case == "below_first":
+        assert int(hi[0]) == 0
+    elif case == "padding_mid_chunk":
+        assert n_real % chunk and n % chunk and n_real < n
+        assert int(hi[n_real // chunk]) == k_pad
+    elif case == "ragged":
+        assert n % 4 and n % chunk and n_real == n
+    elif case == "unaligned":
+        assert x.data_ptr() % 16 == 4
+    cnt = torch.searchsorted(segk, x[:n_real], right=True)
+    ci = torch.arange(n_real) // chunk
+    assert bool(((cnt >= lo[ci]) & (cnt <= hi[ci])).all())
