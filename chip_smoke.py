@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py [--n-keys N] [--fused-keys N] [--fused-batches B]
                           [--place-keys N] [--place-batches B]
-                          [--narrow-keys N] [--seed S] [--profile]
+                          [--narrow-keys N] [--serve-keys N] [--seed S]
+                          [--profile]
 
 Drives ``repro_torch``'s main paths — build, freeze, batched lookups,
-the §5.3 write path, device Eq. 3 and the legacy lookup backends — on
-the card, and holds each hand-written CUDA kernel against its plain
-torch version.  Prints one JSON line per
+the §5.3 write path, device Eq. 3, the legacy lookup backends and the
+serving stack — on the card, and holds each hand-written CUDA kernel
+against its plain torch version.  Prints one JSON line per
 phase:
 
 1. environment and kernel build (one nvcc per source, in parallel, into
@@ -97,7 +98,35 @@ phase:
    held against the host oracle; the kernel timed at the 2^20 shapes,
    with the premise of its design counted on the host from the same
    inputs (the bytes the tiles' slices stage against whole windows,
-   the slice widths, tiles in one segment).
+   the slice widths, tiles in one segment);
+10. the serving stack at the fused gate's size (``--serve-keys``, 3.6M
+   keys below 2^40 by default, ``gap_rho=0.15, sample_rate=0.01``):
+   two YCSB core workloads (Cooper et al., SoCC 2010) as
+   benchmarks/serving_bench.py defines them, mix 1 YCSB-B (read
+   fraction 0.95, Zipf 0.99) over a ``method="auto"`` build (the
+   tuner's pick is printed), mix 2 YCSB-A (0.5, uniform) over ``pgm,
+   eps=64``.  Each runs 32 rounds: lookup calls of 2,048 keys from 8
+   caller threads (as many as the read fraction asks for: 38 and 2 a
+   round) and one ingest of 4,096 fresh keys (gap midpoints), all
+   through a ``MicroBatchQueue(max_wait_ms=2, max_depth=64)`` over an
+   ``EpochPipeline`` with an ``IngestWAL(sync_every="adaptive")``, an
+   ``InvariantAuditor`` every 8 ingests and the MDL-drift trigger
+   (0.05, every 8 publishes); a ``publish`` every 2 rounds, so half
+   the rounds serve from the pinned snapshot; a checkpoint every 8
+   rounds into a temporary directory, each restored on the card and
+   held bit for bit against the live state.  Every answer is held
+   against a host-only replay of every write at the epoch it reports.
+   Mix 1 then retrains while the published snapshot is pinned (which
+   must serve bit-identically across it), ingests once more, tears the
+   WAL inside that last record and recovers from the newest checkpoint
+   on the card: the state must equal the host-only replay of the acked
+   writes, and a 2^16 mixed lookup on it must be served by the kernel.
+   Per mix: lookup-call p50 / p99 (host clock ending in
+   ``torch.cuda.synchronize``), live and snapshot lookups, flush sizes,
+   ingest labels and fused commits, WAL bytes and syncs, checkpoint
+   and restore seconds and bytes, recovery seconds and records, retrain
+   and MDL seconds; then both kernels at the path's shapes against
+   their plain versions.
 
 Scale: SOSD's key sets (Marcus et al., Benchmarking Learned Indexes,
 VLDB 2020) hold 200M keys; the read phase cuts that to 32M so the host
@@ -109,7 +138,8 @@ costs about 2 s of host partition and delta diff, and its host replay
 about 1.3 s more, so all 381 batches would take some 20 minutes.  The
 legacy kernel is narrow-only (keys below 2^24, as in the reference),
 so phase 9 builds its own index; 8M of the 16.8M integers below 2^24
-is about half the key space.
+is about half the key space.  Phase 10 holds its index at phase 5's
+size, where the fused ingest is admitted.
 
 Every kernel timing reports ``ms`` (CUDA events around 20 back-to-back
 wrapper calls, over the count: host and device together),
@@ -133,6 +163,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1738,6 +1769,450 @@ def phase_legacy(rng, seed, smi, n_keys, main_res) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# the serving stack: EpochPipeline and MicroBatchQueue over the fused
+# write path, the ingest WAL with crash recovery, snapshots, MDL
+# self-tuning and retrain
+# ---------------------------------------------------------------------------
+
+# YCSB core workloads (Cooper et al., SoCC 2010) as
+# benchmarks/serving_bench.py defines them: (name, read fraction, Zipf
+# theta, build); mix 1 lets the §3 MDL auto-tuner pick the mechanism
+SERVE_MIXES = (("ycsb_b", 0.95, 0.99, {"method": "auto"}),
+               ("ycsb_a", 0.5, 0.0, {"method": "pgm", "eps": 64}))
+SERVE_ROUNDS = 32
+SERVE_WRITE = 4_096     # fresh keys (gap midpoints) ingested a round
+SERVE_CALL = 2_048      # keys a lookup call
+SERVE_CALLERS = 8
+SERVE_CHECKPOINT = 8    # a checkpoint every 8 rounds (rounds 4, 12, ...)
+
+
+def zipf_sampler(n_items, theta, rng):
+    """Bounded Zipf(theta) over ranks 0..n_items-1 (theta = 0: uniform)
+    by the inverse CDF, ranks spread over the key space by a fixed
+    permutation (benchmarks/serving_bench.py's YCSB request model)."""
+    if theta <= 0.0:
+        return lambda size: rng.integers(0, n_items, size)
+    w = 1.0 / np.power(np.arange(1, n_items + 1, dtype=np.float64), theta)
+    cdf = np.cumsum(w / w.sum())
+    perm = rng.permutation(n_items)
+    return lambda size: perm[np.searchsorted(cdf, rng.random(size))]
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*")
+               if p.is_file())
+
+
+def check_served(res, ga, q) -> None:
+    """One answer against the host oracle ``ga`` at the state it was
+    served from: a snapshot answer is the bounded host search's (its
+    slot for a query below every key is 0), a device answer is held as
+    ``check_against_host`` holds it."""
+    if res.backend != "snapshot":
+        check_against_host(res, ga, q)
+        return
+    pay, slot, found = ga.lookup_batch(q, full=True)
+    if not (np.array_equal(res.payloads, pay)
+            and np.array_equal(res.slots, slot)
+            and np.array_equal(res.found, found)):
+        raise AssertionError("a snapshot answer differs from the host "
+                             "oracle at its epoch")
+
+
+def serve_callers(queue, calls, n_callers):
+    """``calls`` (query arrays) from ``n_callers`` threads, round robin:
+    each caller submits, waits out the queue's deadline (its timer
+    thread flushes every pending call as one batch) and takes its
+    result (flushing itself if the timer has not).  Returns ``(query,
+    result, ms)`` per call and the shed submits (a shed caller submits
+    again).  A call's time ends in ``torch.cuda.synchronize``."""
+    from repro_torch.serving import Overloaded
+    out, errors, shed = [], [], [0]
+    lock = threading.Lock()
+
+    def caller(mine):
+        try:
+            for q in mine:
+                t0 = time.perf_counter()
+                while True:
+                    t = queue.submit_lookup(q)
+                    time.sleep(queue.max_wait_ms / 1e3)
+                    res = queue.result(t)
+                    if not isinstance(res, Overloaded):
+                        break
+                    with lock:
+                        shed[0] += 1
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    out.append((q, res, ms))
+        except BaseException as e:   # re-raised by the driving thread
+            with lock:
+                errors.append(e)
+
+    threads = [threading.Thread(target=caller, args=(calls[i::n_callers],))
+               for i in range(n_callers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a lookup caller did not finish")
+    if errors:
+        raise errors[0]
+    return out, shed[0]
+
+
+def serve_build(rng, seed, counts, mix_kw, label):
+    """The serving index: the first key count of ``counts`` whose slot
+    count is under the fused gate (as phase 5)."""
+    from repro_torch.core import Index
+    for n in counts:
+        keys = draw_keys(rng, n)
+        t0 = time.perf_counter()
+        idx = Index.build(keys, gap_rho=0.15, sample_rate=0.01,
+                          rng=np.random.default_rng(seed), device="cuda",
+                          **mix_kw)
+        build_s = time.perf_counter() - t0
+        if idx.gapped.n_slots < FUSED_GATE:
+            idx.sync_device()    # a server freezes before it takes calls
+            tuned = idx.tuned
+            emit("serve_build", mix=label, n_keys=int(n),
+                 n_slots=int(idx.gapped.n_slots), gate=FUSED_GATE,
+                 method=idx.method, mech_kwargs=idx.mech_kwargs,
+                 sample_rate=idx.sample_rate, build_seconds=build_s,
+                 freeze_seconds=idx.stats["freeze_seconds"],
+                 segments=int(idx.mech.plm.n_segments),
+                 tuner=None if tuned is None else {
+                     "method": tuned.method,
+                     "mech_kwargs": tuned.mech_kwargs,
+                     "score": tuned.score,
+                     "sample_rate": tuned.sample_rate,
+                     "candidates": list(tuned.candidates)})
+            return idx, keys
+    raise AssertionError(f"{label}: no key count fits n_slots < "
+                         f"{FUSED_GATE}")
+
+
+class ServeOracle:
+    """Host-only replays of every write, as the serving gates read
+    them: ``served`` holds the state of the served epoch, ``live`` the
+    live index's layout; writes wait in ``pending`` until the publish
+    that serves them.  A retrain relays out the live index: ``live``
+    then starts from a copy of the retrained state."""
+
+    def __init__(self, idx):
+        self.idx = idx
+        self.live = copy.deepcopy(idx.gapped)
+        self.served = self.live
+        self.pending = []
+        self.retrains = idx.stats["retrains"]
+
+    def write(self, keys, pays):
+        self.pending.append((keys, pays))
+
+    def published(self):
+        for keys, pays in self.pending:
+            self.live.insert_batch(keys, pays)
+        self.pending = []
+        self.served = self.live
+        self.relayout()
+
+    def relayout(self):
+        if self.idx.stats["retrains"] != self.retrains:
+            self.retrains = self.idx.stats["retrains"]
+            self.live = copy.deepcopy(self.idx.gapped)
+
+
+def restore_check(directory, step, idx, label) -> dict:
+    """A checkpoint restored on the card equals the live state it was
+    taken from, bit for bit."""
+    from repro_torch.core import Index
+    t0 = time.perf_counter()
+    rest, extra = Index.restore(directory, step=step, device="cuda")
+    secs = time.perf_counter() - t0
+    assert_same_state(rest.gapped, idx.gapped, f"{label}: restore")
+    probe = idx.keys[:: max(1, idx.keys.size // 65_536)]
+    if not (rest.epoch == idx.epoch and rest.method == idx.method
+            and rest.device == idx.device
+            and np.array_equal(rest.mech.predict(probe),
+                               idx.mech.predict(probe))):
+        raise AssertionError(f"{label}: the restored index differs")
+    return {"step": step, "restore_seconds": secs,
+            "wal_lsn": extra["wal_lsn"]}
+
+
+def serve_mix(rng, seed, smi, tmp, n_keys, label, read_frac, theta,
+              mix_kw, last) -> dict:
+    """One mix: 32 rounds of lookups from 8 callers and one ingest
+    through a ``MicroBatchQueue`` over an ``EpochPipeline`` with a WAL,
+    an auditor and the MDL-drift trigger; every answer held against the
+    host oracle of the epoch it reports.  ``last`` (mix 1) adds the
+    retrain during a pinned epoch, a torn WAL and the recovery."""
+    from repro_torch.robustness import InvariantAuditor
+    from repro_torch.serving import EpochPipeline, IngestWAL, MicroBatchQueue
+    counts = [n_keys] if n_keys else [3_600_000, 3_500_000, 3_400_000]
+    idx, keys = serve_build(rng, seed, counts, mix_kw, label)
+    mids = np.setdiff1d(keys[:-1] + np.floor(np.diff(keys) * 0.5), keys)
+    fresh = rng.permutation(mids)[:(SERVE_ROUNDS + 1) * SERVE_WRITE]
+    oracle = ServeOracle(idx)
+    ck_dir = tmp / f"{label}_checkpoints"
+    wal_path = tmp / f"{label}.wal"
+    wal = IngestWAL(wal_path, sync_every="adaptive")
+    auditor = InvariantAuditor()
+    t0 = time.perf_counter()
+    pipe = EpochPipeline(idx, wal=wal, auditor=auditor, audit_every=8,
+                         retrain_mdl_drift=0.05, retrain_check_every=8)
+    mdl_init_s = time.perf_counter() - t0
+    queue = MicroBatchQueue(pipe, max_wait_ms=2, max_depth=64)
+    flushes = []
+    serve_lookup = pipe.lookup
+
+    def counted_lookup(q, **kw):
+        flushes.append(int(q.shape[0]))
+        return serve_lookup(q, **kw)
+
+    pipe.lookup = counted_lookup   # the queue's one call a flush
+    n_calls = max(1, int(round(read_frac / (1.0 - read_frac)
+                               * SERVE_WRITE / SERVE_CALL)))
+    sample = zipf_sampler(keys.size, theta, rng)
+    lat, by_stage, devices, placements = [], {}, {}, {}
+    ingest_ms, checkpoints, shed = [], [], 0
+    acked_after_ck, written = [], 0
+    pays = Counter(1 << 30)     # payloads stay in the narrow freeze
+    t_run = time.perf_counter()
+    for r in range(SERVE_ROUNDS):
+        if r % SERVE_CHECKPOINT == SERVE_CHECKPOINT // 2:
+            t0 = time.perf_counter()
+            d = pipe.checkpoint(ck_dir, step=r)
+            ck_s = time.perf_counter() - t0
+            checkpoints.append({"checkpoint_seconds": ck_s,
+                                "bytes": dir_bytes(d),
+                                **restore_check(ck_dir, r, idx, label)})
+            acked_after_ck = []
+        served_epoch = pipe.epoch
+        calls = []
+        for _ in range(n_calls):
+            q = keys[sample(SERVE_CALL)]
+            if written:   # one in ten reads asks for a written key
+                k = SERVE_CALL // 10
+                q[:k] = fresh[rng.integers(0, written, k)]
+            calls.append(q)
+        out, n_shed = serve_callers(queue, calls, SERVE_CALLERS)
+        shed += n_shed
+        for q, res, ms in out:
+            if res.epoch != served_epoch:
+                raise AssertionError(f"{label}: an answer reports epoch "
+                                     f"{res.epoch}, served {served_epoch}")
+            check_served(res, oracle.served, q)
+            by_stage.setdefault(res.backend, []).append(ms)
+            lat.append(ms)
+        batch = fresh[r * SERVE_WRITE:(r + 1) * SERVE_WRITE]
+        pay = pays.take(batch.size)
+        t0 = time.perf_counter()
+        rep = queue.result(queue.submit_ingest(batch, pay))
+        torch.cuda.synchronize()
+        ingest_ms.append((time.perf_counter() - t0) * 1e3)
+        devices[rep.device] = devices.get(rep.device, 0) + 1
+        placements[rep.placement] = placements.get(rep.placement, 0) + 1
+        oracle.write(batch, pay)
+        oracle.relayout()
+        acked_after_ck.append((batch, pay))
+        written += batch.size
+        if r % 2:
+            pipe.publish()
+            oracle.published()
+    loop_s = time.perf_counter() - t_run
+    t0 = time.perf_counter()
+    mdl = idx.mdl()
+    mdl_s = time.perf_counter() - t0
+    res = {"n_keys": int(keys.size), "n_slots": int(idx.gapped.n_slots),
+           "method": idx.method, "mech_kwargs": idx.mech_kwargs,
+           "read_fraction": read_frac, "zipf": theta,
+           "rounds": SERVE_ROUNDS, "lookup_calls_per_round": n_calls,
+           "lookup_calls": len(lat),
+           "lookup_ms_p50": float(np.percentile(lat, 50)),
+           "lookup_ms_p99": float(np.percentile(lat, 99)),
+           "lookup_ms_by_stage": {
+               k: {"calls": len(v), "p50": float(np.percentile(v, 50)),
+                   "p99": float(np.percentile(v, 99)), "max": max(v)}
+               for k, v in by_stage.items()},
+           "pipeline_live_lookups": pipe.stats["live_lookups"],
+           "pipeline_snapshot_lookups": pipe.stats["snapshot_lookups"],
+           "flushes": len(flushes),
+           "flush_keys": {"min": min(flushes), "median":
+                          statistics.median(flushes), "max": max(flushes)},
+           "callers_per_flush": (queue.stats["coalesced_lookups"]
+                                 / max(1, queue.stats["lookup_dispatches"])),
+           "deadline_flushes": queue.stats["deadline_flushes"],
+           "shed": shed + queue.stats["shed"],
+           "ingest_devices": devices, "ingest_placements": placements,
+           "ingest_ms_median": statistics.median(ingest_ms),
+           "ingest_ms_max": max(ingest_ms),
+           "fused_commits": idx.stats.get("fused_ingests", 0),
+           "fused_aborts": idx.stats.get("fused_abort_total", 0),
+           "split_commits": idx.stats.get("split_commits", 0),
+           "wal_bytes": int(wal.lsn), "wal_stats": dict(wal.stats),
+           "checkpoints": checkpoints,
+           "mdl_checks": pipe.stats["mdl_checks"],
+           "mdl_retrains": pipe.stats["mdl_retrains"],
+           "mdl_seconds": mdl_s, "mdl_init_seconds": mdl_init_s,
+           "mdl_score": mdl.mdl, "audits": pipe.stats["audits"],
+           "publishes": pipe.stats["publishes"],
+           "loop_seconds": loop_s, "answers_equal_host_oracle": True}
+    if last:
+        res.update(serve_retrain(rng, pipe, queue, oracle, idx, keys,
+                                 fresh, pays, wal_path, label))
+    queue.close()
+    pipe.close()                       # closes (fsyncs) the WAL
+    if auditor.violations:
+        raise AssertionError(f"{label}: auditor: {auditor.violations}")
+    res["auditor_checks"] = auditor.checks
+    if last:
+        res.update(serve_recover(rng, keys, res.pop("pre_state"), ck_dir,
+                                 wal_path, *res.pop("last_record"),
+                                 len(acked_after_ck), label))
+    else:
+        res["index"] = idx
+        res["fresh_left"] = fresh[SERVE_ROUNDS * SERVE_WRITE:]
+    emit("serve_mix", card=smi, mix=label, **{
+        k: v for k, v in res.items()
+        if k not in ("index", "fresh_left", "recovered")})
+    return res
+
+
+def serve_retrain(rng, pipe, queue, oracle, idx, keys, fresh, pays,
+                  wal_path, label) -> dict:
+    """Mix 1's end: a retrain while the published snapshot is pinned
+    (the snapshot must serve bit-identically across it), its publish,
+    and one more ingest, whose WAL record the caller tears."""
+    probe = np.concatenate([keys[rng.integers(0, keys.size, 4_096)],
+                            fresh[:4_096]])
+    snap = pipe._snapshot.retain()
+    before = snap.lookup(probe)
+    check_served(before, oracle.served, probe)
+    t0 = time.perf_counter()
+    rec = pipe.retrain(sample_rate=0.01, rng=np.random.default_rng(7))
+    retrain_s = time.perf_counter() - t0
+    during = pipe.lookup(probe)
+    snap.release()
+    if not (during.backend == "snapshot" and during.epoch == before.epoch
+            and np.array_equal(during.payloads, before.payloads)
+            and np.array_equal(during.slots, before.slots)
+            and np.array_equal(during.found, before.found)):
+        raise AssertionError(f"{label}: the pinned snapshot moved across "
+                             "the retrain")
+    pre_state = oracle.served    # every acked write, before the retrain
+    pre_epoch = idx.epoch - 1
+    oracle.relayout()
+    k0, p0 = pre_state.live_items()
+    k1, p1 = idx.gapped.live_items()
+    if not (np.array_equal(k0, k1) and np.array_equal(p0, p1)):
+        raise AssertionError(f"{label}: the retrain changed the key set")
+    pipe.publish()
+    oracle.published()
+    after = pipe.lookup(probe)
+    check_served(after, oracle.served, probe)
+    batch = fresh[SERVE_ROUNDS * SERVE_WRITE:(SERVE_ROUNDS + 1)
+                  * SERVE_WRITE]
+    start = wal_path.stat().st_size
+    queue.result(queue.submit_ingest(batch, pays.take(batch.size)))
+    return {"retrain_seconds": retrain_s,
+            "retrain_learn_seconds": rec["learn_seconds"],
+            "retrain_chains": [rec["chains_before"], rec["chains_after"]],
+            "snapshot_bit_identical_across_retrain": True,
+            "served_after_retrain_by": after.backend,
+            "pre_state": pre_state, "epoch_before_retrain": pre_epoch,
+            "last_record": (start, wal_path.stat().st_size)}
+
+
+def serve_recover(rng, keys, pre_state, ck_dir, wal_path, start, end,
+                  n_acked, label) -> dict:
+    """Tear the WAL at a random byte inside its last record, recover
+    from the newest checkpoint on the card, and hold the result against
+    the host-only replay of every acked write; then a 2^16 mixed lookup
+    on the recovered index, served by the kernel."""
+    from repro_torch.serving import recover_index
+    cut = int(rng.integers(start + 1, end))
+    with open(wal_path, "r+b") as f:
+        f.truncate(cut)
+    t0 = time.perf_counter()
+    recovered, info = recover_index(ck_dir, wal_path, device="cuda")
+    recover_s = time.perf_counter() - t0
+    if not (info["torn"] and info["replayed"] == n_acked):
+        raise AssertionError(f"{label}: recovery {info}, want {n_acked} "
+                             "records replayed from a torn log")
+    assert_same_state(recovered.gapped, pre_state, f"{label}: recovery")
+    checks = []
+    for _ in range(2):   # the first may meet a cold escape buffer
+        q = mixed_queries(rng, keys, pre_state.links.chain_keys, 1 << 16,
+                          keys[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = recovered.lookup(q)
+        torch.cuda.synchronize()
+        checks.append({"backend": r.backend,
+                       "ms": (time.perf_counter() - t0) * 1e3})
+        check_against_host(r, pre_state, q)
+        if r.backend == "fused":
+            break
+    if checks[-1]["backend"] != "fused":
+        raise AssertionError(f"{label}: the recovered index's lookup was "
+                             f"served by {checks[-1]['backend']!r}")
+    return {"wal_torn_at": [start, cut, end],
+            "recover_seconds": recover_s,
+            "replayed": info["replayed"], "skipped": info["skipped"],
+            "restored_step": info["restored_step"],
+            "recovered_epoch": recovered.epoch,
+            "recovered_equals_host_replay": True,
+            "recovered_lookups": checks, "recovered": recovered}
+
+
+def phase_serve(rng, seed, smi, n_keys) -> dict:
+    """Phase 10: the serving stack over the fused write path at the
+    fused gate's size, mix 1 (YCSB-B, auto-tuned build, then retrain,
+    torn WAL and recovery) and mix 2 (YCSB-A)."""
+    import tempfile
+    from repro_torch.kernels.gap_place import ingest_place
+    from repro_torch.kernels.lookup import fused_lookup
+    mixes = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        fused_lookup.launches = 0
+        ingest_place.launches = 0
+        for i, (label, rf, theta, kw) in enumerate(SERVE_MIXES):
+            mixes[label] = serve_mix(rng, seed, smi, Path(tmp), n_keys,
+                                     label, rf, theta, kw, last=i == 0)
+        launches = {"fused_lookup": fused_lookup.launches,
+                    "ingest_place": ingest_place.launches}
+    if not (launches["fused_lookup"] and launches["ingest_place"]):
+        raise AssertionError(f"serve: a kernel of the path never launched "
+                             f"({launches})")
+    # the kernels at the path's shapes against their plain versions:
+    # the largest flush bucket of mix 1 on the recovered index, one
+    # ingest batch on mix 2's index (after the counts were read)
+    b_label, a_label = (m[0] for m in SERVE_MIXES)
+    rec_idx = mixes[b_label].pop("recovered")
+    bucket = max(1 << 9, 1 << int(np.ceil(np.log2(SERVE_CALLERS
+                                                   * SERVE_CALL))))
+    q = rec_idx.keys[rng.integers(0, rec_idx.keys.size, bucket)]
+    _a, _s, _g, lookup_err = kernel_case("serve_flush", rec_idx, q)
+    a_idx = mixes[a_label]["index"]
+    arrays = a_idx.sync_device().arrays
+    _got, place_err = place_vs_plain(
+        "serve_ingest", place_args(arrays, mixes[a_label]["fresh_left"]),
+        arrays.n_slots)
+    del mixes[a_label]["index"], mixes[a_label]["fresh_left"]
+    res = {"launches": launches, "mixes": mixes,
+           "kernel_vs_plain": {"fused_lookup_bucket": bucket,
+                               "fused_lookup_max_abs_err": lookup_err,
+                               "ingest_place_batch": SERVE_WRITE,
+                               "ingest_place_max_abs_err": place_err}}
+    emit("serve_phase", card=smi, launches=launches,
+         kernel_vs_plain=res["kernel_vs_plain"], tolerance=TOL)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-keys", type=int, default=32_000_000)
@@ -1755,6 +2230,9 @@ def main() -> int:
     ap.add_argument("--narrow-keys", type=int, default=8_000_000,
                     help="keys (below 2^24) of the legacy phase's narrow "
                          "index")
+    ap.add_argument("--serve-keys", type=int, default=0,
+                    help="keys in phase 10's builds (default: the largest "
+                         "of 3.6M, 3.5M, 3.4M whose n_slots < 2^22)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace three lookups per batch size, and two "
@@ -1806,6 +2284,7 @@ def main() -> int:
     eq3 = phase_eq3(main_res, smi)
     legacy = phase_legacy(rng, args.seed, smi, args.narrow_keys, main_res)
     del main_res["index"], main_res["keys"]
+    serve = phase_serve(rng, args.seed, smi, args.serve_keys)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the run")
 
@@ -1821,10 +2300,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_lookup.cu",
         "replaces": "src/repro/kernels/lookup.py:415",
-        # the read path, then the write phases' lookup checks
+        # the read path, the write phases' lookup checks, the serving
+        # stack's live lookups and its lookups after recovery
         "launches": (main_res["launches"]
                      + fused_res["launches"]["fused_lookup"]
-                     + two_res["launches"]["fused_lookup"]),
+                     + two_res["launches"]["fused_lookup"]
+                     + serve["launches"]["fused_lookup"]),
         "max_abs_err": max(b["max_abs_err"]
                            for b in main_res["per_batch"].values()),
         **times(big),
@@ -1834,7 +2315,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ingest_place.cu",
         "replaces": "src/repro/kernels/gap_place.py:618",
         "launches": (fused_res["launches"]["ingest_place"]
-                     + two_res["launches"]["ingest_place"]),
+                     + two_res["launches"]["ingest_place"]
+                     + serve["launches"]["ingest_place"]),
         "max_abs_err": place_timing["max_abs_err"],
         **times(place_timing),
     }, {
@@ -1869,7 +2351,16 @@ def main() -> int:
          legacy_cases=len(legacy_rows), eq3_launches=eq3["launches"],
          legacy_path={"lookup_kernel": legacy["launches"],
                       "pallas_served_by": legacy["pallas_served"],
-                      "xla_windowed_ms": legacy["xla_ms"]})
+                      "xla_windowed_ms": legacy["xla_ms"]},
+         serve_path=serve["launches"],
+         serve={label: {k: m[k] for k in (
+             "method", "lookup_ms_p50", "lookup_ms_p99",
+             "pipeline_live_lookups", "pipeline_snapshot_lookups",
+             "ingest_devices", "fused_commits")}
+             for label, m in serve["mixes"].items()},
+         serve_recovery={k: serve["mixes"][SERVE_MIXES[0][0]][k] for k in (
+             "recover_seconds", "replayed", "skipped",
+             "retrain_seconds")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

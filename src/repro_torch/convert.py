@@ -4,12 +4,21 @@
 .save_snapshot`` writes (``keys``, ``slot_key``, ``occupied``,
 ``payload``, ``offsets``, ``chain_keys``, ``chain_payloads``; meta
 ``method``, ``n_keys``, ``rho``, ``epoch``, ``gap_rho``,
-``sample_rate``).  In place of the snapshot's pickled mechanism, which
-would unpickle into ``repro`` classes, it takes the piecewise linear
-model as arrays: ``seg_first_key``, ``slope``, ``icept``, ``err_lo``,
-``err_hi`` (and optionally meta ``plm_n_keys``, the keys the model was
-fit on).  The arrays are copied: the port's index never shares memory
-with the caller's (a live reference index can go on being written).
+``sample_rate``).  In place of the snapshot's pickled mechanism it
+takes the piecewise linear model as arrays: ``seg_first_key``,
+``slope``, ``icept``, ``err_lo``, ``err_hi`` (and optionally meta
+``plm_n_keys``, the keys the model was fit on).  The arrays are copied:
+the port's index never shares memory with the caller's (a live
+reference index can go on being written).
+
+A snapshot on disk goes through ``Index.restore`` instead.  Its pickle
+names the module of the mechanism's classes, so a stock ``pickle.loads``
+of a reference snapshot would import ``repro.core.mechanisms``, and the
+reference's of a port snapshot ``repro_torch.core.mechanisms``.  The
+port therefore writes its mechanisms under the reference's module name
+and reads that name as its own verbatim copy (``core.handle``'s
+``_MechPickler`` / ``_MechUnpickler``), so snapshots cross-restore both
+ways and each restored mechanism is of the restoring package.
 """
 
 from __future__ import annotations

@@ -41,15 +41,24 @@ longer holds.  The device gates (``n_slots < 2^24`` for device
 placement, ``< 2^22`` for the fused ingest) are the reference's, so the
 reports' ``placement`` and ``device`` labels match it.
 
+Durability and self-tuning follow the reference: ``save_snapshot`` /
+``restore`` write and read its checkpoint layout (either package
+restores the other's snapshots), ``build(method="auto")`` runs the §3
+MDL auto-tuner, ``retrain`` refits the live state on a sample and
+``mdl`` scores it.  A restore or a retrain leaves the device state
+empty; the first device lookup refreezes on ``device``.
+
 The device is ``cuda`` unless the index is given ``device="cpu"``;
-without CUDA the default raises.  The other entry points of the
-reference handle raise ``NotImplementedError`` naming their ROADMAP
-item.
+without CUDA the default raises.  ``build(shards=...)`` raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import copy as _copy
 import dataclasses
+import io
+import pickle
 import time
 from typing import Dict, Optional
 
@@ -58,6 +67,7 @@ import torch
 
 from ..device import resolve_device
 from . import gaps as _gaps
+from . import mdl as _mdl
 from . import sampling as _sampling
 from .mechanisms import MECHANISMS
 from .results import IngestReport, LookupResult, host_lookup_result
@@ -74,6 +84,53 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md queue A, "
         f"item {item})")
+
+
+# A pickle names the module of every class it holds.  The mechanisms
+# are a verbatim copy of the reference's, so a snapshot's mechanism is
+# pickled under the reference's module name (which the reference's
+# stock ``pickle.loads`` resolves) and read back through a map to the
+# port's copy: snapshots cross-restore both ways.
+_PORT_MECH = __package__ + ".mechanisms"
+_REF_MECH = "repro.core.mechanisms"
+
+
+class _MechPickler(pickle._Pickler):
+    """Writes classes of the port's ``mechanisms`` under
+    ``repro.core.mechanisms``, without importing the reference."""
+
+    def save_global(self, obj, name=None):
+        # STACK_GLOBAL: the protocol is pickle.DEFAULT_PROTOCOL (>= 4)
+        if getattr(obj, "__module__", None) != _PORT_MECH:
+            return super().save_global(obj, name)
+        self.save(_REF_MECH)
+        self.save(name or obj.__qualname__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+class _MechUnpickler(pickle.Unpickler):
+    """Reads ``repro.core.mechanisms`` classes as the port's copies and
+    refuses every other module of the reference."""
+
+    def find_class(self, module, name):
+        if module == _REF_MECH:
+            module = _PORT_MECH
+        elif module == "repro" or module.startswith("repro."):
+            raise pickle.UnpicklingError(
+                f"{module}.{name}: a snapshot's mechanism may name only "
+                f"{_REF_MECH} of the reference")
+        return super().find_class(module, name)
+
+
+def _dump_mech(mech) -> bytes:
+    buf = io.BytesIO()
+    _MechPickler(buf, protocol=pickle.DEFAULT_PROTOCOL).dump(mech)
+    return buf.getvalue()
+
+
+def _load_mech(data: bytes):
+    return _MechUnpickler(io.BytesIO(data)).load()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +171,9 @@ class Index:
     build_seconds: float = 0.0
     learn_seconds: float = 0.0
     mech_kwargs: dict = dataclasses.field(default_factory=dict)
+    # the auto-tuner's TunedChoice when built with method="auto"
+    tuned: object = dataclasses.field(default=None, repr=False,
+                                      compare=False)
     # cuda unless "cpu" is asked for (see device.resolve_device)
     device: Optional[torch.device] = None
     # --- device-sync policy knobs -------------------------------------
@@ -146,7 +206,7 @@ class Index:
     stats: dict = dataclasses.field(default_factory=lambda: {
         "refreezes": 0, "delta_updates": 0, "delta_elems": 0,
         "lookups": 0, "ingests": 0, "bound_refreshes": 0,
-        "search_probes": 0, "freeze_seconds": 0.0})
+        "retrains": 0, "search_probes": 0, "freeze_seconds": 0.0})
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -168,11 +228,16 @@ class Index:
         """Build an index on the host; its device state lives on
         ``device`` (cuda unless ``device="cpu"``).  ``payloads``
         overrides the stored payload per key (default: the key's
-        position) — gapped builds only."""
+        position) — gapped builds only.
+
+        ``method="auto"`` runs the §3 MDL auto-tuner
+        (``core.tuning.autotune``) over a (mechanism, eps, sample-size)
+        grid on a sample of the keys and builds the winner; the choice
+        is recorded on ``index.tuned``.  The default ``sample_rate=1.0``
+        then means "let the tuner pick"; pass an explicit rate to pin
+        it."""
         if shards is not None:
             raise _not_ported("Index.build(shards=...)", "A11")
-        if method == "auto":
-            raise _not_ported("Index.build(method='auto')", "A15")
         dev = resolve_device(device)
         keys = np.asarray(keys, np.float64)
         if keys.ndim != 1 or keys.shape[0] < 2:
@@ -187,6 +252,19 @@ class Index:
                 raise ValueError("explicit payloads need a gapped build "
                                  "(gap_rho > 0); static builds store "
                                  "positions")
+        tuned = None
+        if method == "auto":
+            from . import tuning as _tuning
+            tuned = _tuning.autotune(
+                keys, queries=mech_kwargs.pop("queries", None),
+                dynamic=gap_rho > 0.0, rng=rng,
+                **{k: mech_kwargs.pop(k) for k in
+                   ("alpha", "size_budget_bytes", "max_err_budget")
+                   if k in mech_kwargs})
+            method = tuned.method
+            mech_kwargs = dict(tuned.mech_kwargs, **mech_kwargs)
+            if sample_rate >= 1.0:  # default sentinel: tuner's pick
+                sample_rate = tuned.sample_rate
         factory = _mechanism_factory(method, **mech_kwargs)
         t0 = time.perf_counter()
         if gap_rho > 0.0:
@@ -217,7 +295,7 @@ class Index:
                    sample_rate=sample_rate, gap_rho=gap_rho,
                    build_seconds=dt,
                    learn_seconds=float(timings.get("learn_seconds", dt)),
-                   mech_kwargs=dict(mech_kwargs), device=dev)
+                   mech_kwargs=dict(mech_kwargs), tuned=tuned, device=dev)
 
     # ------------------------------------------------------------------
     # epoch protocol
@@ -231,6 +309,34 @@ class Index:
     def device_epoch(self) -> int:
         """Epoch the frozen device state reflects (-1: not frozen)."""
         return self._device_epoch
+
+    def __deepcopy__(self, memo):
+        # the device state is a cache keyed by epoch: the copy rebuilds
+        # it lazily on the same device instead of copying the engine's
+        # tensors and kernel handles
+        new = Index(
+            keys=_copy.deepcopy(self.keys, memo),
+            mech=_copy.deepcopy(self.mech, memo),
+            method=self.method,
+            gapped=_copy.deepcopy(self.gapped, memo),
+            sample_rate=self.sample_rate,
+            gap_rho=self.gap_rho,
+            build_seconds=self.build_seconds,
+            learn_seconds=self.learn_seconds,
+            mech_kwargs=dict(self.mech_kwargs),
+            tuned=self.tuned,
+            device=self.device,
+            refreeze_contested_frac=self.refreeze_contested_frac,
+            refreeze_link_growth=self.refreeze_link_growth,
+            min_device_batch=self.min_device_batch,
+            fused_ingest_enabled=self.fused_ingest_enabled,
+            fused_split_commit=self.fused_split_commit,
+            refresh_segments_frac=self.refresh_segments_frac,
+            stats=dict(self.stats),
+        )
+        new.__class__ = self.__class__
+        memo[id(self)] = new
+        return new
 
     # ------------------------------------------------------------------
     # backend resolution
@@ -900,13 +1006,173 @@ class Index:
         return out
 
     # ------------------------------------------------------------------
-    # not ported in this slice
+    # durability (serving/wal.py crash recovery rides on these)
     # ------------------------------------------------------------------
-    def retrain(self, *args, **kwargs):
-        raise _not_ported("Index.retrain", "A15")
+    def save_snapshot(self, directory, *, step: Optional[int] = None,
+                      keep: int = 3, wal_lsn: int = 0,
+                      extra: Optional[dict] = None) -> str:
+        """Write a restorable checkpoint of the full HOST state in the
+        reference's layout (``train.checkpoint.CheckpointManager``: one
+        fsynced ``.npy`` per array + manifest, atomic tmp -> rename
+        publish).  The device state is never written: it is an
+        epoch-keyed cache that refreezes lazily after ``restore``.
+        ``wal_lsn`` records the ingest-WAL byte offset this snapshot is
+        consistent with (recovery replays only records past it —
+        serving/wal.py).  Returns the published checkpoint directory."""
+        from ..train.checkpoint import CheckpointManager
+        state = {
+            "keys": np.asarray(self.keys, np.float64),
+            "mech_pickle": np.frombuffer(
+                _dump_mech(self.mech), np.uint8).copy(),
+        }
+        meta = {
+            "kind": "index",
+            "method": self.method,
+            "sample_rate": float(self.sample_rate),
+            "gap_rho": float(self.gap_rho),
+            "gapped": self.gapped is not None,
+            "epoch": int(self.epoch),
+            "wal_lsn": int(wal_lsn),
+        }
+        ga = self.gapped
+        if ga is not None:
+            offsets, lkeys, lpays = ga.export_csr_links()
+            state.update(
+                slot_key=np.asarray(ga.slot_key, np.float64),
+                occupied=np.asarray(ga.occupied, bool),
+                payload=np.asarray(ga.payload, np.int64),
+                offsets=np.asarray(offsets, np.int64),
+                chain_keys=np.asarray(lkeys, np.float64),
+                chain_payloads=np.asarray(lpays, np.int64),
+            )
+            meta["n_keys"] = int(ga.n_keys)
+            meta["rho"] = float(ga.rho)
+        if extra:
+            meta.update(extra)
+        s = int(step if step is not None else self.epoch)
+        meta["step"] = s
+        return CheckpointManager(directory, keep=keep).save(
+            s, state, extra=meta)
 
-    def mdl(self, alpha: float = 1.0):
-        raise _not_ported("Index.mdl", "A15")
+    @classmethod
+    def restore(cls, directory, step: Optional[int] = None, device=None):
+        """Load a ``save_snapshot`` checkpoint of either package ->
+        ``(index, extra)``, the index's device state on ``device`` (cuda
+        unless ``device="cpu"``), not yet frozen.
 
-    def save_snapshot(self, directory, **kwargs):
-        raise _not_ported("Index.save_snapshot", "A9")
+        The host state is restored bit-identically (arrays verbatim,
+        the mechanism from its pickle as the port's classes); ``extra``
+        is the manifest's metadata dict (includes ``wal_lsn``).  Newest
+        step when ``step`` is None."""
+        from ..train.checkpoint import CheckpointManager
+        from .links import CSRLinks
+        dev = resolve_device(device)
+        mgr = CheckpointManager(str(directory))
+        s = int(step) if step is not None else mgr.latest_step()
+        if s is None:
+            raise FileNotFoundError(f"no checkpoints in {directory}")
+        state, meta = mgr.restore(step=s)
+        mech = _load_mech(
+            np.asarray(state["mech_pickle"], np.uint8).tobytes())
+        gapped = None
+        if meta.get("gapped"):
+            slot_key = np.asarray(state["slot_key"], np.float64)
+            gapped = _gaps.GappedArray(
+                slot_key=slot_key,
+                occupied=np.asarray(state["occupied"], bool),
+                payload=np.asarray(state["payload"], np.int64),
+                links=CSRLinks(
+                    int(slot_key.shape[0]),
+                    np.asarray(state["offsets"], np.int64),
+                    np.asarray(state["chain_keys"], np.float64),
+                    np.asarray(state["chain_payloads"], np.int64)),
+                mech=mech,
+                n_keys=int(meta["n_keys"]),
+                rho=float(meta["rho"]),
+                version=int(meta["epoch"]))
+        idx = cls(keys=np.asarray(state["keys"], np.float64), mech=mech,
+                  method=meta["method"], gapped=gapped,
+                  sample_rate=float(meta["sample_rate"]),
+                  gap_rho=float(meta["gap_rho"]), device=dev)
+        return idx, meta
+
+    # ------------------------------------------------------------------
+    # self-tuning: online retrain
+    # ------------------------------------------------------------------
+    def retrain(self, sample_rate: Optional[float] = None, *,
+                gap_rho: Optional[float] = None, rng=None,
+                method: Optional[str] = None, **mech_kwargs) -> dict:
+        """Sampled refit of the LIVE gapped state — the paper's §4
+        construction cost applied online.
+
+        Extracts the live (key, payload) set (occupied slots + CSR
+        chain keys via ``GappedArray.live_items``), rebuilds the gapped
+        array through ``build_gapped`` with mechanism learning on a
+        sample (O(n_s)), and swaps it in with the epoch bumped past the
+        old one.  The OLD arrays are replaced, never mutated, so any
+        outstanding ``GapSnapshot`` pin (``serving.EpochPipeline``)
+        keeps serving its epoch bit-identically throughout; the device
+        cache is dropped and refreezes lazily at the new epoch on the
+        same device.  Defaults replay the build's settings (``method``
+        / mech kwargs / ``gap_rho``); ``sample_rate`` defaults to the
+        build's rate.  Returns a record dict (n / seconds /
+        learn_seconds / epoch / chains before-after)."""
+        self._need_gapped()
+        t0 = time.perf_counter()
+        old_epoch = self.epoch
+        chains_before = self.gapped.link_stats()
+        keys, payloads = self.gapped.live_items()
+        method = method or self.method
+        rate = self.sample_rate if sample_rate is None else float(sample_rate)
+        rho = self.gap_rho if gap_rho is None else float(gap_rho)
+        kwargs = dict(self.mech_kwargs, **mech_kwargs) if method == \
+            self.method else dict(mech_kwargs)
+        new = Index.build(keys, method=method, sample_rate=rate,
+                          gap_rho=rho, rng=rng, payloads=payloads,
+                          device=self.device, **kwargs)
+        # swap host state wholesale; epoch stays strictly monotone
+        new.gapped.version = old_epoch + 1
+        self.keys = new.keys
+        self.mech = new.mech
+        self.method = new.method
+        self.gapped = new.gapped
+        self.sample_rate = rate
+        self.gap_rho = rho
+        self.mech_kwargs = new.mech_kwargs
+        self.tuned = new.tuned if new.tuned is not None else self.tuned
+        # device state is an epoch-keyed cache of the REPLACED arrays
+        self._engine = None
+        self._mirror = None
+        self._device_epoch = -1
+        self._keycap_cache = None
+        self._pending_touch = []
+        self.stats["retrains"] += 1
+        return {
+            "n": int(keys.shape[0]),
+            "seconds": time.perf_counter() - t0,
+            "learn_seconds": float(new.learn_seconds),
+            "sample_rate": rate,
+            "epoch": int(self.epoch),
+            "chains_before": chains_before,
+            "chains_after": self.gapped.link_stats(),
+        }
+
+    def mdl(self, alpha: float = 1.0) -> _mdl.MDLReport:
+        """Evaluate under the §3 MDL framework (positions = logical y).
+
+        Gapped builds are scored on the LIVE key set — occupied slot
+        keys plus CSR chain keys from ``GappedArray.live_items()`` —
+        against their physical slots, so keys added by ``ingest`` enter
+        ``L(D|M)`` / ``max_abs_err`` and the report tracks drift (the
+        retrain trigger's input).  A chained key's position is its chain
+        owner's slot: exactly where the search lands before the chain
+        bisect."""
+        if self.gapped is not None:
+            keys, _ = self.gapped.live_items()
+            y = (np.searchsorted(self.gapped.slot_key, keys,
+                                 side="right") - 1).astype(np.float64)
+        else:
+            keys = self.keys
+            y = np.arange(keys.shape[0], dtype=np.float64)
+        return _mdl.mdl_report(self.method, self.mech, keys, y,
+                               alpha=alpha)

@@ -1,0 +1,324 @@
+"""Cross-caller batch aggregation for index calls (``MicroBatchQueue``).
+
+Small index calls are dominated by fixed per-call host overhead
+(argument preparation, the kernel launch, the result copy back), so the
+queue amortizes that overhead across CALLERS instead of across keys:
+
+* callers ``submit_lookup``/``submit_ingest`` and hold a ticket;
+* ``flush()`` concatenates every pending lookup into ONE padded batch
+  (power-of-two buckets from ``min_bucket``) and issues ONE
+  ``lookup`` — one fused-lookup kernel launch for a batch of 512 or
+  more queries; pending ingests are likewise coalesced into one
+  ``Index.ingest``;
+* results demultiplex back per ticket, in submission order, as typed
+  ``LookupResult``/``IngestReport`` slices.
+
+The class is the reference's ``repro.serving.engine.MicroBatchQueue``,
+unchanged (tests/test_torch_freeze.py holds its syntax tree equal);
+the decode loop of that module (``Request``, ``ServingEngine``) and the
+paged KV cache are not ported yet (ROADMAP.md queue A, items A12-A13).
+
+The ``max_wait_ms`` deadline flush runs on a daemon timer thread, so a
+flush launches the CUDA kernels from that thread: each launch takes the
+device of its tensors and that thread's current stream (the default
+stream unless the thread sets another), and an error there is raised
+on the next queue call (``_async_error``).  An index built on
+``device="cuda"`` resolves to each thread's current device; on a host
+with several cards, pass ``device="cuda:N"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+
+from ..core.results import Overloaded
+
+__all__ = ["MicroBatchQueue"]
+
+
+class MicroBatchQueue:
+    """Cross-caller batch aggregation for index lookups/ingests (see
+    module doc "Serving aggregation").  Single-threaded cooperative
+    batching: callers submit, someone flushes, tickets resolve in
+    submission order.
+
+    ``index`` is any handle with ``lookup(queries) -> LookupResult``
+    and ``ingest(keys, payloads) -> IngestReport`` — the single-device
+    ``repro.core.Index``, the range-partitioned
+    ``repro.dist.ShardedIndex`` (whose router then splits each
+    coalesced flush across shards — one fan-out dispatch instead of one
+    per caller), or a snapshot-isolated ``serving.EpochPipeline``.
+
+    Admission control (ISSUE 8):
+
+    * ``max_wait_ms`` — per-request deadline: the first pending submit
+      arms a daemon timer that flushes a partially filled bucket when
+      it fires, so a lone small caller never stalls waiting for
+      bucket-full (``stats["deadline_flushes"]``).
+    * ``max_depth`` — bounded queue: a submit past the bound resolves
+      its ticket IMMEDIATELY to a typed ``core.Overloaded`` result
+      (``stats["shed"]``) — explicit backpressure, never a silent hang
+      and never an unbounded queue.
+    * ingest retry — a raising ``index.ingest`` is retried
+      ``ingest_retries`` times with exponential backoff, the final
+      attempt forcing the host partition path
+      (``fused_ingest_enabled=False``, restored after) so a
+      misbehaving fused write graph degrades to the proven host path
+      instead of failing the request.  ``InjectedCrash`` (process
+      death) always propagates.
+    """
+
+    def __init__(self, index, min_bucket: int = 512,
+                 max_wait_ms: Optional[float] = None,
+                 max_depth: Optional[int] = None,
+                 ingest_retries: int = 2,
+                 retry_backoff_ms: float = 1.0,
+                 faults=None, auditor=None, audit_every: int = 0):
+        self.index = index
+        self.min_bucket = max(1, int(min_bucket))
+        self.max_wait_ms = max_wait_ms
+        self.max_depth = max_depth
+        self.ingest_retries = max(0, int(ingest_retries))
+        self.retry_backoff_ms = float(retry_backoff_ms)
+        self.faults = faults
+        self.auditor = auditor
+        self.audit_every = int(audit_every)
+        self._lookups: list = []   #: guarded-by: _lock
+        self._ingests: list = []   #: guarded-by: _lock
+        self._results: dict = {}   #: guarded-by: _lock
+        self._next_ticket = 0      #: guarded-by: _lock
+        # reentrant: the deadline timer thread calls flush(); result()
+        # nests flush() under the same lock on the caller thread
+        self._lock = threading.RLock()
+        #: guarded-by: _lock
+        self._deadline_timer: Optional[threading.Timer] = None
+        #: guarded-by: _lock
+        self._async_error: Optional[BaseException] = None
+        # per-bucket reused staging buffers (donated-buffer pattern):
+        # one f64 concat target per padded shape, never re-allocated
+        self._staging: dict = {}   #: guarded-by: _lock
+        #: guarded-by: _lock
+        self.stats = {"flushes": 0, "lookup_dispatches": 0,
+                      "ingest_dispatches": 0, "coalesced_lookups": 0,
+                      "coalesced_ingests": 0, "deadline_flushes": 0,
+                      "shed": 0, "ingest_retries": 0,
+                      "host_fallbacks": 0}
+
+    def _ticket(self) -> int:
+        """lock-held: _lock (every issuer is a locked public method)."""
+        t = self._next_ticket
+        self._next_ticket += 1
+        return t
+
+    def _raise_async_error(self) -> None:
+        """lock-held: _lock"""
+        err, self._async_error = self._async_error, None
+        if err is not None:
+            raise err
+
+    def _depth(self) -> int:
+        """lock-held: _lock"""
+        return len(self._lookups) + len(self._ingests)
+
+    def _shed(self, kind: str) -> int:
+        """lock-held: _lock (called from the locked submit paths)."""
+        t = self._ticket()
+        self._results[t] = Overloaded(
+            kind=kind, depth=self._depth(),
+            max_depth=int(self.max_depth),
+            epoch=int(getattr(self.index, "epoch", -1)))
+        self.stats["shed"] += 1
+        return t
+
+    def _arm_deadline(self) -> None:
+        """lock-held: _lock (called from the locked submit paths)."""
+        if self.max_wait_ms is None or self._deadline_timer is not None:
+            return
+        t = threading.Timer(self.max_wait_ms / 1e3, self._deadline_fire)
+        t.daemon = True
+        self._deadline_timer = t
+        t.start()
+
+    def _cancel_deadline(self) -> None:
+        """lock-held: _lock (flush()/close() call under their lock)."""
+        t, self._deadline_timer = self._deadline_timer, None
+        if t is not None:
+            t.cancel()
+
+    def _deadline_fire(self) -> None:
+        with self._lock:
+            self._deadline_timer = None
+            if not (self._lookups or self._ingests):
+                return
+            self.stats["deadline_flushes"] += 1
+            try:
+                self.flush()
+            except BaseException as e:  # surfaced on the next caller
+                self._async_error = e   # touch — never lost silently
+
+    def submit_lookup(self, keys) -> int:
+        keys = np.atleast_1d(np.asarray(keys, np.float64))
+        if keys.shape[0] == 0:
+            raise ValueError("submit_lookup: empty key batch")
+        with self._lock:
+            self._raise_async_error()
+            if (self.max_depth is not None
+                    and self._depth() >= self.max_depth):
+                return self._shed("lookup")
+            t = self._ticket()
+            self._lookups.append((t, keys))
+            self._arm_deadline()
+            return t
+
+    def submit_ingest(self, keys, payloads) -> int:
+        keys = np.atleast_1d(np.asarray(keys, np.float64))
+        payloads = np.atleast_1d(np.asarray(payloads, np.int64))
+        if keys.shape[0] == 0:
+            raise ValueError("submit_ingest: empty key batch")
+        if keys.shape != payloads.shape:
+            raise ValueError("submit_ingest: payloads must match keys 1:1")
+        with self._lock:
+            self._raise_async_error()
+            if (self.max_depth is not None
+                    and self._depth() >= self.max_depth):
+                return self._shed("ingest")
+            t = self._ticket()
+            self._ingests.append((t, keys, payloads))
+            self._arm_deadline()
+            return t
+
+    def _bucket(self, n: int) -> int:
+        b = self.min_bucket
+        while b < n:
+            b <<= 1
+        return b
+
+    def _stage(self, name: str, bucket: int, dtype) -> np.ndarray:
+        """lock-held: _lock (only reached from flush())."""
+        buf = self._staging.get((name, bucket))
+        if buf is None:
+            buf = np.empty(bucket, dtype)
+            self._staging[(name, bucket)] = buf
+        return buf
+
+    def _ingest_with_retry(self, keys, pays):
+        """Dispatch one coalesced ingest with retry-with-backoff and a
+        final host-path fallback (see class doc).
+
+        lock-held: _lock (only reached from flush()).
+
+        Retries transient
+        ``RuntimeError``s only — ``InjectedCrash`` (process death) and
+        caller bugs (``KeyError``/``ValueError``: duplicate keys, shape
+        mismatches) propagate immediately, since replaying them cannot
+        succeed and may double-apply."""
+        from ..robustness.faults import InjectedCrash
+        last: Optional[BaseException] = None
+        for attempt in range(self.ingest_retries + 1):
+            force_host = attempt > 0 and attempt == self.ingest_retries
+            target = self.index
+            prev = getattr(target, "fused_ingest_enabled", None)
+            try:
+                if self.faults is not None:
+                    self.faults.check("ingest")
+                if force_host and hasattr(target, "fused_ingest_enabled"):
+                    target.fused_ingest_enabled = False
+                    self.stats["host_fallbacks"] += 1
+                return target.ingest(keys, pays)
+            except InjectedCrash:
+                raise
+            except RuntimeError as e:
+                last = e
+                self.stats["ingest_retries"] += 1
+                time.sleep(self.retry_backoff_ms * (2 ** attempt) / 1e3)
+            finally:
+                if force_host and hasattr(target, "fused_ingest_enabled"):
+                    target.fused_ingest_enabled = prev
+        raise last
+
+    def flush(self) -> None:
+        """Coalesce everything pending into one dispatch per kind
+        (ingests first, so lookups submitted after an ingest in the
+        same flush window observe its writes) and demux the results.
+
+        Raises ``RuntimeError`` when nothing is pending: a flush with
+        zero submissions has no last real key to pad the staging buffer
+        with, and silently reading the previous flush's stale staging
+        contents is exactly the bug this guard closes."""
+        with self._lock:
+            self._cancel_deadline()
+            if not self._ingests and not self._lookups:
+                raise RuntimeError(
+                    "MicroBatchQueue.flush() with nothing pending — "
+                    "submit before flushing (stale staging buffers are "
+                    "never read)")
+            if self.faults is not None:
+                self.faults.check("flush")
+            if self._ingests:
+                pend, self._ingests = self._ingests, []
+                keys = np.concatenate([k for _, k, _ in pend])
+                pays = np.concatenate([p for _, _, p in pend])
+                rep = self._ingest_with_retry(keys, pays)
+                for t, k, _ in pend:
+                    self._results[t] = rep  # one report, shared per ticket
+                self.stats["ingest_dispatches"] += 1
+                self.stats["coalesced_ingests"] += len(pend)
+                if (self.auditor is not None and self.audit_every
+                        and self.stats["ingest_dispatches"]
+                        % self.audit_every == 0):
+                    self.auditor.assert_ok(self.index)
+            if self._lookups:
+                pend, self._lookups = self._lookups, []
+                sizes = [k.shape[0] for _, k in pend]
+                n = int(sum(sizes))
+                bucket = self._bucket(n)
+                buf = self._stage("lookup", bucket, np.float64)
+                off = 0
+                for _, k in pend:
+                    buf[off: off + k.shape[0]] = k
+                    off += k.shape[0]
+                buf[off:] = buf[off - 1]  # pad: repeat the last real key
+                res = self.index.lookup(buf)
+                off = 0
+                for (t, k), sz in zip(pend, sizes):
+                    sl = slice(off, off + sz)
+                    self._results[t] = dataclasses.replace(
+                        res, payloads=res.payloads[sl],
+                        slots=res.slots[sl], found=res.found[sl])
+                    off += sz
+                self.stats["lookup_dispatches"] += 1
+                self.stats["coalesced_lookups"] += len(pend)
+            self.stats["flushes"] += 1
+
+    def result(self, ticket: int):
+        """Pop a ticket's typed result (flushing pending work first if
+        the ticket is still queued).  Each ticket resolves EXACTLY
+        once — a duplicate read, or a ticket this queue never issued,
+        raises ``KeyError`` instead of triggering a spurious flush.
+        A shed ticket resolves to its ``Overloaded`` marker here."""
+        with self._lock:
+            self._raise_async_error()
+            if ticket in self._results:
+                return self._results.pop(ticket)
+            pending = (any(t == ticket for t, _ in self._lookups)
+                       or any(t == ticket for t, _, _ in self._ingests))
+            if pending:
+                self.flush()
+                return self._results.pop(ticket)
+            if 0 <= ticket < self._next_ticket:
+                raise KeyError(
+                    f"ticket {ticket} already consumed — results resolve "
+                    "exactly once")
+            raise KeyError(f"unknown ticket {ticket} (never issued by "
+                           "this queue)")
+
+    def close(self) -> None:
+        """Cancel the deadline timer (join not needed: the timer body
+        only takes the lock and returns when nothing is pending)."""
+        with self._lock:
+            self._cancel_deadline()

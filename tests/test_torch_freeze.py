@@ -1,8 +1,10 @@
 """The port's host build and freeze equal the reference's, array for
-array: the verbatim core copies, the copied numpy freeze/sizing
-helpers, and whole builds at sample_rate 1.0 and 0.01 with equal
+array: the verbatim core copies (and the verbatim serving and
+robustness copies, with ``MicroBatchQueue`` held by its syntax tree),
+the copied numpy freeze/sizing helpers, and whole builds at sample_rate 1.0 and 0.01 with equal
 seeds.  Inputs are made with numpy from a seed and handed to both."""
 
+import ast
 from pathlib import Path
 
 import numpy as np
@@ -14,13 +16,40 @@ from repro_torch.core import Index
 from repro_torch.kernels import bounds, delta, freeze
 
 ROOT = Path(__file__).resolve().parents[1]
-COPIED = ("links", "mechanisms", "sampling", "gaps", "results")
+COPIED = ("links", "mechanisms", "sampling", "gaps", "results", "mdl",
+          "tuning")
+COPIED_OUTSIDE_CORE = ("robustness/__init__.py", "robustness/faults.py",
+                       "serving/pipeline.py")
 
 
 @pytest.mark.parametrize("name", COPIED)
 def test_core_copies_are_verbatim(name):
     ref = (ROOT / "src" / "repro" / "core" / f"{name}.py").read_bytes()
     port = (ROOT / "src" / "repro_torch" / "core" / f"{name}.py").read_bytes()
+    assert port == ref
+
+
+@pytest.mark.parametrize("path", COPIED_OUTSIDE_CORE)
+def test_serving_and_robustness_copies_are_verbatim(path):
+    ref = (ROOT / "src" / "repro" / path).read_bytes()
+    port = (ROOT / "src" / "repro_torch" / path).read_bytes()
+    assert port == ref
+
+
+def _class_tree(path, name):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    node = next(n for n in tree.body
+                if isinstance(n, ast.ClassDef) and n.name == name)
+    return ast.dump(node, include_attributes=False)
+
+
+def test_micro_batch_queue_is_the_references_class():
+    """``MicroBatchQueue`` is copied unchanged: its syntax tree (body,
+    docstrings and decorators) equals the reference's."""
+    ref = _class_tree(ROOT / "src" / "repro" / "serving" / "engine.py",
+                      "MicroBatchQueue")
+    port = _class_tree(ROOT / "src" / "repro_torch" / "serving" /
+                       "engine.py", "MicroBatchQueue")
     assert port == ref
 
 

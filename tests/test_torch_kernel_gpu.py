@@ -620,3 +620,54 @@ def test_lookup_kernel_tilings_on_the_card(q_tile, w_tile):
     for g, w in zip(got, want):
         assert _same(g, w)
     assert got[1].any()
+
+
+@pytest.mark.gpu
+def test_serving_stack_launches_from_the_timer_thread_on_the_card(tmp_path):
+    """``MicroBatchQueue``'s deadline flush runs the fused lookup and
+    the placement kernel from its timer thread: the answers equal the
+    host oracle, the kernels' counts grow, and a checkpoint of the
+    written index restores and recovers on the card to the same
+    state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import time
+
+    from repro_torch.serving import (EpochPipeline, IngestWAL,
+                                     MicroBatchQueue, recover_index)
+    idx, q = _index(8, 2 ** 40)
+    idx.sync_device()      # an ingest takes the device path when frozen
+    keys = idx.keys
+    fresh = np.setdiff1d(keys[:-1] + np.floor(np.diff(keys) * 0.25),
+                         idx.gapped.live_items()[0])[:2_048]
+    wal = IngestWAL(tmp_path / "w.wal")
+    pipe = EpochPipeline(idx, wal=wal, publish_every=1)
+    pipe.checkpoint(tmp_path / "ck", step=0)
+    queue = MicroBatchQueue(pipe, max_wait_ms=5)
+    n_lookup, n_place = fused_lookup.launches, gap_place.ingest_place.launches
+    t_in = queue.submit_ingest(fresh, 9_000_000 + np.arange(fresh.size))
+    t_q = queue.submit_lookup(q[:2_048])
+    deadline = time.monotonic() + 30.0
+    while queue.stats["deadline_flushes"] == 0:
+        assert time.monotonic() < deadline, "deadline timer never fired"
+        time.sleep(0.005)
+    rep, res = queue.result(t_in), queue.result(t_q)
+    # the flush ingests first; the publish after it serves the lookup
+    # from the live index, on the card
+    assert rep.placement.startswith("device") and res.epoch == idx.epoch
+    assert res.backend in ("fused", "device-oracle")
+    pay, _slot, found = idx.gapped.lookup_batch(q[:2_048], full=True)
+    assert np.array_equal(res.payloads, pay)
+    assert np.array_equal(res.found, found)
+    assert fused_lookup.launches > n_lookup
+    assert gap_place.ingest_place.launches > n_place
+    queue.close()
+    pipe.close()
+    rec, info = recover_index(tmp_path / "ck", tmp_path / "w.wal",
+                              device="cuda")
+    assert info["replayed"] == 1 and rec.device.type == "cuda"
+    ga, gb = rec.gapped, idx.gapped
+    assert np.array_equal(ga.slot_key, gb.slot_key)
+    assert np.array_equal(ga.payload, gb.payload)
+    r = rec.lookup(fresh)
+    assert r.found.all() and r.backend in ("fused", "device-oracle")
