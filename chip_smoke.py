@@ -6,10 +6,11 @@
                           [--profile]
 
 Drives ``repro_torch``'s main paths — build, freeze, batched lookups,
-the §5.3 write path, device Eq. 3, the legacy lookup backends and the
-serving stack — on the card, and holds each hand-written CUDA kernel
-against its plain torch version.  Prints one JSON line per
-phase:
+the §5.3 write path, device Eq. 3, the legacy lookup backends, the
+range-sharded index, the serving stack and the index's consumers — on
+the card, and holds each hand-written CUDA kernel against its plain
+torch version.  Prints one JSON line per phase (they run in the order
+1-9, 11, 10, 12: phase 11 reuses the read phase's keys and index):
 
 1. environment and kernel build (one nvcc per source, in parallel, into
    build/repro_torch/);
@@ -59,7 +60,7 @@ phase:
    host-only replay of every write on a copy taken before the first;
 6. the two-dispatch write path at the largest size the placement gate
    admits (``n_slots < 2^24``: ``--place-keys``, 14.5M keys by
-   default): ``--place-batches`` (32) insert batches of 16,384
+   default): ``--place-batches`` (16) insert batches of 16,384
    held-out keys, the same lookup checks and host-replay equality; the
    kernel timed at 16,384 keys beside its plain version, its byte
    bound and ``torch.searchsorted`` for ``ub`` alone;
@@ -126,20 +127,52 @@ phase:
    ingest labels and fused commits, WAL bytes and syncs, checkpoint
    and restore seconds and bytes, recovery seconds and records, retrain
    and MDL seconds; then both kernels at the path's shapes against
-   their plain versions.
+   their plain versions;
+11. the range-sharded index (``Index.build(shards=8)``, the largest
+   count of benchmarks/shard_bench.py's sweep) over the read phase's
+   32M keys: per shard its keys, slots and which write gates it is
+   under, the fan-out's devices, stacked bytes, build and stack
+   seconds; the read phase's 4,096 and 2^20 queries through the fan-out
+   (ms per batch, escapes, exchange overflows, router mispredicts),
+   every payload and found equal to the single-device index and every
+   slot to the shards' host oracles plus their slot bases; 2^16 queries
+   through the grouped ``backend="fused"`` path (one ``fused_lookup``
+   launch per touched shard), a 256-query batch on the host path, the
+   shard boundaries and their neighbours; 8 insert batches of 16,384
+   absent keys (each shard's placement and device labels), the fan-out
+   held against the union of keys and inserts every 4 batches, every
+   shard's state against a host-only replay of its writes, a forced
+   split of the largest shard and a retrain of shard 0, each followed
+   by a fan-out check on the rebuilt epoch tag.  Then 3.6M keys in 4
+   shards through ``EpochPipeline`` with an ``IngestWAL``: a checkpoint
+   mid-run, a torn WAL tail and ``recover_index(device="cuda")``, every
+   recovered shard equal to the pre-crash shard;
+12. the index's consumers: ``PagedKVCache`` at vLLM's defaults (65,536
+   pages of 16, 256 requests) allocating 128 pages a request, 2^16
+   (request, page) lookups on the device path (half of them mapped)
+   against the allocation record after each group and after frees;
+   ``IndexedTokenDataset`` over a synthetic store of 1M documents
+   (mean length 64, vocabulary 32,000; examples/streaming_ingest.py's
+   widths), ``ShardedLoader`` batches of 1,024 held against the store,
+   and a streamed shipment of 4,096 new documents.
 
 Scale: SOSD's key sets (Marcus et al., Benchmarking Learned Indexes,
 VLDB 2020) hold 200M keys; the read phase cuts that to 32M so the host
 build and the host oracle fit the run's time limit (``--n-keys``).
 The write phases are sized by the device gates.  Phase 5 inserts all
 of its 1.54M held-out keys; phase 6's traffic is cut by the time limit
-to 32 batches (0.52M of 6.2M held-out keys): at 16.65M slots a batch
-costs about 2 s of host partition and delta diff, and its host replay
-about 1.3 s more, so all 381 batches would take some 20 minutes.  The
+to 16 batches (0.26M of 6.2M held-out keys; 32 until phases 11-12
+came): at 16.65M slots a batch costs about 2 s of host partition and
+delta diff, and its host replay about 1.3 s more, so all 381 batches
+would take some 20 minutes.  The
 legacy kernel is narrow-only (keys below 2^24, as in the reference),
 so phase 9 builds its own index; 8M of the 16.8M integers below 2^24
 is about half the key space.  Phase 10 holds its index at phase 5's
-size, where the fused ingest is admitted.
+size, where the fused ingest is admitted, and so does phase 11's
+durability run.  Phase 11 cuts the read index into 8 shards of about
+4.6M slots, each under the placement gate; its writes are cut to 8
+batches by the time limit (each costs a host partition and a delta
+diff per touched shard, and the host replay as much again).
 
 Every kernel timing reports ``ms`` (CUDA events around 20 back-to-back
 wrapper calls, over the count: host and device together),
@@ -163,6 +196,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -719,7 +753,7 @@ def phase_main(rng, n_keys, seed, smi, profile=False) -> dict:
              kernel_vs_plain=TOL)
     return {"launches": launches, "per_batch": per_batch,
             "main": main_stats, "lookup_ms": timing, "index": idx,
-            "keys": keys}
+            "keys": keys, "queries": batches}
 
 
 # ---------------------------------------------------------------------------
@@ -744,10 +778,14 @@ def place_args(a, keys, n_pad: int = 0):
     pad = max(0, n_pad - x_hi.size)
     x_hi = np.concatenate([x_hi, np.full(pad, np.inf, np.float32)])
     x_lo = np.concatenate([x_lo, np.zeros(pad, np.float32)])
+    link_hi, link_lo = a.link_keys, a.link_keys_lo
+    if int(link_hi.shape[0]) == 0:  # as ops_gap.ingest_place passes it
+        link_hi = torch.full((1,), float("inf"), device=a.device)
+        link_lo = torch.zeros(1 if a.key_wide else 0, device=a.device)
     return (torch.from_numpy(x_hi).cuda(), torch.from_numpy(x_lo).cuda(),
             a.seg_first_key, a.seg_first_key_lo, a.seg_slope,
             a.seg_slope_lo, a.seg_icept, a.seg_icept_lo, a.slot_key,
-            a.slot_key_lo, a.link_offsets, a.link_keys, a.link_keys_lo)
+            a.slot_key_lo, a.link_offsets, link_hi, link_lo)
 
 
 def place_vs_plain(name, args, n_slots) -> tuple:
@@ -2173,7 +2211,6 @@ def phase_serve(rng, seed, smi, n_keys) -> dict:
     """Phase 10: the serving stack over the fused write path at the
     fused gate's size, mix 1 (YCSB-B, auto-tuned build, then retrain,
     torn WAL and recovery) and mix 2 (YCSB-A)."""
-    import tempfile
     from repro_torch.kernels.gap_place import ingest_place
     from repro_torch.kernels.lookup import fused_lookup
     mixes = {}
@@ -2213,6 +2250,656 @@ def phase_serve(rng, seed, smi, n_keys) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the range-sharded index; phase 12: the index's consumers
+# ---------------------------------------------------------------------------
+
+SHARDS = 8              # benchmarks/shard_bench.py sweeps 2, 4 and 8
+SHARD_WRITE_BATCHES = 8
+SHARD_WRITE = 16_384
+SHARD_CHECK = 1 << 16
+SHARD_SERVE_SHARDS = 4
+SHARD_SERVE_ROUNDS = 8
+SHARD_SERVE_WRITE = 4_096
+SHARD_SERVE_CHECKPOINT = 4   # the checkpoint before round 4 of 8
+
+
+class UnionOracle:
+    """The plain oracle of a written index: the sorted union of the
+    build's keys and payloads and every insert, searched with numpy."""
+
+    def __init__(self, keys, pays):
+        self.keys = np.asarray(keys, np.float64)
+        self.pays = np.asarray(pays, np.int64)
+
+    def copy(self) -> "UnionOracle":
+        return UnionOracle(self.keys.copy(), self.pays.copy())
+
+    def insert(self, keys, pays) -> None:
+        o = np.argsort(keys, kind="stable")
+        at = np.searchsorted(self.keys, keys[o])
+        self.keys = np.insert(self.keys, at, keys[o])
+        self.pays = np.insert(self.pays, at, pays[o])
+
+    def check(self, res, q, label) -> None:
+        at = np.minimum(np.searchsorted(self.keys, q), self.keys.size - 1)
+        found = self.keys[at] == q
+        pay = np.where(found, self.pays[at], -1)
+        bad = {"payloads": int(np.count_nonzero(res.payloads != pay)),
+               "found": int(np.count_nonzero(res.found != found))}
+        if any(bad.values()):
+            raise AssertionError(f"{label}: answers differ from the union "
+                                 f"oracle: {bad}")
+
+
+def sharded_host_check(res, sharded, q, label, bounded=False) -> None:
+    """Payloads, slots and found of a sharded answer against each
+    shard's host oracle plus its slot base: the plain binary search for
+    a device answer (its slot for a query below every key is -1, as on
+    the device), the bounded search for a host-served one."""
+    dst = np.searchsorted(sharded.router.bounds, q, side="right")
+    bases = sharded._slot_bases()
+    pay = np.full(q.size, -1, np.int64)
+    slot = np.full(q.size, -1, np.int64)
+    found = np.zeros(q.size, bool)
+    for s in np.unique(dst):
+        rows = np.flatnonzero(dst == s)
+        p, sl, f = sharded.shards[s].gapped.lookup_batch(
+            q[rows], bounded=bounded, full=True)
+        pay[rows], found[rows] = p, f
+        slot[rows] = np.where(sl >= 0, sl + bases[s], -1)
+    bad = {"payloads": int(np.count_nonzero(res.payloads != pay)),
+           "slots": int(np.count_nonzero(res.slots != slot)),
+           "found": int(np.count_nonzero(res.found != found))}
+    if any(bad.values()):
+        raise AssertionError(f"{label}: answers differ from the shards' "
+                             f"host oracles: {bad}")
+
+
+def same_as_single(res, want, label) -> None:
+    """Payload and found of a sharded answer equal the single-device
+    index's answer on the same queries, bit for bit."""
+    if not (np.array_equal(res.payloads, want.payloads)
+            and np.array_equal(res.found, want.found)):
+        raise AssertionError(f"{label}: sharded answers differ from the "
+                             "single-device index's")
+
+
+def uncounted(fn, *args, **kw):
+    """``fn(*args, **kw)`` with the kernels' launch counts left as they
+    were: a reference answer computed during a phase is not the
+    phase's path."""
+    from repro_torch.kernels.gap_place import ingest_place
+    from repro_torch.kernels.lookup import fused_lookup
+    saved = fused_lookup.launches, ingest_place.launches
+    try:
+        return fn(*args, **kw)
+    finally:
+        fused_lookup.launches, ingest_place.launches = saved
+
+
+def absent_keys(rng, present, n):
+    """n integer keys drawn uniformly in the range of ``present`` (a
+    sorted array) and absent from it, in random order."""
+    cand = np.unique(np.floor(rng.uniform(present[0], present[-1], 2 * n)))
+    at = np.minimum(np.searchsorted(present, cand), present.size - 1)
+    cand = cand[present[at] != cand]
+    if cand.size < n:
+        raise AssertionError("too few absent keys drawn")
+    return rng.permutation(rng.choice(cand, n, replace=False))
+
+
+def timed_fanout(sh, q, label, reps=5) -> tuple:
+    """Warm fan-out lookups of ``q`` (host clock ending in
+    ``torch.cuda.synchronize``, median of ``reps``), after warm-up calls
+    until the exchange sizing has stopped growing (at most 3)."""
+    for _ in range(3):
+        over = sh._fan.stats["cap_overflows"] if sh._fan else 0
+        res = sh.lookup(q)
+        if sh._fan.stats["cap_overflows"] == over:
+            break
+    fan = sh._fan
+    st0 = dict(fan.stats)
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sh.lookup(q)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if res.backend != "sharded-fanout":
+        raise AssertionError(f"{label}: served by {res.backend!r}")
+    d = {k: fan.stats[k] - st0[k] for k in st0}
+    return res, {"ms_per_batch": statistics.median(ms), "ms_runs": ms,
+                 "escapes": res.fallbacks,
+                 "cap_overflows": d["cap_overflows"],
+                 "mispredict_fraction": d["mispredicts"] / max(1, d["routed"]),
+                 "exchange_cap": fan._cap_for(fan._bucket(q.size))}
+
+
+def shard_fanout_check(rng, sh, oracle, label) -> dict:
+    """A 2^16 fan-out lookup after a write, held against the union
+    oracle and the shards' host oracles; the fan-out must have been
+    rebuilt on the shards' new epoch tag (its rebuild timed apart)."""
+    q = np.concatenate([
+        rng.choice(oracle.keys, 3 * SHARD_CHECK // 4),
+        np.floor(rng.uniform(oracle.keys[0], oracle.keys[-1],
+                             SHARD_CHECK // 4))])
+    old = sh._fan
+    t0 = time.perf_counter()
+    fan = sh._fanout()
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    if fan is None or fan is old or fan.epochs != tuple(
+            s.epoch for s in sh.shards):
+        raise AssertionError(f"{label}: the fan-out was not rebuilt on the "
+                             "new epoch tag")
+    t0 = time.perf_counter()
+    res = sh.lookup(q)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if res.backend != "sharded-fanout":
+        raise AssertionError(f"{label}: served by {res.backend!r}")
+    oracle.check(res, q, label)
+    sharded_host_check(res, sh, q, label)
+    return {"step": label, "stack_seconds": stack_s, "ms": ms,
+            "escapes": res.fallbacks, "epoch": sh.epoch}
+
+
+def phase_shard(rng, seed, smi, main_res, serve_keys, tmp,
+                profile=False) -> dict:
+    """Phase 11: the read cell's 32M keys range-sharded 8 ways; reads
+    through the fan-out and the grouped path against the single-device
+    index, writes against the union oracle and a host-only replay, a
+    forced split and a retrain; then the durability of a 4-shard index
+    at the serving size."""
+    from repro_torch.core import Index
+    from repro_torch.kernels.gap_place import ingest_place
+    from repro_torch.kernels.lookup import fused_lookup
+    keys, single = main_res["keys"], main_res["index"]
+    fused_lookup.launches = 0
+    ingest_place.launches = 0
+    t0 = time.perf_counter()
+    sh = Index.build(keys, shards=SHARDS, method="pgm", eps=64,
+                     gap_rho=0.15, sample_rate=0.01,
+                     rng=np.random.default_rng(seed), device="cuda")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fan = sh._fanout()
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    if fan is None:
+        raise AssertionError("shard: the fan-out refused the read cell")
+    fan_d, fan_bytes = fan.D, fan.device_bytes()
+    emit("shard_build", card=smi, shards=SHARDS, n_keys=int(keys.size),
+         per_shard=[{"shard": i, "n_keys": int(s.gapped.n_keys),
+                     "n_slots": int(s.gapped.n_slots),
+                     "under_placement_gate": s.gapped.n_slots < PLACE_GATE,
+                     "under_fused_gate": s.gapped.n_slots < FUSED_GATE}
+                    for i, s in enumerate(sh.shards)],
+         fanout_devices=fan_d, fanout_device_bytes=fan_bytes,
+         single_device_bytes=single.device_bytes(),
+         key_wide=fan.statics["key_wide"], wide=fan.statics["wide"],
+         trips=fan.statics["trips"], build_seconds=build_s,
+         stack_seconds=stack_s)
+    del fan
+    reads = {}
+    for n_b, q in main_res["queries"].items():
+        res, row = timed_fanout(sh, q, f"shard/{n_b}")
+        same_as_single(res, uncounted(single.lookup, q), f"shard/{n_b}")
+        sharded_host_check(res, sh, q, f"shard/{n_b}")
+        reads[n_b] = row
+        emit("shard_lookup", card=smi, batch=n_b, backend=res.backend,
+             **row, answers_equal_single_index=True,
+             slots_equal_shard_oracles=True)
+        if profile:
+            traced(lambda: [sh.lookup(q) for _ in range(3)], smi,
+                   "shard_profile", batch=n_b, calls=3)
+    # the grouped path: each touched shard's fused stage, one launch each
+    qg = mixed_queries(rng, keys, single.gapped.links.chain_keys,
+                       SHARD_CHECK, keys[0])
+    touched = int(np.unique(np.searchsorted(sh.router.bounds, qg,
+                                            side="right")).size)
+    n0 = fused_lookup.launches
+    t0 = time.perf_counter()
+    rg = sh.lookup(qg, backend="fused")
+    torch.cuda.synchronize()
+    grouped_s = time.perf_counter() - t0
+    grouped_launches = fused_lookup.launches - n0
+    if rg.backend != "sharded-host" or grouped_launches != touched:
+        raise AssertionError(f"shard: grouped fused lookup {rg.backend!r}, "
+                             f"{grouped_launches} launches for {touched} "
+                             "touched shards")
+    same_as_single(rg, uncounted(single.lookup, qg), "shard/grouped")
+    sharded_host_check(rg, sh, qg, "shard/grouped")
+    small = sh.lookup(qg[:256])
+    if small.backend != "sharded-host":
+        raise AssertionError(f"shard: a 256-query batch {small.backend!r}")
+    same_as_single(small, uncounted(single.lookup, qg[:256]),
+                   "shard/small")
+    sharded_host_check(small, sh, qg[:256], "shard/small", bounded=True)
+    b = sh.router.bounds
+    qb = np.tile(np.concatenate([b, b - 1.0, b + 1.0, keys[:1],
+                                 keys[:1] - 1.0, keys[-1:] + 17.0]), 64)
+    rb = sh.lookup(qb)
+    if rb.backend != "sharded-fanout":
+        raise AssertionError(f"shard: boundary batch {rb.backend!r}")
+    same_as_single(rb, uncounted(single.lookup, qb), "shard/boundaries")
+    sharded_host_check(rb, sh, qb, "shard/boundaries")
+    emit("shard_paths", card=smi, grouped_fused={
+        "batch": SHARD_CHECK, "touched_shards": touched,
+        "fused_lookup_launches": grouped_launches,
+        "seconds_with_shard_freezes": grouped_s, "fallbacks": rg.fallbacks},
+        small_batch_backend=small.backend, boundary_queries=int(qb.size),
+        answers_equal_single_index=True)
+
+    writes, oracle = shard_writes(rng, sh, keys, smi)
+    launches = {"fused_lookup": fused_lookup.launches,
+                "ingest_place": ingest_place.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"shard: a kernel of the path never launched "
+                             f"({launches})")
+    vs_plain = shard_kernels_vs_plain(rng, sh, qg, oracle)
+    emit("shard_kernels", card=smi, launches=launches,
+         kernel_vs_plain=vs_plain, tolerance=TOL)
+    del sh, single, oracle
+    durable = shard_durability(rng, seed, smi, serve_keys, tmp)
+    for k in launches:
+        launches[k] += durable["launches"][k]
+    return {"launches": launches, "kernel_vs_plain": vs_plain,
+            "reads": reads, "writes": writes,
+            "durability": durable, "build_seconds": build_s,
+            "stack_seconds": stack_s, "fanout_devices": fan_d,
+            "fanout_device_bytes": fan_bytes}
+
+
+def shard_writes(rng, sh, keys, smi) -> dict:
+    """Insert batches of absent keys, each shard's labels reported, the
+    fan-out checked against the union oracle every 4th batch; the
+    shards' states against a host-only replay; then a forced split of
+    the largest shard and a retrain of shard 0, each checked."""
+    for s in sh.shards:     # a server freezes before it takes writes
+        s.sync_device()
+    host_gas = [copy.deepcopy(s.gapped) for s in sh.shards]
+    oracle = UnionOracle(keys, np.arange(keys.size))
+    pays = Counter(1 << 30)
+    splits0 = sh.stats["splits"]
+    ops, ms, checks = [], [], []
+    labels = {i: {"placement": {}, "device": {}}
+              for i in range(len(sh.shards))}
+    stages = HostTimes()
+    with stages:
+        for b in range(SHARD_WRITE_BATCHES):
+            k = absent_keys(rng, oracle.keys, SHARD_WRITE)
+            p = pays.take(k.size)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = sh.ingest(k, p)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ops.append((k, p))
+            oracle.insert(k, p)
+            for s, r in rep.per_shard:
+                for f in ("placement", "device"):
+                    v = getattr(r, f)
+                    labels[s][f][v] = labels[s][f].get(v, 0) + 1
+            if (b + 1) % 4 == 0:
+                checks.append(shard_fanout_check(rng, sh, oracle,
+                                                 f"write {b + 1}"))
+    if sh.stats["splits"] != splits0:
+        raise AssertionError("shard: a watermark split ran during the "
+                             "writes")
+    t0 = time.perf_counter()
+    for k, p in ops:
+        dst = np.searchsorted(sh.router.bounds, k, side="right")
+        for s in np.unique(dst):
+            rows = np.flatnonzero(dst == s)
+            host_gas[s].insert_batch(k[rows], p[rows])
+    for s, ga in enumerate(host_gas):
+        assert_same_state(sh.shards[s].gapped, ga, f"shard {s}")
+    replay_s = time.perf_counter() - t0
+    sizes = [s.gapped.n_keys for s in sh.shards]
+    largest = int(np.argmax(sizes))
+    split = sh.maybe_rebalance(force_shard=largest)
+    if split is None or len(sh.shards) != SHARDS + 1:
+        raise AssertionError("shard: the forced split did not run")
+    checks.append(shard_fanout_check(rng, sh, oracle, "split"))
+    retrain = sh.retrain(shard=0)
+    checks.append(shard_fanout_check(rng, sh, oracle, "retrain"))
+    out = {"insert_batches": len(ops), "inserted": int(sum(
+        k.size for k, _ in ops)),
+        "ms_per_batch": {"median": statistics.median(ms), "max": max(ms),
+                         "runs": ms},
+        "ms_per_batch_per_shard": statistics.median(ms) / SHARDS,
+        "labels_by_shard": labels, "host_stage_seconds": stages.seconds,
+        "state_equals_host_replay": True, "host_replay_seconds": replay_s,
+        "split": {k: split[k] for k in ("shard", "n_left", "n_right",
+                                        "seconds")},
+        "retrain_seconds": retrain["seconds"], "checks": checks,
+        "answers_equal_union_oracle": True}
+    emit("shard_writes", card=smi, **out)
+    return out, oracle
+
+
+def shard_kernels_vs_plain(rng, sh, qg, oracle) -> dict:
+    """Both kernels against their plain versions at the shapes phase 11
+    gave them (after its counts were read): the grouped path's bucket
+    on the shard that takes the most of ``qg``, and that shard's share
+    of a write batch, absent keys in its range."""
+    b = sh.router.bounds
+    dst = np.searchsorted(b, qg, side="right")
+    s = int(np.bincount(dst).argmax())
+    shard = sh.shards[s]
+    rows = qg[dst == s]
+    bucket = shard.sync_device().bucket(rows.size)
+    _a, _s, _g, lookup_err = kernel_case(f"shard_{s}_grouped", shard,
+                                         np.resize(rows, bucket))
+    lo = b[s - 1] if s else -np.inf
+    hi = b[s] if s < b.size else np.inf
+    present = oracle.keys[(oracle.keys >= lo) & (oracle.keys < hi)]
+    batch = absent_keys(rng, present, SHARD_WRITE // SHARDS)
+    arrays = shard.sync_device().arrays
+    _got, place_err = place_vs_plain(f"shard_{s}_ingest",
+                                     place_args(arrays, batch),
+                                     arrays.n_slots)
+    return {"shard": s, "n_slots": int(arrays.n_slots),
+            "fused_lookup_bucket": int(bucket),
+            "fused_lookup_max_abs_err": lookup_err,
+            "ingest_place_batch": int(batch.size),
+            "ingest_place_max_abs_err": place_err}
+
+
+def shard_durability(rng, seed, smi, n_keys, tmp) -> dict:
+    """A 4-shard index at the serving size through ``EpochPipeline``
+    with an ``IngestWAL``: ingests, publishes every 2 rounds, lookups
+    against the oracle of the published writes, a checkpoint mid-run,
+    then one more ingest whose WAL record is torn, and
+    ``recover_index`` on the card: every shard equals the pre-crash
+    shard."""
+    from repro_torch.core import Index
+    from repro_torch.dist import ShardedIndex
+    from repro_torch.kernels.gap_place import ingest_place
+    from repro_torch.kernels.lookup import fused_lookup
+    from repro_torch.serving import EpochPipeline, IngestWAL, recover_index
+    n = n_keys or 3_600_000
+    keys = draw_keys(rng, n)
+    n_l0, n_p0 = fused_lookup.launches, ingest_place.launches
+    t0 = time.perf_counter()
+    sh = Index.build(keys, shards=SHARD_SERVE_SHARDS, method="pgm", eps=64,
+                     gap_rho=0.15, sample_rate=0.01,
+                     rng=np.random.default_rng(seed), device="cuda")
+    build_s = time.perf_counter() - t0
+    for s in sh.shards:
+        s.sync_device()
+    mids = np.setdiff1d(keys[:-1] + np.floor(np.diff(keys) * 0.5), keys)
+    fresh = rng.permutation(mids)[:(SHARD_SERVE_ROUNDS + 1)
+                                  * SHARD_SERVE_WRITE]
+    acked = UnionOracle(keys, np.arange(keys.size))
+    served = acked.copy()
+    ck_dir, wal_path = tmp / "shard_checkpoints", tmp / "shard.wal"
+    pipe = EpochPipeline(sh, wal=IngestWAL(wal_path, sync_every="adaptive"))
+    pays = Counter(1 << 30)
+    ingest_ms, lookup_ms, by_backend = [], [], {}
+    ck, n_after_ck = None, 0
+    for r in range(SHARD_SERVE_ROUNDS):
+        if r == SHARD_SERVE_CHECKPOINT:
+            t0 = time.perf_counter()
+            d = pipe.checkpoint(ck_dir, step=r)
+            ck = {"step": r, "checkpoint_seconds": time.perf_counter() - t0,
+                  "bytes": dir_bytes(d)}
+            n_after_ck = 0
+        batch = fresh[r * SHARD_SERVE_WRITE:(r + 1) * SHARD_SERVE_WRITE]
+        p = pays.take(batch.size)
+        t0 = time.perf_counter()
+        pipe.ingest(batch, p)
+        torch.cuda.synchronize()
+        ingest_ms.append((time.perf_counter() - t0) * 1e3)
+        acked.insert(batch, p)
+        n_after_ck += 1
+        if r % 2:
+            pipe.publish()
+            served = acked.copy()
+        q = np.concatenate([rng.choice(keys, 3_072),
+                            fresh[rng.integers(0, (r + 1)
+                                               * SHARD_SERVE_WRITE, 1_024)]])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipe.lookup(q)
+        torch.cuda.synchronize()
+        lookup_ms.append((time.perf_counter() - t0) * 1e3)
+        by_backend[res.backend] = by_backend.get(res.backend, 0) + 1
+        served.check(res, q, f"shard durability round {r}")
+    pre = [copy.deepcopy(s.gapped) for s in sh.shards]
+    pre_bounds, pre_epoch = sh.router.bounds.copy(), sh.epoch
+    start = wal_path.stat().st_size
+    last = fresh[SHARD_SERVE_ROUNDS * SHARD_SERVE_WRITE:]
+    pipe.ingest(last, pays.take(last.size))
+    end = wal_path.stat().st_size
+    pipe.close()
+    cut = int(rng.integers(start + 1, end))
+    with open(wal_path, "r+b") as f:
+        f.truncate(cut)
+    t0 = time.perf_counter()
+    rec, info = recover_index(ck_dir, wal_path, device="cuda")
+    recover_s = time.perf_counter() - t0
+    if not (isinstance(rec, ShardedIndex) and info["torn"]
+            and info["replayed"] == n_after_ck):
+        raise AssertionError(f"shard recovery {info}, want {n_after_ck} "
+                             "records replayed from a torn log")
+    if not np.array_equal(rec.router.bounds, pre_bounds):
+        raise AssertionError("shard recovery: router bounds differ")
+    for i, (s, ga) in enumerate(zip(rec.shards, pre)):
+        assert_same_state(s.gapped, ga, f"shard recovery, shard {i}")
+        if s.device.type != "cuda":
+            raise AssertionError("shard recovery: a shard is off the card")
+    q = np.concatenate([rng.choice(acked.keys, 49_152),
+                        np.floor(rng.uniform(keys[0], keys[-1], 16_384))])
+    t0 = time.perf_counter()
+    res = rec.lookup(q)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if res.backend != "sharded-fanout":
+        raise AssertionError(f"shard recovery: served by {res.backend!r}")
+    acked.check(res, q, "shard recovery")
+    sharded_host_check(res, rec, q, "shard recovery")
+    out = {"n_keys": int(n), "shards": SHARD_SERVE_SHARDS,
+           "n_slots": [int(s.gapped.n_slots) for s in rec.shards],
+           "build_seconds": build_s, "rounds": SHARD_SERVE_ROUNDS,
+           "ingest_ms_median": statistics.median(ingest_ms),
+           "lookup_ms_median": statistics.median(lookup_ms),
+           "lookups_by_backend": by_backend, "checkpoint": ck,
+           "wal_torn_at": [start, cut, end], "recover_seconds": recover_s,
+           "replayed": info["replayed"], "skipped": info["skipped"],
+           "epoch_before_crash": pre_epoch, "recovered_epoch": rec.epoch,
+           "recovered_first_lookup_ms": first_ms,
+           "recovered_equals_pre_crash": True,
+           "launches": {"fused_lookup": fused_lookup.launches - n_l0,
+                        "ingest_place": ingest_place.launches - n_p0}}
+    emit("shard_durability", card=smi, **out)
+    return out
+
+
+KV_PAGES = 65_536       # vLLM's block size 16 and max_num_seqs 256
+KV_PAGE = 16
+KV_REQUESTS = 256
+KV_PAGES_PER_REQUEST = 128
+KV_GROUP = 64           # requests allocated together
+DATA_DOCS = 1_000_000   # examples/streaming_ingest.py's widths
+DATA_BATCH = 1_024
+DATA_SEQ = 64
+
+
+def phase_consumers(rng, seed, smi) -> dict:
+    """Phase 12: the paged-KV block table and the indexed token dataset
+    on the card, each answer held against its own host record."""
+    from repro_torch.data import (IndexedTokenDataset, PackedTokenStore,
+                                  ShardedLoader)
+    from repro_torch.kernels.gap_place import ingest_place
+    from repro_torch.kernels.lookup import fused_lookup
+    from repro_torch.serving.kv_cache import PagedKVCache, table_key
+    fused_lookup.launches = 0
+    ingest_place.launches = 0
+    t0 = time.perf_counter()
+    kv = PagedKVCache.create(n_pages=KV_PAGES, page_size=KV_PAGE,
+                             expected_requests=KV_REQUESTS, device="cuda")
+    kv.index.sync_device()
+    create_s = time.perf_counter() - t0
+    rids = np.arange(1, KV_REQUESTS + 1, dtype=np.int64)
+
+    def kv_check(label, n=1 << 16):
+        """2^16 (request, page) pairs, half mapped, on the device path,
+        against the ``allocated`` dict."""
+        mapped = np.array(list(kv.allocated.keys()), np.int64)
+        pick = rng.choice(mapped, n // 2) if mapped.size else mapped
+        r_un = rng.integers(1, KV_REQUESTS + 64, n - pick.size)
+        p_un = rng.integers(KV_PAGES_PER_REQUEST, 2 * KV_PAGES_PER_REQUEST,
+                            n - pick.size)
+        q_r = np.concatenate([pick >> 20, r_un])
+        q_p = np.concatenate([pick & ((1 << 20) - 1), p_un])
+        want = np.array([kv.allocated.get(table_key(int(a), int(b)), -1)
+                         for a, b in zip(q_r, q_p)], np.int64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = kv.lookup_batch(q_r, q_p, device=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(got, want):
+            raise AssertionError(f"kv {label}: {int((got != want).sum())} "
+                                 "pages differ from the allocation record")
+        return {"step": label, "ms": ms, "mapped": int(np.sum(want >= 0))}
+
+    alloc_ms, checks = [], []
+    odd = np.arange(1, KV_PAGES_PER_REQUEST, 2)
+    even = np.arange(0, KV_PAGES_PER_REQUEST, 2)
+    for g in range(0, KV_REQUESTS, KV_GROUP):
+        grp = rids[g:g + KV_GROUP]
+        # fresh pages (the gaps) first, then the skeleton's claims
+        for pages in (odd, even):
+            r = np.repeat(grp, pages.size)
+            pg = np.tile(pages, grp.size)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kv.alloc_batch(r, pg)
+            torch.cuda.synchronize()
+            alloc_ms.append((time.perf_counter() - t0) * 1e3)
+        checks.append(kv_check(f"alloc {g + KV_GROUP}"))
+    for r in rids[::4]:
+        kv.free_request(int(r), KV_PAGES_PER_REQUEST)
+    checks.append(kv_check("after frees"))
+    kv_out = {"n_pages": KV_PAGES, "page_size": KV_PAGE,
+              "requests": KV_REQUESTS,
+              "pages_per_request": KV_PAGES_PER_REQUEST,
+              "create_seconds": create_s,
+              "alloc_ms_median": statistics.median(alloc_ms),
+              "utilization": kv.utilization,
+              "path_stats": kv.insert_path_stats(), "checks": checks,
+              "answers_equal_allocation_record": True}
+    emit("consumers_kv", card=smi, **kv_out)
+
+    t0 = time.perf_counter()
+    store = PackedTokenStore.synthetic(DATA_DOCS, mean_len=64, vocab=32_000,
+                                       seed=seed)
+    store_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = IndexedTokenDataset.build(store, method="pgm", eps=64,
+                                   sample_rate=0.01, gap_rho=0.15,
+                                   device="cuda")
+    ds.index.sync_device()
+    build_s = time.perf_counter() - t0
+    loader = ShardedLoader(ds, global_batch=DATA_BATCH, seq_len=DATA_SEQ,
+                           seed=seed)
+    keys_sorted = store.sample_keys.astype(np.float64)
+
+    def doc_rows(sample_keys):
+        out = np.zeros((sample_keys.size, DATA_SEQ + 1), np.int32)
+        for i, o in enumerate(np.searchsorted(keys_sorted, sample_keys)):
+            d = store.doc(int(o))[:DATA_SEQ + 1]
+            out[i, :d.size] = d
+        return out
+
+    batch_ms = []
+    for step in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = loader.next_batch()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        sel = loader._perm[step * DATA_BATCH:(step + 1) * DATA_BATCH]
+        want = doc_rows(keys_sorted[sel])
+        if not (np.array_equal(b["tokens"], want[:, :-1])
+                and np.array_equal(b["labels"], want[:, 1:])):
+            raise AssertionError(f"data: batch {step} differs from the "
+                                 "store")
+    # a streamed shipment of new documents, then a batch over them
+    new_keys = absent_keys(rng, keys_sorted, 4_096).astype(np.int64)
+    docs = [np.arange(8 + i % 40, dtype=np.uint32) for i in range(4_096)]
+    t0 = time.perf_counter()
+    rep = ds.ingest_batch(docs, new_keys)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    ords = ds.ordinals(new_keys.astype(np.float64))
+    if not all(np.array_equal(store.doc(int(o)), d)
+               for o, d in zip(ords, docs)):
+        raise AssertionError("data: a streamed document does not resolve")
+    data_out = {"docs": DATA_DOCS, "tokens": int(store.tokens.size),
+                "store_seconds": store_s, "build_seconds": build_s,
+                "global_batch": DATA_BATCH, "seq_len": DATA_SEQ,
+                "batch_ms": batch_ms,
+                "streamed": {"docs": len(docs), "seconds": ingest_s,
+                             "placement": rep.placement,
+                             "device": rep.device},
+                "batches_equal_store": True}
+    emit("consumers_data", card=smi, **data_out)
+    launches = {"fused_lookup": fused_lookup.launches,
+                "ingest_place": ingest_place.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"consumers: a kernel of the path never "
+                             f"launched ({launches})")
+    vs_plain = consumer_kernels_vs_plain(rng, kv, ds, keys_sorted)
+    emit("consumers_kernels", card=smi, launches=launches,
+         kernel_vs_plain=vs_plain, tolerance=TOL)
+    return {"launches": launches, "kernel_vs_plain": vs_plain, "kv": kv_out,
+            "data": data_out}
+
+
+def consumer_kernels_vs_plain(rng, kv, ds, doc_keys) -> dict:
+    """Both kernels against their plain versions at the shapes phase 12
+    gave them (after its counts were read): on the block table, 2^16
+    (request, page) keys, half mapped, and one alloc group's pages of
+    requests never allocated; on the dataset's index, one loader batch
+    of sample keys and one streamed shipment of absent keys."""
+    from repro_torch.serving.kv_cache import table_key
+    mapped = np.array(list(kv.allocated.keys()), np.float64)
+    unmapped = np.array([table_key(int(r), int(p)) for r, p in zip(
+        rng.integers(1, KV_REQUESTS + 64, 1 << 15),
+        rng.integers(KV_PAGES_PER_REQUEST, 2 * KV_PAGES_PER_REQUEST,
+                     1 << 15))], np.float64)
+    q = np.concatenate([rng.choice(mapped, 1 << 15), unmapped])
+    _a, _s, _g, kv_lookup_err = kernel_case("kv_lookup", kv.index, q)
+    fresh = np.array([table_key(int(r), int(p))
+                      for r in range(KV_REQUESTS + 1,
+                                     KV_REQUESTS + 1 + KV_GROUP)
+                      for p in range(1, KV_PAGES_PER_REQUEST, 2)],
+                     np.float64)
+    arrays = kv.index.sync_device().arrays
+    _got, kv_place_err = place_vs_plain("kv_alloc", place_args(arrays, fresh),
+                                        arrays.n_slots)
+    eng = ds.index.sync_device()
+    qd = rng.choice(doc_keys, eng.bucket(DATA_BATCH))
+    _a, _s, _g, ds_lookup_err = kernel_case("data_batch", ds.index, qd)
+    new = absent_keys(rng, doc_keys, 4_096)
+    _got, ds_place_err = place_vs_plain("data_ingest",
+                                        place_args(eng.arrays, new),
+                                        eng.arrays.n_slots)
+    return {"kv": {"fused_lookup_batch": int(q.size),
+                   "fused_lookup_max_abs_err": kv_lookup_err,
+                   "ingest_place_batch": int(fresh.size),
+                   "ingest_place_max_abs_err": kv_place_err},
+            "data": {"fused_lookup_batch": int(qd.size),
+                     "fused_lookup_max_abs_err": ds_lookup_err,
+                     "ingest_place_batch": int(new.size),
+                     "ingest_place_max_abs_err": ds_place_err}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-keys", type=int, default=32_000_000)
@@ -2225,17 +2912,19 @@ def main() -> int:
     ap.add_argument("--place-keys", type=int, default=0,
                     help="keys in phase 6's build (default: the largest "
                          "of 14.5M, 14M whose n_slots < 2^24)")
-    ap.add_argument("--place-batches", type=int, default=32,
+    ap.add_argument("--place-batches", type=int, default=16,
                     help="insert batches of 16,384 keys in phase 6")
     ap.add_argument("--narrow-keys", type=int, default=8_000_000,
                     help="keys (below 2^24) of the legacy phase's narrow "
                          "index")
     ap.add_argument("--serve-keys", type=int, default=0,
                     help="keys in phase 10's builds (default: the largest "
-                         "of 3.6M, 3.5M, 3.4M whose n_slots < 2^22)")
+                         "of 3.6M, 3.5M, 3.4M whose n_slots < 2^22) and "
+                         "in phase 11's durability run (default 3.6M)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace three lookups per batch size, and two "
+                    help="trace three lookups per batch size (read "
+                         "path and shard fan-out), and two "
                          "insert batches of each write path, with "
                          "torch.profiler and print the device-time "
                          "breakdown")
@@ -2283,12 +2972,19 @@ def main() -> int:
     legacy_rows = phase_legacy_cases(rng) + phase_bracket_cases()
     eq3 = phase_eq3(main_res, smi)
     legacy = phase_legacy(rng, args.seed, smi, args.narrow_keys, main_res)
-    del main_res["index"], main_res["keys"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        shard = phase_shard(rng, args.seed, smi, main_res, args.serve_keys,
+                            Path(tmp), args.profile)
+    del main_res["index"], main_res["keys"], main_res["queries"]
     serve = phase_serve(rng, args.seed, smi, args.serve_keys)
+    consumers = phase_consumers(rng, args.seed, smi)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the run")
 
     big = main_res["per_batch"][max(main_res["per_batch"])]
+    # phases 10-12's kernel-vs-plain checks at their own shapes
+    later_vs_plain = [serve["kernel_vs_plain"], shard["kernel_vs_plain"],
+                      *consumers["kernel_vs_plain"].values()]
 
     def times(row):
         return {k: row[k] for k in ("ms", "device_ms", "graph_ms", "host_us",
@@ -2301,13 +2997,19 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/fused_lookup.cu",
         "replaces": "src/repro/kernels/lookup.py:415",
         # the read path, the write phases' lookup checks, the serving
-        # stack's live lookups and its lookups after recovery
+        # stack's live lookups and its lookups after recovery, the
+        # sharded index's grouped path and shard durability, the
+        # consumers' lookups
         "launches": (main_res["launches"]
                      + fused_res["launches"]["fused_lookup"]
                      + two_res["launches"]["fused_lookup"]
-                     + serve["launches"]["fused_lookup"]),
-        "max_abs_err": max(b["max_abs_err"]
-                           for b in main_res["per_batch"].values()),
+                     + serve["launches"]["fused_lookup"]
+                     + shard["launches"]["fused_lookup"]
+                     + consumers["launches"]["fused_lookup"]),
+        "max_abs_err": max([b["max_abs_err"]
+                            for b in main_res["per_batch"].values()]
+                           + [r["fused_lookup_max_abs_err"]
+                              for r in later_vs_plain]),
         **times(big),
     }, {
         "name": "ingest_place",
@@ -2316,8 +3018,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/gap_place.py:618",
         "launches": (fused_res["launches"]["ingest_place"]
                      + two_res["launches"]["ingest_place"]
-                     + serve["launches"]["ingest_place"]),
-        "max_abs_err": place_timing["max_abs_err"],
+                     + serve["launches"]["ingest_place"]
+                     + shard["launches"]["ingest_place"]
+                     + consumers["launches"]["ingest_place"]),
+        "max_abs_err": max([place_timing["max_abs_err"]]
+                           + [r["ingest_place_max_abs_err"]
+                              for r in later_vs_plain]),
         **times(place_timing),
     }, {
         "name": "gap_place",
@@ -2360,7 +3066,16 @@ def main() -> int:
              for label, m in serve["mixes"].items()},
          serve_recovery={k: serve["mixes"][SERVE_MIXES[0][0]][k] for k in (
              "recover_seconds", "replayed", "skipped",
-             "retrain_seconds")})
+             "retrain_seconds")},
+         shard_path=shard["launches"],
+         shard={"fanout_devices": shard["fanout_devices"],
+                "fanout_ms": {n: r["ms_per_batch"]
+                              for n, r in shard["reads"].items()},
+                "write_ms_per_batch": shard["writes"]["ms_per_batch"][
+                    "median"],
+                "recover_seconds": shard["durability"]["recover_seconds"],
+                "checkpoint": shard["durability"]["checkpoint"]},
+         consumers_path=consumers["launches"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,11 @@ index (A Pluggable Learned Index Method via Sampling and Gap Insertion).
 
 The layout mirrors ``repro``: ``core/`` holds the host build (copies of
 the reference's numpy modules) and the ``Index`` handle; ``kernels/``
-holds the freeze, the lookup engine, the write path, device Eq. 3 and
-the hand-written CUDA kernels that serve them on an NVIDIA Hopper card.
+holds the freeze, the lookup engine, the write path, device Eq. 3, the
+shard fan-out and the hand-written CUDA kernels that serve them on an
+NVIDIA Hopper card; ``dist/`` the range-sharded index; ``serving/`` the
+pipeline, the WAL and the paged-KV block table; ``data/`` the indexed
+token dataset and its loader.
 
 This package imports ``torch`` and never ``jax``, and nothing of
 ``repro``.  Entry points run on ``cuda`` unless the caller passes

@@ -11,7 +11,14 @@ takes the piecewise linear model as arrays: ``seg_first_key``,
 the port's index never shares memory with the caller's (a live
 reference index can go on being written).
 
-A snapshot on disk goes through ``Index.restore`` instead.  Its pickle
+``sharded_from_state`` carries a reference ``ShardedIndex`` across the
+same way: the dict its ``save_snapshot`` writes as
+``sharded_manifest.json`` (router boundaries, ``lo_key``, the build and
+rebalance knobs, the mutation count) and one ``(state, meta)`` pair per
+shard in the form ``index_from_state`` takes.
+
+A snapshot on disk goes through ``Index.restore`` (``ShardedIndex
+.restore`` for a sharded one) instead.  Its pickle
 names the module of the mechanism's classes, so a stock ``pickle.loads``
 of a reference snapshot would import ``repro.core.mechanisms``, and the
 reference's of a port snapshot ``repro_torch.core.mechanisms``.  The
@@ -31,7 +38,7 @@ from .core.links import CSRLinks
 from .core.mechanisms import MECHANISMS, PiecewiseLinearModel
 from .device import resolve_device
 
-__all__ = ["index_from_state", "PLM_LEAVES"]
+__all__ = ["index_from_state", "sharded_from_state", "PLM_LEAVES"]
 
 PLM_LEAVES = ("seg_first_key", "slope", "icept", "err_lo", "err_hi")
 
@@ -66,3 +73,20 @@ def index_from_state(state: dict, meta: dict, device=None) -> Index:
     return Index(keys=keys, mech=mech, method=method, gapped=gapped,
                  sample_rate=float(meta["sample_rate"]),
                  gap_rho=float(meta["gap_rho"]), device=dev)
+
+
+def sharded_from_state(manifest: dict, shard_states, device=None):
+    """Build the port's ``ShardedIndex`` from a reference sharded
+    manifest and one ``(state, meta)`` pair per shard (each built by
+    ``index_from_state``, arrays copied), with every shard's device
+    state on ``device`` (cuda by default).  The router refits on the
+    manifest's boundaries, as ``ShardedIndex.restore`` does."""
+    from .dist.sharded import ShardedIndex
+    dev = resolve_device(device)
+    shard_states = list(shard_states)
+    if len(shard_states) != int(manifest["n_shards"]):
+        raise ValueError(f"{len(shard_states)} shard states for a "
+                         f"manifest of {manifest['n_shards']} shards")
+    shards = [index_from_state(state, meta, device=dev)
+              for state, meta in shard_states]
+    return ShardedIndex._from_manifest(shards, manifest)

@@ -49,8 +49,9 @@ MDL auto-tuner, ``retrain`` refits the live state on a sample and
 empty; the first device lookup refreezes on ``device``.
 
 The device is ``cuda`` unless the index is given ``device="cpu"``;
-without CUDA the default raises.  ``build(shards=...)`` raises
-``NotImplementedError`` naming its ROADMAP item.
+without CUDA the default raises.  ``build(shards=...)`` returns the
+range-partitioned ``dist.ShardedIndex`` (same call surface, per-shard
+gap-inserted builds + a learned router) on the same device.
 """
 
 from __future__ import annotations
@@ -78,12 +79,6 @@ __all__ = ["Index", "BackendSpec", "BACKENDS"]
 def _mechanism_factory(method: str, **kwargs):
     cls = MECHANISMS[method]
     return lambda: cls(**kwargs)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue A, "
-        f"item {item})")
 
 
 # A pickle names the module of every class it holds.  The mechanisms
@@ -228,7 +223,8 @@ class Index:
         """Build an index on the host; its device state lives on
         ``device`` (cuda unless ``device="cpu"``).  ``payloads``
         overrides the stored payload per key (default: the key's
-        position) — gapped builds only.
+        position) — gapped builds only.  ``shards=`` builds the
+        range-partitioned ``dist.ShardedIndex`` instead.
 
         ``method="auto"`` runs the §3 MDL auto-tuner
         (``core.tuning.autotune``) over a (mechanism, eps, sample-size)
@@ -237,7 +233,11 @@ class Index:
         then means "let the tuner pick"; pass an explicit rate to pin
         it."""
         if shards is not None:
-            raise _not_ported("Index.build(shards=...)", "A11")
+            from ..dist.sharded import ShardedIndex
+            return ShardedIndex.build(
+                keys, shards=int(shards), method=method,
+                sample_rate=sample_rate, gap_rho=gap_rho, rng=rng,
+                payloads=payloads, device=device, **mech_kwargs)
         dev = resolve_device(device)
         keys = np.asarray(keys, np.float64)
         if keys.ndim != 1 or keys.shape[0] < 2:

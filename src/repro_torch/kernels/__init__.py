@@ -14,7 +14,12 @@ ops.py        — sort, tile schedule, launch, escape fixup, unsort for
                 the fused stage, the legacy "pallas" / "xla" stages and
                 the oracle; ``batched_lookup`` and ``QueryEngine``
                 (lookups, delta swaps, bound / rank-row refreshes,
-                ingest entry points)
+                ingest entry points); the reference's fused-XLA
+                rank-router search and its host escape patch, in torch
+                ops
+shard_fanout.py — stacked shard images and the sharded index's fan-out
+                (learned route, exchange, per-shard rank-router search
+                over the stack, inverse permutation)
 delta.py      — ``freeze_state`` (engine + host mirror) and
                 ``delta_update`` (only the changed elements move)
 gap_place.py  — ``ingest_place`` (launches csrc/ingest_place.cu) and

@@ -25,6 +25,15 @@ Each re-resolves only the queries its search flagged, in a buffer of at
 most ``fb_cap`` queries; when more escape, the batch is overflowed and
 the caller re-runs it on the oracle stage (counted in ``stats``, with a
 sticky per-bucket capacity boost in the engine).
+
+The reference's fused-XLA graph is here too, in torch ops: the
+rank-router search ``fused_search`` (two gathers into the bucket ->
+slot-rank table of ``bounds.build_rank_router``, a fixed-trip bisect,
+the bracket validation that flags escapes), ``fused_pipeline`` (the
+search and the epilogue) and the host patch of the flagged queries
+(``host_fallback_views``, ``resolve_escapes_host``,
+``finish_fused_host``).  The shard fan-out (``shard_fanout.py``) runs
+them over stacked shard images; the engine's stages do not.
 """
 
 from __future__ import annotations
@@ -42,10 +51,12 @@ from .bounds import (_bisect_trips, _flat_width, _fused_flat_width,
 from .freeze import IndexArrays, _pad_pow, split_key_pair
 from .lookup import (_clip, _slot_clip_hi, fused_lookup, lookup_kernel,
                      route_segment)
-from .ref import (_bisect, _pair_bisect, _peq, _ple, epilogue,
-                  oracle_search, predict_ref)
+from .ref import (_bisect, _pair_bisect, _peq, _ple, _take, epilogue,
+                  epilogue_parts, oracle_search, predict_ref)
 
-__all__ = ["QueryEngine", "batched_lookup", "FB_FRAC"]
+__all__ = ["QueryEngine", "batched_lookup", "FB_FRAC", "fused_search",
+           "fused_pipeline", "host_fallback_views", "resolve_escapes_host",
+           "finish_fused_host"]
 
 FB_FRAC = 0.02  # compaction buffer sizing: ~2% of the batch
 _NO_F32 = np.zeros(0, np.float32)
@@ -260,6 +271,155 @@ def pallas_search(qs, a: IndexArrays, err_lo_pad, *, q_tile: int,
         qs, tile_block, a.seg_first_key, a.seg_slope, a.seg_icept,
         a.slot_key, q_tile=q_tile, w_tile=w_tile)
     return slot, found, fb & torch.isfinite(qs)
+
+
+def fused_search(queries, queries_lo, slot_key, slot_key_lo, rank_table,
+                 rank_scale, trips: int, key_wide: bool):
+    """The rank-router search of the reference's fused-XLA graph
+    (``_fused_search``): bucket ``clip(x * scale)`` (a product with no
+    add after it, truncated), the window ``[table[b] - 1, table[b+1] -
+    1]``, a ``trips``-step bisect in it, then the bracket validation
+    ``slot_key[r] <= q < slot_key[r+1]``: a stale row or a truncated
+    bisect raises the escape flag, never a wrong slot.
+
+    Queries are 1-D against one image, or ``(S, n)`` against images
+    stacked ``(S, m)`` with ``rank_table`` ``(S, r + 1)`` and
+    ``rank_scale`` ``(S, 3)``.  Returns ``(slot i32, found, fb)``."""
+    m_pad = slot_key.shape[-1]
+    r = rank_table.shape[-1] - 1
+    x = queries - rank_scale[..., 0, None]
+    if key_wide:
+        x = x + (queries_lo - rank_scale[..., 1, None])
+    b = _clip(x * rank_scale[..., 2, None], float(r - 1)).long()
+    lo0 = _take(rank_table, b) - 1
+    hi0 = torch.maximum(_take(rank_table, b + 1) - 1, lo0)
+    if key_wide:
+        slot = _pair_bisect(slot_key, slot_key_lo, queries, queries_lo,
+                            lo0, hi0, trips)
+    else:
+        slot = _bisect(lo0, hi0, trips, lambda mid: _take(
+            slot_key, mid.clamp(0, m_pad - 1).long()) <= queries)
+    safe = slot.clamp(0, m_pad - 1).long()
+    nxt_i = (slot + 1).clamp(0, m_pad - 1).long()
+    kr = _take(slot_key, safe)
+    nxt = _take(slot_key, nxt_i)
+    if key_wide:
+        krl = _take(slot_key_lo, safe)
+        nxtl = _take(slot_key_lo, nxt_i)
+        found = (slot >= 0) & _peq(kr, krl, queries, queries_lo)
+        ok_lo = (slot < 0) | _ple(kr, krl, queries, queries_lo)
+        ok_hi = ~_ple(nxt, nxtl, queries, queries_lo) | (slot + 1 >= m_pad)
+    else:
+        found = (slot >= 0) & (kr == queries)
+        ok_lo = (slot < 0) | (kr <= queries)
+        ok_hi = (nxt > queries) | (slot + 1 >= m_pad)
+    fb = ~(ok_lo & ok_hi) & torch.isfinite(queries)
+    return slot, found, fb
+
+
+def fused_pipeline(queries, queries_lo, slot_key, slot_key_lo, payload,
+                   payload_hi, link_offsets, link_keys, link_keys_lo,
+                   link_payloads, link_payload_hi, rank_table, rank_scale,
+                   *, trips: int, max_chain: int, wide: bool,
+                   key_wide: bool):
+    """The fused-XLA dispatch (the reference's ``_fused_pipeline``):
+    ``fused_search`` then the epilogue.  Returns ``(out, out_hi, slot,
+    resolved, fb)``; the caller patches the flagged queries on the
+    host (``finish_fused_host``)."""
+    slot, found, fb = fused_search(queries, queries_lo, slot_key,
+                                   slot_key_lo, rank_table, rank_scale,
+                                   trips, key_wide)
+    out, out_hi, resolved = epilogue_parts(
+        queries, queries_lo, slot, found, payload, payload_hi,
+        link_offsets, link_keys, link_keys_lo, link_payloads,
+        link_payload_hi, max_chain, wide, key_wide)
+    return out, out_hi, slot, resolved, fb
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def host_fallback_views(arrays: IndexArrays) -> dict:
+    """Host (numpy, f64/i64) copies of the frozen images for the fused
+    graph's O(#escapes) patch (keys as their pair sums when wide,
+    payloads recombined from their i32 halves when wide)."""
+    sk = _np(arrays.slot_key).astype(np.float64)
+    if arrays.key_wide:
+        sk = sk + _np(arrays.slot_key_lo).astype(np.float64)
+    pay = _np(arrays.payload).astype(np.int64)
+    if arrays.wide:
+        pay = (pay & 0xFFFFFFFF) | (
+            _np(arrays.payload_hi).astype(np.int64) << 32)
+    lk = _np(arrays.link_keys).astype(np.float64)
+    if arrays.key_wide:
+        lk = lk + _np(arrays.link_keys_lo).astype(np.float64)
+    lp = _np(arrays.link_payloads).astype(np.int64)
+    if arrays.wide:
+        lp = (lp & 0xFFFFFFFF) | (
+            _np(arrays.link_payload_hi).astype(np.int64) << 32)
+    return {"slot_key": sk, "payload": pay,
+            "offsets": _np(arrays.link_offsets),
+            "link_keys": lk, "link_payloads": lp,
+            "max_chain": arrays.max_chain, "key_wide": arrays.key_wide}
+
+
+def resolve_escapes_host(host: dict, q64: np.ndarray):
+    """Exact host resolution of the fused graph's escaped queries (f64
+    searchsorted + per-slot chain probe), O(#escapes x log).  Queries
+    are first rounded into the FROZEN key representation (f32 hi/lo
+    pair sum when wide, plain f32 when narrow), so the host compare
+    agrees bit for bit with the device compare.  Returns ``(slot,
+    resolved, payload_i64)``."""
+    if host["key_wide"]:
+        q_hi, q_lo = split_key_pair(q64)
+        q64 = q_hi.astype(np.float64) + q_lo.astype(np.float64)
+    else:
+        q64 = np.asarray(q64, np.float64).astype(
+            np.float32).astype(np.float64)
+    sk = host["slot_key"]
+    r = np.searchsorted(sk, q64, side="right").astype(np.int64) - 1
+    safe = np.maximum(r, 0)
+    found = (r >= 0) & (sk[safe] == q64)
+    pay = np.where(found, host["payload"][safe], np.int64(-1))
+    resolved = found.copy()
+    if host["max_chain"] > 0 and host["link_keys"].size:
+        off = host["offsets"]
+        for j in np.flatnonzero((r >= 0) & ~found):
+            s, e = int(off[r[j]]), int(off[r[j] + 1])
+            if e > s:
+                seg = host["link_keys"][s:e]
+                p = int(np.searchsorted(seg, q64[j], side="right")) - 1
+                if p >= 0 and seg[p] == q64[j]:
+                    pay[j] = host["link_payloads"][s + p]
+                    resolved[j] = True
+    return r, resolved, pay
+
+
+def finish_fused_host(out, out_hi, slot, found, fb, n_q: int, wide: bool,
+                      queries, host_views):
+    """Host finish of the fused graph: the outputs sliced to ``n_q``,
+    payloads recombined to i64, and the flagged queries patched by
+    ``resolve_escapes_host``.  ``host_views`` is a zero-argument
+    callable, so the host copies are built only when a query escaped.
+    Returns ``(payload_i64, slot, found, n_escapes)``."""
+    idx = np.flatnonzero(_np(fb)[:n_q])
+    out_np = _np(out)[:n_q]
+    if wide:
+        out_np = ((_np(out_hi)[:n_q].astype(np.int64) << 32)
+                  | (out_np.astype(np.int64) & 0xFFFFFFFF))
+    slot_np = _np(slot)[:n_q]
+    found_np = _np(found)[:n_q]
+    if idx.size:
+        out_np = np.array(out_np)
+        slot_np = np.array(slot_np)
+        found_np = np.array(found_np)
+        r, res, pay = resolve_escapes_host(
+            host_views(), np.asarray(queries, np.float64)[idx])
+        out_np[idx] = pay
+        slot_np[idx] = r
+        found_np[idx] = res
+    return out_np, slot_np, found_np, int(idx.size)
 
 
 STAGES = ("fused", "pallas", "xla", "oracle")

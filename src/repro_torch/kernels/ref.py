@@ -10,7 +10,11 @@ Counterpart of ``repro.kernels.ref`` (``lookup_ref``, ``predict_ref``,
 * the epilogue gathers the payload and bisects the slot's CSR chain.
 
 Every compare has an f32 (hi, lo) pair variant for wide keys.  All
-functions run on whatever device their tensors lie on.
+functions run on whatever device their tensors lie on.  The pair
+bisect, the chain scan and ``epilogue_parts`` also take tables stacked
+as ``(S, m)`` with ``(S, n)`` queries: each row of queries reads its
+own row of the tables (``_take``), which is what the reference's
+``jax.vmap`` over the shard axis computes.
 """
 
 from __future__ import annotations
@@ -19,7 +23,16 @@ import numpy as np
 import torch
 
 __all__ = ["lookup_ref", "predict_ref", "chain_hit_index", "pair_oracle",
-           "epilogue"]
+           "epilogue", "epilogue_parts"]
+
+
+def _take(table, idx):
+    """``table[idx]`` for a 1-D table; for a stacked ``(S, m)`` table
+    and ``(S, n)`` indices, row s of the indices reads row s of the
+    table (``torch.gather`` along dim 1).  Indices are in range."""
+    if table.dim() == 1:
+        return table[idx]
+    return torch.gather(table, 1, idx)
 
 
 def _ple(kh, kl, qh, ql):
@@ -45,11 +58,11 @@ def _bisect(lo, hi, trips: int, go_at):
 
 def _pair_bisect(kh, kl, qh, ql, lo0, hi0, trips: int):
     """Rightmost index in [lo0, hi0] with pair(key) <= pair(q)."""
-    m_max = kh.shape[0] - 1
+    m_max = kh.shape[-1] - 1
 
     def go_at(mid):
         midc = mid.clamp(0, m_max).long()
-        return _ple(kh[midc], kl[midc], qh, ql)
+        return _ple(_take(kh, midc), _take(kl, midc), qh, ql)
 
     return _bisect(lo0, hi0, trips, go_at)
 
@@ -106,27 +119,27 @@ def chain_hit_index(queries, slot, found, link_offsets, link_keys,
     """
     miss = torch.full(queries.shape, -1, dtype=torch.int32,
                       device=queries.device)
-    if link_keys.shape[0] == 0 or max_chain <= 0:
+    if link_keys.shape[-1] == 0 or max_chain <= 0:
         return miss
     wide = queries_lo is not None and link_keys_lo is not None
-    l_max = link_keys.shape[0] - 1
-    safe_slot = slot.clamp(0, link_offsets.shape[0] - 2).long()
-    start = link_offsets[safe_slot]
-    end = link_offsets[safe_slot + 1]
+    l_max = link_keys.shape[-1] - 1
+    safe_slot = slot.clamp(0, link_offsets.shape[-1] - 2).long()
+    start = _take(link_offsets, safe_slot)
+    end = _take(link_offsets, safe_slot + 1)
     scan = (slot >= 0) & ~found & (end > start)
 
     def go_at(mid):
         midc = mid.clamp(0, l_max).long()
-        kh = link_keys[midc]
+        kh = _take(link_keys, midc)
         if wide:
-            return _ple(kh, link_keys_lo[midc], queries, queries_lo)
+            return _ple(kh, _take(link_keys_lo, midc), queries, queries_lo)
         return kh <= queries
 
     lo = _bisect(start - 1, end - 1, int(max_chain).bit_length(), go_at)
     loc = lo.clamp(0, l_max).long()
-    eq = link_keys[loc] == queries
+    eq = _take(link_keys, loc) == queries
     if wide:
-        eq = eq & (link_keys_lo[loc] == queries_lo)
+        eq = eq & (_take(link_keys_lo, loc) == queries_lo)
     hit = scan & (lo >= start) & eq
     return torch.where(hit, lo, miss)
 
@@ -138,22 +151,36 @@ def epilogue(queries, queries_lo, slot, found, a, max_chain: int):
     Returns ``(lo32, hi32, resolved)``; ``hi32`` is zero-length when
     payloads are narrow, ``resolved`` marks first-level OR chain hits.
     """
-    safe_slot = slot.clamp(0, a.payload.shape[0] - 1).long()
+    return epilogue_parts(
+        queries, queries_lo, slot, found, a.payload, a.payload_hi,
+        a.link_offsets, a.link_keys, a.link_keys_lo, a.link_payloads,
+        a.link_payload_hi, max_chain, a.wide, a.key_wide)
+
+
+def epilogue_parts(queries, queries_lo, slot, found, payload, payload_hi,
+                   link_offsets, link_keys, link_keys_lo, link_payloads,
+                   link_payload_hi, max_chain: int, wide: bool,
+                   key_wide: bool):
+    """``epilogue`` over the images as separate tensors (the reference's
+    ``_epilogue`` signature); the tables may be stacked ``(S, m)`` with
+    ``(S, n)`` queries (see the module doc)."""
+    safe_slot = slot.clamp(0, payload.shape[-1] - 1).long()
     hit = chain_hit_index(
-        queries, slot, found, a.link_offsets, a.link_keys, max_chain,
-        queries_lo=queries_lo if a.key_wide else None,
-        link_keys_lo=a.link_keys_lo if a.key_wide else None)
-    has_links = a.link_keys.shape[0] > 0 and max_chain > 0
+        queries, slot, found, link_offsets, link_keys, max_chain,
+        queries_lo=queries_lo if key_wide else None,
+        link_keys_lo=link_keys_lo if key_wide else None)
+    has_links = link_keys.shape[-1] > 0 and max_chain > 0
     neg = torch.full_like(slot, -1)
-    out = torch.where(found, a.payload[safe_slot], neg)
+    out = torch.where(found, _take(payload, safe_slot), neg)
     resolved = found
     hit_i = hit.clamp_min(0).long()
     if has_links:
-        out = torch.where(hit >= 0, a.link_payloads[hit_i], out)
+        out = torch.where(hit >= 0, _take(link_payloads, hit_i), out)
         resolved = found | (hit >= 0)
-    if not a.wide:
+    if not wide:
         return out, slot.new_zeros(0), resolved
-    out_hi = torch.where(found, a.payload_hi[safe_slot], neg)
+    out_hi = torch.where(found, _take(payload_hi, safe_slot), neg)
     if has_links:
-        out_hi = torch.where(hit >= 0, a.link_payload_hi[hit_i], out_hi)
+        out_hi = torch.where(hit >= 0, _take(link_payload_hi, hit_i),
+                             out_hi)
     return out, out_hi, resolved

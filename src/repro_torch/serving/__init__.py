@@ -25,8 +25,10 @@ the port's ``Index``:
 
 ``pipeline.py`` is a verbatim copy of the reference's; ``wal.py`` and
 ``MicroBatchQueue`` are copies whose differences are named in their
-modules.  Sharded snapshots (``ShardedSnapshot`` is copied, duck-typed
-on ``shards``) wait for the sharded index (ROADMAP.md queue A, A11).
+modules.  All of it serves a ``dist.ShardedIndex`` as well: the pipeline
+pins a ``ShardedSnapshot``, the queue's flush is one fan-out lookup,
+and ``recover_index`` restores a sharded checkpoint directory.
+``kv_cache.PagedKVCache`` is the paged-KV block table over the index.
 """
 
 from ..core.results import Overloaded

@@ -29,9 +29,7 @@ determinism contracts (see tests/test_wal_recovery.py).
 
 This module is the reference's ``repro.serving.wal`` with the same
 framing, so either package replays the other's log; ``recover_index``
-takes the restored index's ``device``, and a sharded snapshot
-directory raises until sharding is ported (ROADMAP.md queue A, item
-A11).
+takes the restored index's ``device``.
 """
 
 from __future__ import annotations
@@ -250,21 +248,23 @@ def recover_index(snapshot_dir, wal_path, *, step: Optional[int] = None,
     """Crash recovery: newest checkpoint + WAL-tail replay.
 
     Returns ``(index, report)`` where ``index`` is a single-device
-    ``Index`` restored to the exact pre-crash state, its device state
-    on ``device`` (cuda unless ``device="cpu"``), and ``report``
+    ``Index`` or a ``ShardedIndex`` (dispatched on what the checkpoint
+    directory holds) restored to the exact pre-crash state, its device
+    state on ``device`` (cuda unless ``device="cpu"``), and ``report``
     records ``{"replayed", "skipped", "torn", "valid_end",
     "restored_step"}``.  Records at or below the checkpoint's
     ``wal_lsn`` are already folded into the snapshot and skipped; the
-    torn tail (if any) is ignored, exactly like ``replay``.  A sharded
-    snapshot directory raises ``NotImplementedError`` (sharding is not
-    ported yet).
+    torn tail (if any) is ignored, exactly like ``replay``.
     """
-    from ..core.handle import Index, _not_ported
     sharded_manifest = os.path.join(str(snapshot_dir),
                                     "sharded_manifest.json")
     if os.path.exists(sharded_manifest):
-        raise _not_ported("recover_index of a sharded snapshot", "A11")
-    idx, extra = Index.restore(snapshot_dir, step=step, device=device)
+        from ..dist.sharded import ShardedIndex
+        idx, extra = ShardedIndex.restore(snapshot_dir, step=step,
+                                          device=device)
+    else:
+        from ..core.handle import Index
+        idx, extra = Index.restore(snapshot_dir, step=step, device=device)
     lsn0 = int(extra.get("wal_lsn", 0))
     records, valid_end, torn = replay(wal_path)
     replayed = skipped = 0

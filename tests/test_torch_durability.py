@@ -397,7 +397,23 @@ def test_recover_index_equals_the_reference(tmp_path, wide):
 
 
 def test_sharded_snapshot_directory_raises_not_ported(tmp_path):
-    (tmp_path / "ck").mkdir()
-    (tmp_path / "ck" / "sharded_manifest.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="A11"):
-        recover_index(tmp_path / "ck", tmp_path / "w.wal", device="cpu")
+    """Sharding is ported: a directory with ``sharded_manifest.json``
+    recovers as a ``ShardedIndex`` (replaying the WAL tail), equal to
+    the reference's recovery of the same directory."""
+    from repro_torch.dist import ShardedIndex
+    keys = _keys(4, False, 6_000)
+    kw = dict(method="pgm", eps=64, gap_rho=0.2, shards=2)
+    ref = RefIndex.build(keys, **kw)
+    ref.save_snapshot(tmp_path / "ck", wal_lsn=0)
+    fresh = _fresh(keys, 16)
+    with RefWAL(tmp_path / "w.wal") as w:
+        w.append(fresh, np.arange(16))
+    rec, info = recover_index(tmp_path / "ck", tmp_path / "w.wal",
+                              device="cpu")
+    want, want_info = ref_recover(tmp_path / "ck", tmp_path / "w.wal")
+    assert isinstance(rec, ShardedIndex) and info == want_info
+    assert info["replayed"] == 1
+    assert rec.epoch == want.epoch
+    for a, b in zip(rec.shards, want.shards):
+        assert _state_equal(a, b)
+    _same_answers(rec, want, np.concatenate([keys[::5], fresh]))

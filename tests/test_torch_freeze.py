@@ -1,6 +1,6 @@
 """The port's host build and freeze equal the reference's, array for
-array: the verbatim core copies (and the verbatim serving and
-robustness copies, with ``MicroBatchQueue`` held by its syntax tree),
+array: the verbatim core copies (and the verbatim serving, robustness
+and data copies, with ``MicroBatchQueue`` held by its syntax tree),
 the copied numpy freeze/sizing helpers, and whole builds at sample_rate 1.0 and 0.01 with equal
 seeds.  Inputs are made with numpy from a seed and handed to both."""
 
@@ -19,7 +19,8 @@ ROOT = Path(__file__).resolve().parents[1]
 COPIED = ("links", "mechanisms", "sampling", "gaps", "results", "mdl",
           "tuning")
 COPIED_OUTSIDE_CORE = ("robustness/__init__.py", "robustness/faults.py",
-                       "serving/pipeline.py")
+                       "serving/pipeline.py", "data/__init__.py",
+                       "data/token_store.py", "data/pipeline.py")
 
 
 @pytest.mark.parametrize("name", COPIED)

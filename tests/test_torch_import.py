@@ -25,6 +25,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.kernels.gap_place, repro_torch.kernels.ops_gap\n"
         "import repro_torch.serving, repro_torch.robustness\n"
         "import repro_torch.train, repro_torch.core.tuning\n"
+        "import repro_torch.dist.sharded, repro_torch.kernels.shard_fanout\n"
+        "import repro_torch.data, repro_torch.serving.kv_cache\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(','.join(bad))\n")

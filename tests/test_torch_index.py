@@ -3,6 +3,8 @@ CPU) answers exactly as the reference's ``Index.build`` + ``lookup``,
 and a reference index carried across with ``convert.index_from_state``
 answers identically.  Payloads, slots and found are bit-identical."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -118,7 +120,18 @@ def test_unported_entry_points_raise_naming_their_item():
     # every lookup backend of the reference is ported (A8)
     assert sorted(BACKENDS) == ["fused", "numpy-oracle", "pallas",
                                 "xla-windowed"]
-    # durability (A9) and self-tuning (A15) are ported: only sharding
-    # (A11) raises
-    with pytest.raises(NotImplementedError, match="A11"):
-        Index.build(keys, shards=2, device="cpu")
+    # durability (A9), self-tuning (A15) and sharding (A11) are ported:
+    # build(shards=...) returns the sharded index on the asked device,
+    # and no entry point of the port raises NotImplementedError for an
+    # item of the queue any more
+    from repro_torch.dist import ShardedIndex
+    sharded = Index.build(keys, shards=2, gap_rho=0.2, device="cpu")
+    assert isinstance(sharded, ShardedIndex)
+    assert [sh.device.type for sh in sharded.shards] == ["cpu", "cpu"]
+    assert np.array_equal(sharded.lookup(keys[::3]).payloads,
+                          np.arange(1000)[::3])
+    src = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    for path in src.rglob("*.py"):
+        text = path.read_text()
+        assert "_not_ported" not in text, path
+        assert "item A11" not in text, path

@@ -671,3 +671,76 @@ def test_serving_stack_launches_from_the_timer_thread_on_the_card(tmp_path):
     assert np.array_equal(ga.payload, gb.payload)
     r = rec.lookup(fresh)
     assert r.found.all() and r.backend in ("fused", "device-oracle")
+
+
+def _sharded_pair(seed=9, shards=4):
+    """The same sharded build and writes on the card and on the CPU."""
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.choice(2 ** 40, 25_000, replace=False)
+                     ).astype(np.float64)
+    out = []
+    for dev in ("cuda", "cpu"):
+        idx = Index.build(keys, shards=shards, method="pgm", eps=64,
+                          gap_rho=0.15, device=dev)
+        mids = np.setdiff1d(keys[:-1] + np.rint(np.diff(keys) * 0.5),
+                            keys)[::4]
+        idx.ingest(mids, (5 << 40) + np.arange(mids.size))
+        out.append(idx)
+    q = np.concatenate([rng.choice(keys, 3_000), mids[:900],
+                        rng.choice(keys, 600) + 1.0,
+                        [keys[0] - 10.0, keys[-1] + 10.0]])
+    return out[0], out[1], rng.permutation(q)
+
+
+@pytest.mark.gpu
+def test_shard_fanout_on_the_card_equals_the_cpu():
+    """The fan-out's torch ops on the card give the CPU's outputs bit
+    for bit at 25k keys over 4 shards: the raw per-row outputs of one
+    padded bucket (escape flags and drops included), then the patched
+    lookups, with a small exchange cap as well."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gpu, cpu, q = _sharded_pair()
+    fg, fc = gpu._fanout(), cpu._fanout()
+    assert fg.devices[0].type == "cuda" and fc.devices[0].type == "cpu"
+    assert fg.S == fc.S == 4
+    bucket = fc._bucket(q.size)
+    qp = np.full(bucket, np.inf)
+    qp[:q.size] = q
+    qh, ql = ops.split_queries(qp, True)
+    for cap in (fc._cap_for(bucket), 64):
+        want = fc._run(qh, ql, cap)
+        got = fg._run(qh, ql, cap)
+        for w, g in zip(want, got):
+            assert np.array_equal(np.asarray(w), np.asarray(g))
+    a, b = gpu.lookup(q), cpu.lookup(q)
+    assert a.backend == b.backend == "sharded-fanout"
+    for f in ("payloads", "slots", "found"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    assert a.fallbacks == b.fallbacks
+    fg._cap_for = fc._cap_for = lambda n: 16
+    a, b = gpu.lookup(q), cpu.lookup(q)
+    assert fg.stats["cap_overflows"] == fc.stats["cap_overflows"] == 1
+    for f in ("payloads", "slots", "found"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.gpu
+def test_grouped_fused_lookup_launches_once_per_touched_shard():
+    """``backend="fused"`` on a sharded index groups the batch by the
+    exact route and runs each touched shard's fused stage: one launch
+    of the CUDA kernel per touched shard, answers equal the fan-out."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gpu, _cpu, q = _sharded_pair(seed=10)
+    bounds = gpu.router.bounds
+    q3 = q[q < bounds[2]]                  # shards 0, 1 and 2 only
+    touched = np.unique(gpu.router.route(q3)).size
+    assert touched == 3
+    want = gpu.lookup(q3, backend="fanout")
+    n0 = fused_lookup.launches
+    got = gpu.lookup(q3, backend="fused")
+    assert got.backend == "sharded-host"
+    assert fused_lookup.launches - n0 == touched
+    for f in ("payloads", "slots", "found"):
+        assert np.array_equal(getattr(want, f), getattr(got, f)), f
