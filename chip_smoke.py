@@ -7,10 +7,11 @@
 
 Drives ``repro_torch``'s main paths — build, freeze, batched lookups,
 the §5.3 write path, device Eq. 3, the legacy lookup backends, the
-range-sharded index, the serving stack and the index's consumers — on
-the card, and holds each hand-written CUDA kernel against its plain
-torch version.  Prints one JSON line per phase (they run in the order
-1-9, 11, 10, 12: phase 11 reuses the read phase's keys and index):
+range-sharded index, the serving stack, the index's consumers and LLM
+decode serving over the learned-index block table — on the card, and
+holds each hand-written CUDA kernel against its plain torch version.
+Prints one JSON line per phase (they run in the order 1-9, 11, 10, 12,
+13: phase 11 reuses the read phase's keys and index):
 
 1. environment and kernel build (one nvcc per source, in parallel, into
    build/repro_torch/);
@@ -29,7 +30,11 @@ torch version.  Prints one JSON line per phase (they run in the order
    ``GappedArray.lookup_batch``; the kernel is timed at the main
    path's shapes beside its plain version, its bound and
    ``torch.searchsorted`` as a partial yardstick, and its device time
-   at flat widths 8, 32 and 256 on the same inputs;
+   at flat widths 8, 32 and 256 on the same inputs.  The same batches
+   then go through a ``QueryEngine(fused_impl="xla")`` over the same
+   frozen arrays (the reference's own non-TPU path: the rank-router
+   graph in torch ops, escapes patched on the host), every answer
+   against the host oracle, timed beside the kernel engine;
 4. ``ingest_place`` against ``ingest_place_plain`` on identical CUDA
    inputs, bit for bit in all four outputs (p, pv, ub, flags): narrow
    and wide keys, keys next to the longest chain, keys inside the
@@ -154,7 +159,27 @@ torch version.  Prints one JSON line per phase (they run in the order
    ``IndexedTokenDataset`` over a synthetic store of 1M documents
    (mean length 64, vocabulary 32,000; examples/streaming_ingest.py's
    widths), ``ShardedLoader`` batches of 1,024 held against the store,
-   and a streamed shipment of 4,096 new documents.
+   and a streamed shipment of 4,096 new documents;
+13. LLM decode serving: ``ServingEngine`` over internlm2-1.8b
+   (configs/internlm2_1_8b.py: 24 layers, d_model 2048, 16 heads, 8 KV
+   heads, d_ff 8192, vocabulary 92,544) at full width and depth, bf16
+   params from ``--seed``, ``max_batch=32, max_len=512, page_size=16``,
+   temperature 0; 64 requests of ``launch/serve.py``'s traffic (prompts
+   of 4-23 tokens uniform below the vocabulary), 64 new tokens each.
+   Every round's page lookup (one ``MicroBatchQueue`` flush, padded to
+   its 512-query bucket: one ``fused_lookup`` launch) is held against
+   the block table's host map, and the block table and its index at the
+   end against a host-only replay of the same allocs and frees.  Round
+   ms p50 / p99 split into the model step (CUDA events around
+   ``decode_fn``), the page lookup, alloc and sampling (host clock);
+   tokens/s; the step's byte bound (weights and the whole ``max_len``
+   KV cache read once).  Then the model's numerics at full size in f32
+   (TF32 off, batch 2 x 64 tokens): prefill's last logits against
+   ``forward``'s, a ``decode_step`` after it against ``forward`` over
+   the 65 tokens (atol 1e-3, equal argmax), the bf16 differences
+   printed; the first two layers on the card against the CPU in f32;
+   and ``fused_lookup`` against its plain version at the last round's
+   bucket.
 
 Scale: SOSD's key sets (Marcus et al., Benchmarking Learned Indexes,
 VLDB 2020) hold 200M keys; the read phase cuts that to 32M so the host
@@ -172,7 +197,9 @@ size, where the fused ingest is admitted, and so does phase 11's
 durability run.  Phase 11 cuts the read index into 8 shards of about
 4.6M slots, each under the placement gate; its writes are cut to 8
 batches by the time limit (each costs a host partition and a delta
-diff per touched shard, and the host replay as much again).
+diff per touched shard, and the host replay as much again).  Phase 13
+serves the config at full width and depth; its traffic (64 x 64
+tokens through 32 slots, 128 rounds) is sized to stay near two minutes.
 
 Every kernel timing reports ``ms`` (CUDA events around 20 back-to-back
 wrapper calls, over the count: host and device together),
@@ -717,6 +744,7 @@ def phase_main(rng, n_keys, seed, smi, profile=False) -> dict:
     main_stats = {"launches": launches,
                   "fallbacks": eng.stats["fallbacks"] - fb0,
                   "oracle_escapes": eng.stats["oracle_escapes"] - esc0}
+    xla_ms = xla_engine_lookups(idx, batches, timing, smi)
 
     # the kernel at the main path's shapes, held against its plain
     # version; these launches are after the count was read
@@ -752,8 +780,51 @@ def phase_main(rng, n_keys, seed, smi, profile=False) -> dict:
                           "(here it searches the hi half)",
              kernel_vs_plain=TOL)
     return {"launches": launches, "per_batch": per_batch,
-            "main": main_stats, "lookup_ms": timing, "index": idx,
-            "keys": keys, "queries": batches}
+            "main": main_stats, "lookup_ms": timing, "xla_ms": xla_ms,
+            "index": idx, "keys": keys, "queries": batches}
+
+
+def xla_engine_lookups(idx, batches, kernel_ms, smi) -> dict:
+    """The read phase's batches through a ``QueryEngine(fused_impl=
+    "xla")`` over the same frozen arrays: the reference's own non-TPU
+    path (the rank-router graph in torch ops, its escapes patched on the
+    host), every answer held against the host oracle, timed beside the
+    kernel engine's ``Index.lookup`` (host clock, median of 5 warm
+    calls; it launches no kernel of the port)."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.lookup import fused_lookup
+    from repro_torch.kernels.ops import QueryEngine
+    eng = idx.sync_device()
+    t0 = time.perf_counter()
+    xeng = QueryEngine(eng.arrays, eng.err_lo, eng.err_hi,
+                       fused_impl="xla", w_tile=eng.w_tile)
+    setup_s = time.perf_counter() - t0
+    launches0 = fused_lookup.launches
+    out = {}
+    for n_b, q in batches.items():
+        for _ in range(2):
+            xeng.lookup(q)
+        times = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            pay, slot, found, n_fb = xeng.lookup(q)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        check_against_host(SimpleNamespace(payloads=pay, slots=slot,
+                                           found=found), idx.gapped, q)
+        if xeng.last_stage != "fused":
+            raise AssertionError(f"xla engine served by {xeng.last_stage}")
+        out[n_b] = statistics.median(times)
+        emit("main_lookup_xla", card=smi, batch=n_b, fused_impl="xla",
+             stage=xeng.last_stage, ms_per_batch=out[n_b],
+             kernel_engine_ms_per_batch=kernel_ms[n_b],
+             escapes_patched_on_host=int(n_fb), setup_seconds=setup_s,
+             answers_equal_host_oracle=True)
+    if fused_lookup.launches != launches0:
+        raise AssertionError("the xla engine launched the lookup kernel")
+    del xeng
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2900,6 +2971,401 @@ def consumer_kernels_vs_plain(rng, kv, ds, doc_keys) -> dict:
                      "ingest_place_max_abs_err": ds_place_err}}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: LLM decode serving over the learned-index block table
+# ---------------------------------------------------------------------------
+
+CARD = "cuda"
+DECODE_ARCH = "internlm2-1.8b"   # configs/internlm2_1_8b.py, full size
+DECODE_REQUESTS = 64
+DECODE_NEW = 64
+DECODE_BATCH = 32
+DECODE_LEN = 512
+DECODE_PAGE = 16
+DECODE_CHECK_B, DECODE_CHECK_S = 2, 64
+DECODE_ATOL = 1e-3
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
+    elif isinstance(tree, (tuple, list)):
+        for t in tree:
+            yield from tree_leaves(t)
+    else:
+        yield tree
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+class DecodeProbe:
+    """Wraps the engine's collaborators to split each round (model step
+    by CUDA events, page lookup / alloc / sampling by the host clock),
+    to check every round's page lookups against the block table's host
+    map, and to record the allocs and frees for a host-only replay.
+    The wrappers call the engine's own objects; they add no device
+    work to the round."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.step_events = []
+        self.lookup_s, self.alloc_s, self.sample_s = [], [], []
+        self.round_lookup = self.round_alloc = self.round_sample = 0.0
+        self.lookup_rounds = []   # (keys, payloads) of every round
+        self.ops = []             # ("alloc", rids, pages) / ("free", r, n)
+        self.last_bucket = None
+        self.logits_finite = True
+        self.max_token = -1
+        self._pending = {}
+        agg, kv = engine.aggregator, engine.kv_pages
+        self._submit, self._flush = agg.submit_lookup, agg.flush
+        self._result, self._alloc = agg.result, kv.alloc_batch
+        self._free, self._lookup = kv.free_request, kv.index.lookup
+        self._decode, self._sample = engine._decode, engine._sample
+        agg.submit_lookup, agg.flush, agg.result = (
+            self.submit, self.flush, self.result)
+        kv.alloc_batch, kv.free_request = self.alloc, self.free
+        kv.index.lookup = self.index_lookup
+        engine._decode, engine._sample = self.decode, self.sample
+
+    def _timed(self, attr, fn, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            setattr(self, attr, getattr(self, attr)
+                    + time.perf_counter() - t0)
+
+    def submit(self, keys):
+        t = self._timed("round_lookup", self._submit, keys)
+        self._pending[t] = np.asarray(keys, np.float64).copy()
+        return t
+
+    def flush(self):
+        return self._timed("round_lookup", self._flush)
+
+    def result(self, ticket):
+        res = self._timed("round_lookup", self._result, ticket)
+        keys = self._pending.pop(ticket)
+        self.lookup_rounds.append((keys, np.asarray(res.payloads).copy()))
+        # the host map at this round, before the misses are allocated
+        want = np.array([self.engine.kv_pages.allocated.get(int(k), -1)
+                         for k in keys], np.int64)
+        got = np.asarray(res.payloads).astype(np.int64)
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"round {self.engine.stats['rounds']}: page lookups differ "
+                f"from the block table's host map "
+                f"({int((got != want).sum())} of {keys.size})")
+        return res
+
+    def index_lookup(self, queries, *a, **kw):
+        self.last_bucket = np.asarray(queries, np.float64).copy()
+        return self._lookup(queries, *a, **kw)
+
+    def alloc(self, rids, pages):
+        self.ops.append(("alloc", np.array(rids), np.array(pages)))
+        return self._timed("round_alloc", self._alloc, rids, pages)
+
+    def free(self, rid, n):
+        self.ops.append(("free", int(rid), int(n)))
+        return self._free(rid, n)
+
+    def decode(self, *a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self._decode(*a)
+        end.record()
+        self.step_events.append((start, end))
+        return out
+
+    def sample(self, logits):
+        nxt = self._timed("round_sample", self._sample, logits)
+        self.logits_finite &= bool(np.isfinite(logits).all())
+        self.max_token = max(self.max_token, int(nxt.max()))
+        return nxt
+
+    def end_round(self):
+        self.lookup_s.append(self.round_lookup)
+        self.alloc_s.append(self.round_alloc)
+        self.sample_s.append(self.round_sample)
+        self.round_lookup = self.round_alloc = self.round_sample = 0.0
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.step_events]
+
+
+def decode_requests(rng, vocab, n, first_id=1):
+    """``launch/serve.py``'s traffic: prompts of 4-23 tokens uniform
+    below ``vocab``, ``DECODE_NEW`` new tokens each."""
+    from repro_torch.serving import Request
+    return [Request(request_id=rid,
+                    prompt=rng.integers(0, vocab, rng.integers(4, 24),
+                                        dtype=np.int32),
+                    max_new_tokens=DECODE_NEW)
+            for rid in range(first_id, first_id + n)]
+
+
+def replay_block_table(ops, n_pages):
+    """The same allocs and frees on a fresh block table whose index
+    never freezes (no lookups): every write on the host path."""
+    from repro_torch.serving.kv_cache import PagedKVCache
+    kv = PagedKVCache.create(n_pages=n_pages, page_size=DECODE_PAGE,
+                             expected_requests=DECODE_BATCH * 4,
+                             device="cpu")
+    for op in ops:
+        if op[0] == "alloc":
+            kv.alloc_batch(op[1], op[2])
+        else:
+            kv.free_request(op[1], op[2])
+    if kv.index._engine is not None:
+        raise AssertionError("the host replay froze its index")
+    return kv
+
+
+def conditioned(params, cfg):
+    """The same draws with the attention projections rescaled to std
+    1/sqrt(their contraction size).  The reference's init rule takes
+    ``fan_in = shape[-2]``, which for ``wq``/``wk``/``wv`` (d_model,
+    heads, head_dim) is the head count and for ``wo`` the head size: the
+    scores come out ~sqrt(d_model / heads) times too large, the softmax
+    saturates, and at full depth the random-init model is chaotic (a
+    small change of the inputs grows layer by layer), so two evaluation
+    orders of one f32 function part by O(logits)."""
+    a = dict(params["layers"]["attn"])
+    for k in ("wq", "wk", "wv"):
+        a[k] = a[k] * (a[k].shape[-2] / cfg.d_model) ** 0.5
+    a["wo"] = a["wo"] * (a["wo"].shape[-2]
+                         / (cfg.n_heads * cfg.head_dim_)) ** 0.5
+    return {**params, "layers": {**params["layers"], "attn": a}}
+
+
+def decode_numerics(model, params, smi) -> dict:
+    """The model at full width and depth, ``DECODE_CHECK_B`` x
+    ``DECODE_CHECK_S`` tokens: prefill's last logits against
+    ``forward``'s and a ``decode_step`` after the prefill against
+    ``forward`` over the S + 1 tokens.  In f32 (TF32 off) on the
+    ``conditioned`` params within ``DECODE_ATOL`` with equal argmax;
+    the same differences printed for the served params as drawn (f32
+    and bf16) and for the conditioned ones in bf16; then the conditioned
+    params cut to 2 layers, the card against the CPU in f32."""
+    import dataclasses
+
+    from repro_torch.models import lm
+    cfg = model.cfg
+    B, S = DECODE_CHECK_B, DECODE_CHECK_S
+    g = torch.Generator(device="cpu").manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab, (B, S + 1), generator=g)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def run(prm, cache_dtype, dev, cfg_=cfg):
+        tok = tokens.to(dev)
+        full = lm.logits_fn(prm, lm.forward(prm, tok, cfg_), cfg_).float()
+        cache = lm.init_kv_cache(cfg_, B, 2 * S, dtype=cache_dtype,
+                                 device=dev)
+        pre, cache = lm.prefill(prm, tok[:, :S], cache, cfg_)
+        dec, _ = lm.decode_step(prm, tok[:, S:], cache, S, cfg_)
+        # the real vocabulary (the padded columns are -1e30 in both)
+        v = cfg_.vocab
+        return (full[:, S - 1, :v].cpu(), full[:, S, :v].cpu(),
+                pre[:, :v].float().cpu(), dec[:, :v].float().cpu())
+
+    def diffs(r):
+        f_s1, f_s, pre, dec = r
+        return {"prefill_vs_forward": float((pre - f_s1).abs().max()),
+                "decode_vs_forward": float((dec - f_s).abs().max()),
+                "argmax_equal": bool(torch.equal(pre.argmax(-1),
+                                                 f_s1.argmax(-1))
+                                     and torch.equal(dec.argmax(-1),
+                                                     f_s.argmax(-1))),
+                "logit_scale": float(f_s.abs().max())}
+
+    try:
+        p32 = tree_map(lambda t: t.float(), params)
+        drawn = {"f32": diffs(run(p32, torch.float32, CARD)),
+                 "bf16": diffs(run(params, torch.bfloat16, CARD))}
+        c32 = conditioned(p32, cfg)
+        del p32
+        f32 = diffs(run(c32, torch.float32, CARD))
+        bf16 = diffs(run(conditioned(params, cfg), torch.bfloat16, CARD))
+        if not (f32["prefill_vs_forward"] <= DECODE_ATOL
+                and f32["decode_vs_forward"] <= DECODE_ATOL
+                and f32["argmax_equal"]):
+            raise AssertionError(f"f32 decode numerics: {f32}")
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        p2 = {k: v for k, v in c32.items() if k != "layers"}
+        p2["layers"] = tree_map(lambda t: t[:2].contiguous(), c32["layers"])
+        del c32
+        gpu2 = run(p2, torch.float32, CARD, cfg2)
+        cpu2 = run(tree_map(lambda t: t.cpu(), p2), torch.float32, "cpu",
+                   cfg2)
+        del p2
+        card_vs_cpu = max(float((a - b).abs().max())
+                          for a, b in zip(gpu2, cpu2))
+        if card_vs_cpu > DECODE_ATOL:
+            raise AssertionError(f"2-layer f32 logits differ between the "
+                                 f"card and the CPU by {card_vs_cpu}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.backends.cudnn.allow_tf32 = tf32[1]
+        torch.cuda.empty_cache()
+    out = {"batch": B, "seq": S, "atol": DECODE_ATOL, "f32": f32,
+           "bf16": bf16, "drawn_params": drawn,
+           "two_layers_card_vs_cpu_f32": card_vs_cpu}
+    emit("decode_numerics", card=smi, **out,
+         params="the served draws, attention projections rescaled to "
+                "std 1/sqrt(contraction size) (chip_smoke.conditioned); "
+                "drawn_params: the draws as served, unchecked")
+    return out
+
+
+def phase_decode(rng, seed, smi, profile=False) -> dict:
+    """Phase 13: ``ServingEngine`` over internlm2-1.8b at full width and
+    depth (bf16 params from ``seed``) on the card, 64 requests x 64 new
+    tokens through 32 slots; every round's page lookup held against the
+    block table's host map, the block table at the end against a
+    host-only replay, the model's numerics against ``forward``, and
+    ``fused_lookup`` against its plain version at the block table's
+    shapes after the counts were read."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.gap_place import ingest_place
+    from repro_torch.kernels.lookup import fused_lookup
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+    cfg = ARCHS[DECODE_ARCH]
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    params = model.init_params(gen, CARD)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServingEngine(model, max_batch=DECODE_BATCH,
+                           max_len=DECODE_LEN, page_size=DECODE_PAGE,
+                           temperature=0.0, device=CARD)
+    engine.load(params)
+    w_bytes, kv_bytes = tree_bytes(params), tree_bytes(engine.caches)
+    emit("decode_setup", card=smi, arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv,
+         d_ff=cfg.d_ff, vocab=cfg.vocab,
+         padded_vocab=int(params["embed"].shape[0]),
+         params=model.param_count(), weight_bytes=w_bytes,
+         kv_cache_bytes=kv_bytes, init_seconds=init_s,
+         max_batch=DECODE_BATCH, max_len=DECODE_LEN, page_size=DECODE_PAGE,
+         block_table_pages=engine.kv_pages.n_pages)
+    reqs = decode_requests(rng, cfg.vocab, DECODE_REQUESTS)
+    for r in reqs:
+        engine.submit(r)
+    probe = DecodeProbe(engine)
+    round_ms = []
+    step = engine.step
+
+    def timed_step():
+        t1 = time.perf_counter()
+        step()
+        round_ms.append((time.perf_counter() - t1) * 1e3)
+        probe.end_round()
+
+    engine.step = timed_step
+    fused_lookup.launches = 0   # counts from the decode's run only
+    ingest_place.launches = 0
+    stats = engine.run_until_done()
+    launches = {"fused_lookup": fused_lookup.launches,
+                "ingest_place": ingest_place.launches}
+    engine.step = step
+    step_ms = probe.step_ms()
+
+    # checks
+    n_tok = DECODE_REQUESTS * DECODE_NEW
+    if stats["decoded_tokens"] != n_tok or not all(r.done for r in reqs):
+        raise AssertionError(f"decoded {stats['decoded_tokens']} of "
+                             f"{n_tok} tokens")
+    if not probe.logits_finite or not 0 <= probe.max_token < cfg.vocab:
+        raise AssertionError("non-finite logits or a token past vocab")
+    if any(not 0 <= t < cfg.vocab for r in reqs for t in r.generated):
+        raise AssertionError("a generated token is past vocab")
+    if launches["fused_lookup"] != stats["rounds"]:
+        raise AssertionError(f"{launches['fused_lookup']} fused_lookup "
+                             f"launches for {stats['rounds']} rounds")
+    replay = replay_block_table(probe.ops, engine.kv_pages.n_pages)
+    kv = engine.kv_pages
+    if (replay.allocated != kv.allocated
+            or replay.free_pages != kv.free_pages):
+        raise AssertionError("the block table differs from its replay")
+    assert_same_state(kv.index.gapped, replay.index.gapped, "decode")
+    if replay.index.epoch != kv.index.epoch:
+        raise AssertionError(f"block-table epoch {kv.index.epoch} against "
+                             f"{replay.index.epoch} replayed")
+
+    # the kernel at the block table's shapes, after the counts were read
+    _a, _s, _g, lookup_err = kernel_case("decode_block_table", kv.index,
+                                         probe.last_bucket)
+    rounds = stats["rounds"]
+    wall = stats["wall_s"]
+    bound_ms = (w_bytes + kv_bytes) / H100_BYTES_PER_S * 1e3
+    out = {
+        "requests": DECODE_REQUESTS, "new_tokens": DECODE_NEW,
+        "decoded_tokens": stats["decoded_tokens"], "rounds": rounds,
+        "wall_seconds": wall, "tokens_per_second": n_tok / wall,
+        "round_ms_p50": pct(round_ms, 50), "round_ms_p99": pct(round_ms, 99),
+        "model_step_ms_p50": pct(step_ms, 50),
+        "model_step_ms_p99": pct(step_ms, 99),
+        "page_lookup_ms_p50": pct(probe.lookup_s, 50) * 1e3,
+        "page_lookup_ms_p99": pct(probe.lookup_s, 99) * 1e3,
+        "alloc_ms_p50": pct(probe.alloc_s, 50) * 1e3,
+        "alloc_ms_p99": pct(probe.alloc_s, 99) * 1e3,
+        "sampling_ms_p50": pct(probe.sample_s, 50) * 1e3,
+        "sampling_ms_p99": pct(probe.sample_s, 99) * 1e3,
+        "step_byte_bound_ms": bound_ms,
+        "step_bound_bytes": w_bytes + kv_bytes,
+        "launches": launches,
+        "page_lookups": stats["page_lookups"],
+        "lookup_bucket": int(probe.last_bucket.size),
+        "kv_epoch": stats["kv_epoch"],
+        "kv_delta_updates": stats["kv_delta_updates"],
+        "kv_refreezes": stats["kv_refreezes"],
+        "page_lookups_equal_host_map": True,
+        "block_table_equals_host_replay": True,
+        "fused_lookup_max_abs_err": lookup_err,
+    }
+    emit("decode", card=smi, **out, kernel_vs_plain=TOL)
+    if profile:
+        for r in decode_requests(rng, cfg.vocab, DECODE_BATCH,
+                                 first_id=DECODE_REQUESTS + 1):
+            engine.submit(r)
+        engine.step()   # admission and the first round
+        n0 = fused_lookup.launches
+
+        def eight_rounds():
+            for _ in range(8):
+                engine.step()
+        traced(eight_rounds, smi, "decode_profile", rounds=8)
+        emit("decode_profile_launches", card=smi,
+             fused_lookup_per_round=(fused_lookup.launches - n0) / 8)
+    del engine, probe
+    out["numerics"] = decode_numerics(model, params, smi)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-keys", type=int, default=32_000_000)
@@ -2924,9 +3390,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace three lookups per batch size (read "
-                         "path and shard fan-out), and two "
-                         "insert batches of each write path, with "
-                         "torch.profiler and print the device-time "
+                         "path and shard fan-out), two insert batches "
+                         "of each write path and eight decode rounds, "
+                         "with torch.profiler and print the device-time "
                          "breakdown")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2978,6 +3444,7 @@ def main() -> int:
     del main_res["index"], main_res["keys"], main_res["queries"]
     serve = phase_serve(rng, args.seed, smi, args.serve_keys)
     consumers = phase_consumers(rng, args.seed, smi)
+    decode = phase_decode(rng, args.seed, smi, args.profile)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the run")
 
@@ -2985,6 +3452,7 @@ def main() -> int:
     # phases 10-12's kernel-vs-plain checks at their own shapes
     later_vs_plain = [serve["kernel_vs_plain"], shard["kernel_vs_plain"],
                       *consumers["kernel_vs_plain"].values()]
+    decode_lookup_err = decode["fused_lookup_max_abs_err"]
 
     def times(row):
         return {k: row[k] for k in ("ms", "device_ms", "graph_ms", "host_us",
@@ -2999,17 +3467,19 @@ def main() -> int:
         # the read path, the write phases' lookup checks, the serving
         # stack's live lookups and its lookups after recovery, the
         # sharded index's grouped path and shard durability, the
-        # consumers' lookups
+        # consumers' lookups, the decode loop's page lookups
         "launches": (main_res["launches"]
                      + fused_res["launches"]["fused_lookup"]
                      + two_res["launches"]["fused_lookup"]
                      + serve["launches"]["fused_lookup"]
                      + shard["launches"]["fused_lookup"]
-                     + consumers["launches"]["fused_lookup"]),
+                     + consumers["launches"]["fused_lookup"]
+                     + decode["launches"]["fused_lookup"]),
         "max_abs_err": max([b["max_abs_err"]
                             for b in main_res["per_batch"].values()]
                            + [r["fused_lookup_max_abs_err"]
-                              for r in later_vs_plain]),
+                              for r in later_vs_plain]
+                           + [decode_lookup_err]),
         **times(big),
     }, {
         "name": "ingest_place",
@@ -3020,7 +3490,8 @@ def main() -> int:
                      + two_res["launches"]["ingest_place"]
                      + serve["launches"]["ingest_place"]
                      + shard["launches"]["ingest_place"]
-                     + consumers["launches"]["ingest_place"]),
+                     + consumers["launches"]["ingest_place"]
+                     + decode["launches"]["ingest_place"]),
         "max_abs_err": max([place_timing["max_abs_err"]]
                            + [r["ingest_place_max_abs_err"]
                               for r in later_vs_plain]),
@@ -3050,6 +3521,8 @@ def main() -> int:
          launch_floor={k: floor[k] for k in ("ms", "device_ms", "graph_ms",
                                              "host_us")},
          read_path=main_res["main"],
+         read_path_ms={"kernel_engine": main_res["lookup_ms"],
+                       "xla_engine": main_res["xla_ms"]},
          fused_write_path=fused_res["launches"],
          fused_commit_rate_w03=fused_res["w03_fused_commit_rate"],
          two_dispatch_write_path=two_res["launches"],
@@ -3075,7 +3548,14 @@ def main() -> int:
                     "median"],
                 "recover_seconds": shard["durability"]["recover_seconds"],
                 "checkpoint": shard["durability"]["checkpoint"]},
-         consumers_path=consumers["launches"])
+         consumers_path=consumers["launches"],
+         decode={k: decode[k] for k in (
+             "decoded_tokens", "rounds", "wall_seconds",
+             "tokens_per_second", "round_ms_p50", "round_ms_p99",
+             "model_step_ms_p50", "page_lookup_ms_p50", "alloc_ms_p50",
+             "sampling_ms_p50", "step_byte_bound_ms", "launches")},
+         decode_numerics={k: decode["numerics"][k] for k in (
+             "f32", "bf16", "two_layers_card_vs_cpu_f32")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,10 @@ same way: the dict its ``save_snapshot`` writes as
 rebalance knobs, the mutation count) and one ``(state, meta)`` pair per
 shard in the form ``index_from_state`` takes.
 
+``model_params_from_reference`` carries a reference model's param
+tree across (numpy leaves, nested dicts) into the port's tree of
+tensors, leaf for leaf.
+
 A snapshot on disk goes through ``Index.restore`` (``ShardedIndex
 .restore`` for a sharded one) instead.  Its pickle
 names the module of the mechanism's classes, so a stock ``pickle.loads``
@@ -31,6 +35,7 @@ ways and each restored mechanism is of the restoring package.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.gaps import GappedArray
 from .core.handle import Index
@@ -90,3 +95,32 @@ def sharded_from_state(manifest: dict, shard_states, device=None):
     shards = [index_from_state(state, meta, device=dev)
               for state, meta in shard_states]
     return ShardedIndex._from_manifest(shards, manifest)
+
+
+def model_params_from_reference(tree, device=None, dtype=None):
+    """The port's param dict for a reference param tree given as numpy
+    arrays (nested dicts, the reference's nesting): the same keys and
+    shapes, each leaf a copy on ``device`` (cuda unless ``"cpu"``).
+
+    ``dtype=None`` keeps each leaf's dtype, which is its spec dtype: a
+    bf16 leaf (numpy's ``bfloat16`` extension dtype, as ``np.asarray``
+    gives it for a bf16 JAX array) goes through f32, which is lossless.
+    A torch ``dtype`` casts every floating leaf to it."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        bf16 = a.dtype.name == "bfloat16"
+        t = torch.from_numpy(np.array(a.astype(np.float32) if bf16 else a))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        elif bf16:
+            t = t.to(torch.bfloat16)
+        return t.to(dev)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return leaf(node)
+
+    return walk(tree)

@@ -175,9 +175,9 @@ class Index:
     refreeze_contested_frac: float = 0.25
     refreeze_link_growth: float = 0.10
     min_device_batch: int = 512
-    # single-dispatch fused ingest.  None = on for a cuda engine (the
-    # reference's "on for accelerator engines"), off for a cpu one;
-    # True/False force the arm either way
+    # single-dispatch fused ingest.  None = on for a cuda engine whose
+    # fused_impl is "kernel" (the reference's "on for accelerator
+    # engines"), off otherwise; True/False force the arm either way
     fused_ingest_enabled: Optional[bool] = None
     # when the fused gate vetoes a batch, retry its longest locally
     # clean prefix in-graph and replay only the rest on the host path
@@ -912,8 +912,10 @@ class Index:
         placement = "host"
         self._last_abort_reasons = ()
         enabled = self.fused_ingest_enabled
-        if enabled is None:  # on for a cuda engine, off for a cpu one
-            enabled = self.device.type == "cuda"
+        if enabled is None:  # on for the kernel engine on cuda, as the
+            # reference turns it on for its accelerator kernel
+            enabled = (getattr(self._engine, "fused_impl", "kernel")
+                       == "kernel" and self.device.type == "cuda")
         if enabled and self._fused_eligible(keys, payloads):
             prims, ok, state = self._fused_dispatch(keys, payloads)
             placement = "device"

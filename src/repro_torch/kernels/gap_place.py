@@ -13,10 +13,14 @@ Counterpart of ``repro.kernels.gap_place``:
   ``ingest_place_plain``, the same function in torch ops (the
   reference's ``ingest_place_body``).  ``ingest_place.launches`` counts
   kernel launches;
+* ``ingest_place_graph`` — the reference's fused-XLA placement
+  (``_ingest_place_xla``): the same per-key body in torch ops on the
+  device of its tensors, for ``QueryEngine(fused_impl="xla")``;
 * ``fused_ingest_body`` — placement -> partition -> slot scatter +
   carried-key repair -> CSR merge -> rank-row / window-bound refresh,
-  as torch ops around ``ingest_place`` (the reference's ``use_pallas``
-  arm: the kernel on CUDA, the plain version on the CPU);
+  as torch ops; stage 1 is ``ingest_place`` (the reference's
+  ``use_pallas`` arm: the kernel on CUDA, the plain version on the CPU)
+  or, with ``use_kernel=False``, ``ingest_place_graph``;
 * ``gap_place`` launches ``csrc/gap_place.cu`` (the port of the TPU
   kernel ``gap_place_call``, Eq. 3 target positions for sorted keys)
   for CUDA tensors; ``gap_place_plain`` is its torch version, and
@@ -35,7 +39,8 @@ import torch
 
 from . import _build
 
-__all__ = ["ingest_place", "ingest_place_plain", "fused_ingest_body",
+__all__ = ["ingest_place", "ingest_place_plain", "ingest_place_graph",
+           "fused_ingest_body",
            "split_flags", "gap_place", "gap_place_brackets",
            "gap_place_plain"]
 
@@ -263,6 +268,19 @@ def ingest_place_plain(x_hi, x_lo, segk_hi, segk_lo, slope_hi, slope_lo,
     return p.int(), pv.int(), ub.int(), flags
 
 
+def ingest_place_graph(x_hi, x_lo, segk_hi, segk_lo, slope_hi, slope_lo,
+                       icept_hi, icept_lo, slot_hi, slot_lo, link_offsets,
+                       link_hi, link_lo, *, n_slots: int):
+    """The reference's graph placement (``_ingest_place_xla``): the
+    shared per-key body over the whole batch in torch ops, on whatever
+    device the tensors are on.  ``(p, pv, ub, free, bracket, escape)``,
+    indices int64, masks bool.  It serves ``fused_impl="xla"`` engines;
+    the kernel wrapper below never falls back to it on the card."""
+    return _place_plain(x_hi, x_lo, segk_hi, segk_lo, slope_hi, slope_lo,
+                        icept_hi, icept_lo, slot_hi, slot_lo, link_offsets,
+                        link_hi, link_lo, n_slots=n_slots)
+
+
 def ingest_place(x_hi, x_lo, segk_hi, segk_lo, slope_hi, slope_lo,
                  icept_hi, icept_lo, slot_hi, slot_lo, link_offsets,
                  link_hi, link_lo, *, n_slots: int):
@@ -352,11 +370,14 @@ def fused_ingest_body(
     n_slots: int,
     max_chain: int,
     key_wide: bool,
+    use_kernel: bool = True,
 ):
     """The single-dispatch §5.3 ingest graph (the reference's
     ``fused_ingest_body``, same stages, same outputs): stage 1 is one
     ``ingest_place`` call — the kernel on CUDA, its plain version on
-    the CPU.  The batch's ``reasons`` bitmask is read back once; every
+    the CPU — or, with ``use_kernel=False`` (the counterpart of the
+    reference's ``use_pallas=False``), ``ingest_place_graph``.  The
+    batch's ``reasons`` bitmask is read back once; every
     state output is the new image when it is 0 and the input buffer
     untouched otherwise (so an aborted batch computes no scatters).
 
@@ -375,12 +396,16 @@ def fused_ingest_body(
     iota = torch.arange(B, device=dev)
     inf = float("inf")
 
-    # ---- stage 1: placement primitives (the kernel) -------------------
-    p, pv, ub, flags = ingest_place(
-        x_hi, x_lo, segk_hi, segk_lo, slope_hi, slope_lo, icept_hi,
-        icept_lo, slot_hi, slot_lo, link_offsets, link_hi, link_lo,
-        n_slots=n_slots)
-    free, bracket, escape = split_flags(flags)
+    # ---- stage 1: placement primitives (the kernel or the graph) ------
+    place_args = (x_hi, x_lo, segk_hi, segk_lo, slope_hi, slope_lo,
+                  icept_hi, icept_lo, slot_hi, slot_lo, link_offsets,
+                  link_hi, link_lo)
+    if use_kernel:
+        p, pv, ub, flags = ingest_place(*place_args, n_slots=n_slots)
+        free, bracket, escape = split_flags(flags)
+    else:
+        p, pv, ub, free, bracket, escape = ingest_place_graph(
+            *place_args, n_slots=n_slots)
     p, pv, ub = p.long(), pv.long(), ub.long()
     valid = torch.isfinite(x_hi)
     free &= valid

@@ -5,8 +5,10 @@ Counterpart of the ``"fused-pallas"``, ``"pallas"``, ``"xla"`` and
 ``_route_segment``, ``_xla_window_lookup``, ``_compact_fallback``,
 ``_fused_fixup`` and ``batched_lookup``, and of ``QueryEngine`` (its
 lookup side, and its write side: delta swaps, bound and rank-row
-refreshes, ingest placement and the fused ingest).  The port names the
-reference's ``"fused-pallas"`` stage ``"fused"``.  One batch on it is:
+refreshes, ingest placement and the fused ingest).  ``pipeline`` names
+the reference's ``"fused-pallas"`` stage ``"fused"``; the entry points
+take the reference's names (``batched_lookup``'s five backends, the
+engine's ``fused_impl``).  One batch on the kernel stage is:
 
     sort -> radix route + window base per query -> tile schedule
     (``tile_block``) -> ONE launch of the fused kernel -> fixup of the
@@ -32,8 +34,10 @@ slot-rank table of ``bounds.build_rank_router``, a fixed-trip bisect,
 the bracket validation that flags escapes), ``fused_pipeline`` (the
 search and the epilogue) and the host patch of the flagged queries
 (``host_fallback_views``, ``resolve_escapes_host``,
-``finish_fused_host``).  The shard fan-out (``shard_fanout.py``) runs
-them over stacked shard images; the engine's stages do not.
+``finish_fused_host``).  ``batched_lookup(backend="fused")`` runs it,
+as the reference's does; so does the engine's ``"fused"`` stage under
+``QueryEngine(fused_impl="xla")``, and the shard fan-out
+(``shard_fanout.py``) over stacked shard images.
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ from .lookup import (_clip, _slot_clip_hi, fused_lookup, lookup_kernel,
 from .ref import (_bisect, _pair_bisect, _peq, _ple, _take, epilogue,
                   epilogue_parts, oracle_search, predict_ref)
 
-__all__ = ["QueryEngine", "batched_lookup", "FB_FRAC", "fused_search",
+__all__ = ["QueryEngine", "batched_lookup", "BACKENDS", "FUSED_IMPLS",
+           "FB_FRAC", "fused_search",
            "fused_pipeline", "host_fallback_views", "resolve_escapes_host",
            "finish_fused_host"]
 
@@ -509,6 +514,27 @@ class _EscapeCounter:
 _ESCAPES = _EscapeCounter()
 
 
+def _rank_router(arrays: IndexArrays):
+    """The rank router of ``arrays`` on its device, ``(table, scale,
+    trips)``, built once per instance (the reference's
+    ``_cached_rank_router``).  ``IndexArrays`` is frozen and a delta
+    update makes a new instance, so a cached router never drifts."""
+    cached = getattr(arrays, "_rank_router_cache", None)
+    if cached is None:
+        table, scale, trips, _meta = build_rank_router(
+            _np(arrays.slot_key),
+            _np(arrays.slot_key_lo) if arrays.key_wide else None)
+        dev = arrays.device
+        cached = (torch.from_numpy(table).to(dev),
+                  torch.from_numpy(scale).to(dev), trips)
+        object.__setattr__(arrays, "_rank_router_cache", cached)
+    return cached
+
+
+BACKENDS = ("fused", "fused-pallas", "pallas", "xla", "oracle")
+FUSED_IMPLS = ("kernel", "xla")
+
+
 def batched_lookup(arrays: IndexArrays, err_lo_by_seg, queries, *,
                    q_tile: int = 0, w_tile: int = 2048,
                    use_kernel: bool = True, backend: Optional[str] = None,
@@ -517,25 +543,49 @@ def batched_lookup(arrays: IndexArrays, err_lo_by_seg, queries, *,
     """Full device lookup: ``(payloads i64, slots, found, #fallbacks)``
     as host numpy arrays (payload -1 = miss).
 
-    ``backend`` picks the stage: "fused" (the fused kernel), "pallas"
-    (the legacy kernel; narrow keys — wide-key arrays route to "xla"),
-    "xla" (windowed rank / bisect in torch ops, permutation-free) or
-    "oracle" (full-array search).  Default: "pallas" when
-    ``use_kernel`` else "oracle", as in the reference.  On compaction
-    overflow the batch is re-run on the oracle stage (``_ESCAPES``
-    counts it).
+    ``backend`` takes the reference's five names with its meanings:
+
+    * "fused" — the rank-router graph in torch ops (``fused_pipeline``)
+      and the host patch of its escapes (``finish_fused_host``); the
+      fourth output counts the patched queries, and there is no oracle
+      escape;
+    * "fused-pallas" — the reference's name for the fused kernel: in
+      the port, one launch of the CUDA ``fused_lookup`` kernel (its
+      plain version for CPU tensors) and the fixup of its escapes;
+    * "pallas" — the legacy kernel (narrow keys; wide-key arrays route
+      to "xla");
+    * "xla" — windowed rank / bisect in torch ops, permutation-free;
+    * "oracle" — full-array search.
+
+    Default: "pallas" when ``use_kernel`` else "oracle", as in the
+    reference.  On compaction overflow a "fused-pallas" / "pallas" /
+    "xla" batch is re-run on the oracle stage (``_ESCAPES`` counts it).
     """
     backend = backend or ("pallas" if use_kernel else "oracle")
-    if backend not in STAGES:
+    if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     a = arrays
     if backend == "pallas" and a.key_wide:
         backend = "xla"  # the legacy kernel is narrow-only
     qh_np, ql_np = split_queries(queries, a.key_wide)
     n_q = qh_np.shape[0]
+    dev = a.device
+    if backend == "fused":
+        # one lean graph + O(#escapes) host patch; none of the kernel
+        # stages' statics below apply
+        rank_table, rank_scale, trips = _rank_router(a)
+        out, out_hi, slot, found, fbm = fused_pipeline(
+            torch.from_numpy(qh_np).to(dev), torch.from_numpy(ql_np).to(dev),
+            a.slot_key, a.slot_key_lo, a.payload, a.payload_hi,
+            a.link_offsets, a.link_keys, a.link_keys_lo, a.link_payloads,
+            a.link_payload_hi, rank_table, rank_scale, trips=trips,
+            max_chain=a.max_chain, wide=a.wide, key_wide=a.key_wide)
+        return finish_fused_host(out, out_hi, slot, found, fbm, n_q, a.wide,
+                                 queries, lambda: host_fallback_views(a))
+    stage = "fused" if backend == "fused-pallas" else backend
     if q_tile <= 0:
         q_tile = auto_q_tile(n_q, a.n_slots, w_tile)
-    tile_granular = backend in ("fused", "pallas")
+    tile_granular = stage in ("fused", "pallas")
     if tile_granular:
         qh_np = _pad_pow(qh_np, q_tile, np.float32(np.inf))
         if a.key_wide:
@@ -543,10 +593,9 @@ def batched_lookup(arrays: IndexArrays, err_lo_by_seg, queries, *,
     err_lo_np = np.asarray(err_lo_by_seg, np.float32)
     err_hi_np = (np.zeros_like(err_lo_np) if err_hi_by_seg is None
                  else np.asarray(err_hi_by_seg, np.float32))
-    flat_w = (_fused_flat_width(err_lo_np, err_hi_np) if backend == "fused"
+    flat_w = (_fused_flat_width(err_lo_np, err_hi_np) if stage == "fused"
               else _flat_width(err_lo_np, err_hi_np))
     k_pad = int(a.seg_first_key.shape[0])
-    dev = a.device
     table, scale = build_radix_router(a)
     fb_cap = int(min(qh_np.shape[0],
                      max(q_tile if tile_granular else 64,
@@ -555,11 +604,11 @@ def batched_lookup(arrays: IndexArrays, err_lo_by_seg, queries, *,
         torch.from_numpy(qh_np).to(dev), torch.from_numpy(ql_np).to(dev),
         a, _pad_bounds(err_lo_np, k_pad, dev),
         torch.from_numpy(table).to(dev), torch.from_numpy(scale).to(dev),
-        stage=backend, q_tile=q_tile, w_tile=w_tile, flat_w=flat_w,
+        stage=stage, q_tile=q_tile, w_tile=w_tile, flat_w=flat_w,
         fb_cap=fb_cap, assume_sorted=bool(queries_sorted),
         err_hi_pad=_pad_bounds(err_hi_np, k_pad, dev),
         trips=_bisect_trips(err_lo_np, err_hi_np))
-    if backend != "oracle" and overflow:
+    if stage != "oracle" and overflow:
         _ESCAPES.count += 1
         return batched_lookup(arrays, err_lo_by_seg, queries,
                               q_tile=q_tile, w_tile=w_tile,
@@ -589,15 +638,35 @@ class QueryEngine:
     oracle stage); ``last_stage`` names the stage that served the last
     call and ``last_escapes`` the escapes its first stage flagged (more
     than ``fb_cap`` when the call overflowed to the oracle stage).
+
+    ``fused_impl`` picks what serves the "fused" stage, the placement
+    and the fused ingest (the reference's switch, whose ``"pallas"`` is
+    the port's ``"kernel"``):
+
+    * ``"kernel"`` (the default, on the card and on the CPU) — the CUDA
+      ``fused_lookup`` and ``ingest_place`` kernels, their plain
+      versions for CPU tensors;
+    * ``"xla"`` — the reference's graph implementations in torch ops on
+      the arrays' device: the rank-router lookup graph with the host
+      patch of its escapes (no compaction buffer, no oracle escape),
+      ``gap_place.ingest_place_graph`` and the fused ingest over it.
+
+    Nothing selects ``"xla"`` but the caller.
     """
 
     def __init__(self, arrays: IndexArrays, err_lo_by_seg,
-                 err_hi_by_seg=None, *, w_tile: int = 2048,
+                 err_hi_by_seg=None, *, fused_impl: Optional[str] = None,
+                 w_tile: int = 2048,
                  fb_frac: float = FB_FRAC, min_bucket: int = 256,
                  xla_min_bucket: int = 8192,
                  fused_flat_max_bucket: int = 8192):
+        fused_impl = fused_impl or "kernel"
+        if fused_impl not in FUSED_IMPLS:
+            raise ValueError(f"unknown fused_impl {fused_impl!r}; "
+                             f"expected one of {FUSED_IMPLS}")
+        self.fused_impl = fused_impl
         self.arrays = arrays
-        # the fused kernel is the default; the legacy "pallas" / "xla"
+        # the fused stage is the default; the legacy "pallas" / "xla"
         # stages stay as debug / reference backends
         self.backend = "fused"
         self.w_tile = w_tile
@@ -621,12 +690,10 @@ class QueryEngine:
         table, scale = build_radix_router(arrays)
         self._radix_table = torch.from_numpy(table).to(dev)
         self._radix_scale = torch.from_numpy(scale).to(dev)
-        # bucket -> slot-rank table of the reference's fused-XLA lookup
-        # (ROADMAP A14).  The port's lookups do not read it; it is kept
-        # because the fused ingest graph refreshes it in-graph and
-        # returns it as gated state, and delta syncs refresh its rows,
-        # exactly as the reference's engine does
-        self._rank_np, rk_scale, _trips, self._rank_meta = \
+        # bucket -> slot-rank table of the fused graph (``fused_impl=
+        # "xla"``); the fused ingest refreshes it in-graph and delta
+        # syncs refresh its rows, as the reference's engine does
+        self._rank_np, rk_scale, self._rank_trips, self._rank_meta = \
             build_rank_router(
                 arrays.slot_key.cpu().numpy(),
                 arrays.slot_key_lo.cpu().numpy() if arrays.key_wide
@@ -638,6 +705,9 @@ class QueryEngine:
         # overflowed gets a larger buffer next time instead of paying
         # the oracle re-dispatch on every call
         self._cap_boost: dict = {}
+        # lazy host copies for the graph's escape patch, rebuilt when
+        # ``arrays`` is replaced
+        self._host_cache = None
         self.last_stage: Optional[str] = None
         self.last_escapes = 0
         self.stats = {"calls": 0, "fallbacks": 0, "oracle_escapes": 0,
@@ -659,6 +729,13 @@ class QueryEngine:
     def swap_arrays(self, arrays: IndexArrays) -> None:
         """Adopt delta-updated tensors (same shapes and statics)."""
         self.arrays = arrays
+
+    def _host_views(self) -> dict:
+        cached = self._host_cache
+        if cached is None or cached[0] is not self.arrays:
+            cached = (self.arrays, host_fallback_views(self.arrays))
+            self._host_cache = cached
+        return cached[1]
 
     def _upload_bounds(self, err_lo: np.ndarray, err_hi: np.ndarray):
         k_pad = int(self.arrays.seg_first_key.shape[0])
@@ -737,10 +814,11 @@ class QueryEngine:
 
     def ingest_place(self, keys):
         """Per-key §5.3 placement primitives against the frozen arrays,
-        with the escape mask (``ops_gap.ingest_place``): the CUDA
-        kernel on the card, its plain version on the CPU."""
+        with the escape mask (``ops_gap.ingest_place``): under
+        ``fused_impl="kernel"`` the CUDA kernel on the card and its
+        plain version on the CPU, under ``"xla"`` the placement graph."""
         from .ops_gap import ingest_place as _place
-        return _place(self.arrays, keys)
+        return _place(self.arrays, keys, impl=self.fused_impl)
 
     def fused_ingest(self, keys, payloads):
         """The single-dispatch ingest against the frozen arrays
@@ -753,7 +831,8 @@ class QueryEngine:
             self.arrays, keys, payloads, rank_table=self._rank_table,
             rank_bounds_hi=bh, rank_bounds_lo=bl,
             rank_scale=self._rank_scale, elo=self._elo, ehi=self._ehi,
-            max_chain=self.arrays.max_chain, min_bucket=self.min_bucket)
+            max_chain=self.arrays.max_chain, impl=self.fused_impl,
+            min_bucket=self.min_bucket)
 
     def adopt_fused_state(self, state: dict, err_lo=None,
                           err_hi=None) -> None:
@@ -824,11 +903,30 @@ class QueryEngine:
         if stage == "xla" and b < self.xla_min_bucket and not force_backend:
             stage = "oracle"  # size-aware scheduling (see __init__)
         self.last_stage = stage
+        dev = a.device
+        if stage == "fused" and self.fused_impl == "xla":
+            # one lean graph returning the escape mask; the flagged
+            # queries are patched on the host in O(#escapes), with no
+            # compaction buffer and no oracle escape
+            out, out_hi, slot, found, fbm = fused_pipeline(
+                torch.from_numpy(qp).to(dev), torch.from_numpy(qlp).to(dev),
+                a.slot_key, a.slot_key_lo, a.payload, a.payload_hi,
+                a.link_offsets, a.link_keys, a.link_keys_lo,
+                a.link_payloads, a.link_payload_hi, self._rank_table,
+                self._rank_scale, trips=self._rank_trips,
+                max_chain=a.max_chain, wide=a.wide, key_wide=a.key_wide)
+            out, slot_h, found_h, n_fb = finish_fused_host(
+                out, out_hi, slot, found, fbm, n_q, a.wide, queries,
+                self._host_views)
+            self.last_escapes = n_fb
+            self.stats["calls"] += 1
+            self.stats["fallbacks"] += n_fb
+            self.stats["buckets"].add(b)
+            return out, slot_h, found_h, n_fb
         boost = self._cap_boost.get(b, 1)
         tile_granular = stage in ("fused", "pallas")
         fb_cap = int(min(b, boost * max(q_tile if tile_granular else 64,
                                         int(np.ceil(self.fb_frac * b)))))
-        dev = a.device
         qj = torch.from_numpy(qp).to(dev)
         qlj = torch.from_numpy(qlp).to(dev)
         flat_w = (self._fused_width_for(b) if stage == "fused"

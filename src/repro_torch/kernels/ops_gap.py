@@ -6,7 +6,8 @@ Counterpart of ``repro.kernels.ops_gap`` (``prepare_gap_tables``,
 ``gap_positions_device``, ``gap_positions_oracle``, ``ingest_place``,
 ``FUSED_ABORT_BITS``, ``fused_ingest``).  Each runs on its device
 through the kernels of ``gap_place`` (the CUDA kernel on the card, its
-plain version on the CPU) and hands host numpy results back.
+plain version on the CPU; the placement graph for ``impl="xla"``) and
+hands host numpy results back.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 from ..device import resolve_device
 from .freeze import _pad_pow, _split_i64, split_key_pair
 from .gap_place import (fused_ingest_body, gap_place,
-                        ingest_place as _place, split_flags)
+                        ingest_place as _place, ingest_place_graph,
+                        split_flags)
 
 __all__ = ["prepare_gap_tables", "gap_positions_device",
            "gap_positions_oracle", "ingest_place", "fused_ingest",
@@ -108,7 +110,13 @@ def _prims(p, pv, ub, free, bracket, n_b: int) -> dict:
             "bracket": np.array(host(bracket), dtype=bool)}
 
 
-def ingest_place(arrays, keys):
+def _check_impl(impl: str) -> None:
+    if impl not in ("kernel", "xla"):
+        raise ValueError(f"unknown impl {impl!r}; expected 'kernel' or "
+                         "'xla'")
+
+
+def ingest_place(arrays, keys, *, impl: str = "kernel"):
     """Per-key placement primitives of an insert batch against the
     frozen arrays: ``(primitives, escape)``, where ``primitives`` is the
     numpy dict ``GappedArray.insert_batch`` consumes (``p`` / ``free`` /
@@ -117,9 +125,15 @@ def ingest_place(arrays, keys):
     whose double-f32 prediction landed in the rounding-band guard (the
     caller re-derives those rows on the host).
 
+    ``impl="kernel"`` launches the ingest-place kernel (its plain
+    version for CPU tensors); ``"xla"`` runs ``ingest_place_graph`` over
+    the unpadded batch on the arrays' device, as the reference's
+    ``_ingest_place_xla`` does.
+
     Exactness needs every stored and batch key pair-exact (the ``Index``
     handle gates on it); narrow indexes pass zero-length lo tables.
     """
+    _check_impl(impl)
     keys = np.asarray(keys, np.float64)
     x_hi, x_lo = split_key_pair(keys)
     a = arrays
@@ -128,12 +142,16 @@ def ingest_place(arrays, keys):
     if int(link_hi.shape[0]) == 0:  # a non-empty chain table to read
         link_hi = torch.full((1,), float("inf"), device=dev)
         link_lo = torch.zeros(1 if a.key_wide else 0, device=dev)
-    p, pv, ub, flags = _place(
-        torch.from_numpy(x_hi).to(dev), torch.from_numpy(x_lo).to(dev),
-        a.seg_first_key, a.seg_first_key_lo, a.seg_slope, a.seg_slope_lo,
-        a.seg_icept, a.seg_icept_lo, a.slot_key, a.slot_key_lo,
-        a.link_offsets, link_hi, link_lo, n_slots=a.n_slots)
-    free, bracket, escape = split_flags(flags)
+    args = (torch.from_numpy(x_hi).to(dev), torch.from_numpy(x_lo).to(dev),
+            a.seg_first_key, a.seg_first_key_lo, a.seg_slope,
+            a.seg_slope_lo, a.seg_icept, a.seg_icept_lo, a.slot_key,
+            a.slot_key_lo, a.link_offsets, link_hi, link_lo)
+    if impl == "kernel":
+        p, pv, ub, flags = _place(*args, n_slots=a.n_slots)
+        free, bracket, escape = split_flags(flags)
+    else:
+        p, pv, ub, free, bracket, escape = ingest_place_graph(
+            *args, n_slots=a.n_slots)
     n_b = keys.shape[0]
     return (_prims(p, pv, ub, free, bracket, n_b),
             np.array(escape.cpu().numpy(), dtype=bool))
@@ -141,10 +159,12 @@ def ingest_place(arrays, keys):
 
 def fused_ingest(arrays, keys, payloads, *, rank_table, rank_bounds_hi,
                  rank_bounds_lo, rank_scale, elo, ehi, max_chain,
-                 min_bucket: int = 256):
+                 impl: str = "kernel", min_bucket: int = 256):
     """Single-dispatch ingest: pads the batch to a power-of-two bucket
-    (+inf keys, -1 payloads), runs ``fused_ingest_body`` and returns
-    ``(prims, escape, ok, reasons, state)``:
+    (+inf keys, -1 payloads), runs ``fused_ingest_body`` (stage 1 on the
+    ingest-place kernel for ``impl="kernel"``, on
+    ``ingest_place_graph`` for ``"xla"``) and returns ``(prims, escape,
+    ok, reasons, state)``:
 
     * ``prims`` / ``escape`` — the ``ingest_place`` contract, valid
       whether or not the graph committed;
@@ -154,6 +174,7 @@ def fused_ingest(arrays, keys, payloads, *, rank_table, rank_bounds_hi,
       rank table, window bounds), the slot and chain counts, and the
       host ``seg`` / ``dlt`` residuals for the caller's bound mirrors.
     """
+    _check_impl(impl)
     keys = np.asarray(keys, np.float64)
     payloads = np.asarray(payloads, np.int64)
     n_b = keys.shape[0]
@@ -182,7 +203,8 @@ def fused_ingest(arrays, keys, payloads, *, rank_table, rank_bounds_hi,
         a.slot_key, slot_lo, a.payload, spay_hi, a.link_offsets,
         a.link_keys, link_lo, a.link_payloads, lpay_hi, rank_table,
         rank_bounds_hi, rank_bounds_lo, rank_scale, elo, ehi,
-        n_slots=a.n_slots, max_chain=int(max_chain), key_wide=a.key_wide)
+        n_slots=a.n_slots, max_chain=int(max_chain), key_wide=a.key_wide,
+        use_kernel=impl == "kernel")
     (p, pv, ub, free, bracket, escape, ok, reasons, n_slot, n_chain,
      seg, dlt) = outs[:12]
     (slot_key, slot_key_lo, payload, payload_hi, link_offsets, link_keys,

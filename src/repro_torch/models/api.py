@@ -1,0 +1,162 @@
+"""Unified model API: one object per architecture family.
+
+The counterpart of ``repro.models.api``.  ``build_model(cfg)`` returns
+a :class:`Model` exposing:
+
+  param_specs / init_params(generator, device)
+  param_count / active_param_count
+  loss_fn(params, batch, constrain)           -> scalar
+  prefill_fn(params, batch, cache, constrain) -> (logits, cache)   [if any]
+  decode_fn(params, batch, cache, idx, constrain) -> (logits, cache)
+  init_caches(batch, max_len, device)         -> the reference's layouts
+  input_sample(shape, generator, device)      -> a real batch
+
+for the ``lm``, ``vlm`` and ``encdec`` families.  ``zamba`` and
+``xlstm`` wait for ROADMAP A13b; ``abstract_params``, ``logical_axes``,
+``cache_specs`` and ``input_specs`` serve the dry run and partitioning
+(A13d-e) and wait with them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig, ShapeConfig
+from ..device import resolve_device
+from . import base as _base
+from . import encdec as _encdec
+from . import lm as _lm
+from . import vlm as _vlm
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    _specs: Any
+    loss_fn: Callable
+    decode_fn: Optional[Callable] = None
+    prefill_fn: Optional[Callable] = None
+    init_caches: Optional[Callable] = None
+
+    def param_specs(self):
+        return self._specs
+
+    def _leaves(self):
+        out = []
+        _base.map_specs(lambda path, p: out.append((path, p)), self._specs)
+        return out
+
+    def init_params(self, generator: torch.Generator, device=None):
+        """Random params (``base.init_params``) on ``device`` (cuda
+        unless ``"cpu"``), drawn from ``generator`` on its device."""
+        return _base.init_params(self._specs, generator,
+                                 resolve_device(device))
+
+    def param_count(self) -> int:
+        return sum(int(np.prod(p.shape)) for _, p in self._leaves())
+
+    def active_param_count(self) -> int:
+        """6*N*D accounting for MoE: routed-expert share scaled by top_k/E."""
+        total = 0
+        for path, p in self._leaves():
+            n = int(np.prod(p.shape))
+            if (self.cfg.moe and "moe" in path
+                    and path[-1] in ("w_gate", "w_up", "w_down")):
+                n = n * self.cfg.moe.top_k // self.cfg.moe.n_experts
+            total += n
+        return total
+
+    # ------------------------------------------------------------------
+    def _input_shapes(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Name -> (shape, dtype) of a batch of ``shape`` (the
+        reference's ``input_specs`` without JAX)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": ((B, 1), torch.int32)}
+        if shape.kind not in ("train", "prefill"):
+            raise KeyError(shape.kind)
+        batch = {"tokens": ((B, S), torch.int32)}
+        if shape.kind == "train":
+            batch["labels"] = ((B, S), torch.int32)
+        if cfg.arch == "encdec":
+            batch["frames"] = ((B, cfg.n_frontend_tokens, cfg.d_model),
+                               torch.bfloat16)
+        if cfg.arch == "vlm":
+            batch["patches"] = ((B, cfg.n_frontend_tokens, cfg.d_frontend),
+                                torch.bfloat16)
+        return batch
+
+    def input_sample(self, shape: ShapeConfig, generator: torch.Generator,
+                     device=None) -> Dict[str, Any]:
+        """A real batch: token ids uniform below ``vocab``, embeddings
+        standard normal, drawn from ``generator`` on its device."""
+        dev = resolve_device(device)
+        gdev = generator.device
+        out = {}
+        for name, (shp, dtype) in self._input_shapes(shape).items():
+            if dtype == torch.int32:
+                t = torch.randint(0, self.cfg.vocab, shp, generator=generator,
+                                  device=gdev, dtype=torch.int64)
+            else:
+                t = torch.randn(shp, generator=generator, device=gdev,
+                                dtype=torch.float32)
+            out[name] = t.to(device=dev, dtype=dtype)
+        return out
+
+
+def _encdec_caches(cfg, batch, max_len, device=None):
+    """The reference's enc-dec layout: stacked self-KV ``(L, B, KV, T,
+    Dh)`` and a zero cross-KV ``(L, B, KV, F, Dh)``, bf16."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv, max_len, cfg.head_dim_)
+    cross = (cfg.n_layers, batch, cfg.n_kv, cfg.n_frontend_tokens,
+             cfg.head_dim_)
+    z = lambda s: torch.zeros(s, dtype=torch.bfloat16, device=dev)  # noqa: E731
+    return {"k": z(shape), "v": z(shape), "ck": z(cross), "cv": z(cross)}
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.arch == "lm":
+        return Model(
+            cfg=cfg,
+            _specs=_lm.param_specs(cfg),
+            loss_fn=lambda p, b, c=None: _lm.loss_fn(p, b, cfg, c),
+            prefill_fn=lambda p, b, cache, c=None: _lm.prefill(
+                p, b["tokens"], cache, cfg, c),
+            decode_fn=lambda p, b, cache, idx, c=None: _lm.decode_step(
+                p, b["tokens"], cache, idx, cfg, c),
+            init_caches=lambda batch, max_len, device=None: _lm.init_kv_cache(
+                cfg, batch, max_len, device=device),
+        )
+    if cfg.arch == "vlm":
+        return Model(
+            cfg=cfg,
+            _specs=_vlm.param_specs(cfg),
+            loss_fn=lambda p, b, c=None: _vlm.loss_fn(p, b, cfg, c),
+            prefill_fn=lambda p, b, cache, c=None: _vlm.prefill(
+                p, b, cache, cfg, c),
+            decode_fn=lambda p, b, cache, idx, c=None: _vlm.decode_step(
+                p, b["tokens"], cache, idx, cfg, c),
+            init_caches=lambda batch, max_len, device=None:
+                _vlm.init_kv_cache(cfg, batch, max_len, device=device),
+        )
+    if cfg.arch == "encdec":
+        return Model(
+            cfg=cfg,
+            _specs=_encdec.param_specs(cfg),
+            loss_fn=lambda p, b, c=None: _encdec.loss_fn(p, b, cfg, c),
+            decode_fn=lambda p, b, cache, idx, c=None: _encdec.decode_step(
+                p, b["tokens"], cache, idx, cfg, c),
+            init_caches=lambda batch, max_len, device=None: _encdec_caches(
+                cfg, batch, max_len, device),
+        )
+    if cfg.arch in ("zamba", "xlstm"):
+        raise NotImplementedError(
+            f"the {cfg.arch} family ({cfg.name}) is not in the port yet: "
+            "ROADMAP A13b (zamba / Mamba-2 and xLSTM decode)")
+    raise KeyError(cfg.arch)

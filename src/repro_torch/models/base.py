@@ -1,0 +1,306 @@
+"""Functional model substrate: parameter specs and the shared layers.
+
+The counterpart of ``repro.models.base``.  Params are plain nested
+dicts of torch tensors with the reference's nesting, leaf names and
+shapes, so a reference param tree carries across leaf for leaf
+(``convert.model_params_from_reference``).  Every parameter is declared
+as a :class:`P` spec carrying shape, logical axes, dtype and init
+scale; the axes are kept for the partitioning item that reads them
+(ROADMAP A13d) and are not used here.
+
+The layers are plain functions over those dicts, written op for op
+after the reference, with the places where the numerics of torch and
+JAX part named where they are handled:
+
+* **dtype promotion** — JAX promotes bf16 x f32 to f32 inside
+  ``einsum``; ``torch.einsum`` and ``matmul`` raise on mixed dtypes, so
+  ``mm`` and ``einsum`` below cast both operands to
+  ``torch.promote_types`` first (the reference's bf16 caches meet an
+  f32 ``q`` when the params are f32);
+* **the cache write** — ``jax.lax.dynamic_update_slice`` clamps its
+  start so that the update fits; the port clamps to
+  ``min(cache_index, T - S)``;
+* **the token gather** — ``jnp.take`` clamps out-of-range ids where
+  torch indexing raises; the serving engine's tokens are always below
+  ``vocab`` (prompt tokens are reduced modulo ``vocab``, sampled ones
+  are argmax / draws over the real vocabulary), so no clamp is needed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+__all__ = ["P", "Params", "init_params", "map_specs", "padded_vocab",
+           "rms_norm", "rope", "attention_specs", "gqa_attention",
+           "mlp_specs", "mlp", "softmax_xent", "causal_additive_mask",
+           "mm", "einsum", "layer_slice"]
+
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    """Parameter spec: shape + logical axes (+dtype, init scale)."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    dtype: torch.dtype = torch.bfloat16
+    scale: float = 1.0  # stddev multiplier over 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in rank")
+
+
+def map_specs(fn, tree, path: Tuple[str, ...] = ()):
+    """``fn(path, spec)`` over every ``P`` of a nested dict, keys in
+    sorted order (the order JAX flattens a dict in)."""
+    if isinstance(tree, P):
+        return fn(path, tree)
+    return {k: map_specs(fn, tree[k], path + (k,)) for k in sorted(tree)}
+
+
+def init_params(spec_tree, generator: torch.Generator,
+                device=None) -> Params:
+    """Random params by the reference's rule: ``std = scale /
+    sqrt(fan_in)`` with ``fan_in`` the second-to-last dim (the last for
+    1-d), zeros for 0-d.  The normals are drawn in f32 from
+    ``generator`` on its own device, then cast to the spec dtype and
+    moved to ``device`` (the generator's device when None).  They do
+    not match JAX's random numbers; parity tests carry the reference's
+    params across instead."""
+    gdev = generator.device
+    dev = gdev if device is None else torch.device(device)
+
+    def one(_path, p: P):
+        if len(p.shape) == 0:
+            return torch.zeros(p.shape, dtype=p.dtype, device=dev)
+        fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+        std = p.scale / math.sqrt(max(fan_in, 1))
+        w = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                        device=gdev) * std
+        return w.to(device=dev, dtype=p.dtype)
+
+    return map_specs(one, spec_tree)
+
+
+def layer_slice(tree, i: int):
+    """Layer ``i`` of a stacked ``(L, ...)`` param (or cache) tree."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# dtype promotion (JAX promotes mixed float operands; torch raises)
+# ---------------------------------------------------------------------------
+
+
+def mm(a, b):
+    """``a @ b`` with JAX's promotion of mixed float dtypes."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def einsum(eq: str, *ops):
+    """``jnp.einsum`` with JAX's promotion of mixed float dtypes."""
+    dt = ops[0].dtype
+    for t in ops[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return torch.einsum(eq, *[t.to(dt) for t in ops])
+
+
+# ---------------------------------------------------------------------------
+# layers (pure functions over param dicts)
+# ---------------------------------------------------------------------------
+
+
+VOCAB_PAD = 256
+
+
+def padded_vocab(vocab: int) -> int:
+    """Vocab rounded up to a multiple of ``VOCAB_PAD``; the padded
+    logit columns are masked to -1e30 in ``lm.logits_fn``."""
+    return -(-vocab // VOCAB_PAD) * VOCAB_PAD
+
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    """RMS norm in f32, scaled by ``1 + weight`` (zero-init weights are
+    the identity), cast back to ``x``'s dtype."""
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + weight.float())).to(dtype)
+
+
+def rope(x, positions, theta: float = 10_000.0):
+    """Rotary embedding.  x: (..., S, H, Dh), positions: (..., S).  The
+    frequencies are f32, ``theta ** (-arange(half) / half)``, as in the
+    reference; the rotation runs in f32 (bf16 x f32 promotes, as in
+    JAX) and is cast back to ``x``'s dtype."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angles = positions[..., :, None].float() * freq  # (..., S, half)
+    angles = angles[..., None, :]  # broadcast over heads
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def attention_specs(d_model, n_heads, n_kv, head_dim, qkv_bias=False):
+    s = {
+        "wq": P((d_model, n_heads, head_dim), ("embed", "heads", None)),
+        "wk": P((d_model, n_kv, head_dim), ("embed", "kv", None)),
+        "wv": P((d_model, n_kv, head_dim), ("embed", "kv", None)),
+        "wo": P((n_heads, head_dim, d_model), ("heads", None, "embed")),
+    }
+    if qkv_bias:
+        s["bq"] = P((n_heads, head_dim), ("heads", None))
+        s["bk"] = P((n_kv, head_dim), ("kv", None))
+        s["bv"] = P((n_kv, head_dim), ("kv", None))
+    return s
+
+
+def gqa_attention(
+    params,
+    x,                      # (B, S, D)
+    positions,              # (B, S)
+    *,
+    causal: bool = True,
+    rope_theta: float = 10_000.0,
+    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_index: Optional[int] = None,  # #valid cache entries
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    attn_mask: Optional[torch.Tensor] = None,  # additive (B, S, T)
+):
+    """Grouped-query attention with optional KV cache / cross-attention.
+
+    Returns ``(out (B, S, D), new_kv or None)``.  Cache layout
+    ``(B, KV, T, Dh)``.  The new keys and values are written INTO the
+    cache tensors, which are returned as ``new_kv`` (the reference
+    returns an updated copy; every caller here replaces its cache by
+    the returned one, so the values are the same).  This is plain torch:
+    the reference computes attention in XLA, outside any Pallas kernel.
+    """
+    B, S, D = x.shape
+    q = einsum("bsd,dhk->bshk", x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"]
+    if kv_override is not None:
+        k, v = kv_override
+        new_kv = None
+    else:
+        k = einsum("bsd,dhk->bshk", x, params["wk"])
+        v = einsum("bsd,dhk->bshk", x, params["wv"])
+        if "bk" in params:
+            k = k + params["bk"]
+            v = v + params["bv"]
+        k = rope(k, positions, rope_theta)
+        k = k.transpose(1, 2)  # (B, KV, S, Dh)
+        v = v.transpose(1, 2)
+        if kv_cache is not None:
+            ck, cv = kv_cache
+            # dynamic_update_slice clamps its start so the update fits
+            start = max(0, min(int(cache_index), ck.shape[2] - S))
+            ck[:, :, start:start + S] = k  # copy_ casts to the cache dtype
+            cv[:, :, start:start + S] = v
+            k, v = ck, cv
+        new_kv = (k, v)
+    q = rope(q, positions, rope_theta)
+
+    n_heads = q.shape[2]
+    n_kv = k.shape[1]
+    group = n_heads // n_kv
+    T = k.shape[2]
+    # the softmax scale is folded into q before the scores, as in the
+    # reference (its f32 product rounded back to q's dtype); kept in
+    # this explicit form: scaled_dot_product_attention would change the
+    # numerics
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qh = (q.float() * scale).to(q.dtype)
+    qh = qh.reshape(B, S, n_kv, group, -1)
+    scores = einsum("bsngk,bntk->bngst", qh, k).float()
+
+    if attn_mask is not None:
+        scores = scores + attn_mask[:, None, None, :, :]
+    else:
+        # mask[b, s_query, t_key]; positions are ABSOLUTE (shared w/ RoPE)
+        key_pos = torch.arange(T, device=x.device)
+        if kv_cache is not None:
+            valid = key_pos[None, None, :] < (int(cache_index) + S)
+            if causal:
+                mask = valid & (key_pos[None, None, :]
+                                <= positions[:, :, None])
+            else:
+                mask = valid.expand(B, S, T)
+        elif causal:
+            mask = positions[:, None, :] <= positions[:, :, None]
+        else:
+            mask = None
+        if mask is not None:
+            scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
+    # f32 probabilities, cast back to x's dtype before the second product
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = einsum("bngst,bntk->bsngk", probs, v)
+    out = out.reshape(B, S, n_heads, -1)
+    out = einsum("bshk,hkd->bsd", out, params["wo"])
+    return out, new_kv
+
+
+def mlp_specs(d_model, d_ff, gated=True):
+    if gated:
+        return {
+            "w_gate": P((d_model, d_ff), ("embed", "ffn")),
+            "w_up": P((d_model, d_ff), ("embed", "ffn")),
+            "w_down": P((d_ff, d_model), ("ffn", "embed")),
+        }
+    return {
+        "w_up": P((d_model, d_ff), ("embed", "ffn")),
+        "w_down": P((d_ff, d_model), ("ffn", "embed")),
+    }
+
+
+def mlp(params, x):
+    """SwiGLU when gated, else GELU — ``jax.nn.gelu``'s default is the
+    tanh approximation, so ``approximate="tanh"``."""
+    if "w_gate" in params:
+        h = F.silu(mm(x, params["w_gate"])) * mm(x, params["w_up"])
+    else:
+        h = F.gelu(mm(x, params["w_up"]), approximate="tanh")
+    return mm(h, params["w_down"])
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean CE over valid tokens; logits (..., V) f32-upcast."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(),
+                                dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def causal_additive_mask(positions, T: Optional[int] = None,
+                         cache_index=None, S: Optional[int] = None):
+    """Additive f32 mask, built once per forward (hoisted out of the
+    layers): 0 where a query may attend, -1e30 elsewhere."""
+    if T is None:
+        mask = positions[:, None, :] <= positions[:, :, None]
+    else:
+        key_pos = torch.arange(T, device=positions.device)
+        valid = key_pos[None, None, :] < (int(cache_index) + S)
+        mask = valid & (key_pos[None, None, :] <= positions[:, :, None])
+    zero = torch.zeros((), dtype=torch.float32, device=positions.device)
+    return torch.where(mask, zero, torch.full_like(zero, -1e30))

@@ -1,0 +1,196 @@
+"""Decoder-only LM: dense GQA or MoE FFN, the layer stack, KV-cache serving.
+
+The counterpart of ``repro.models.lm``.  Covers granite-moe-1b-a400m,
+kimi-k2-1t-a32b, yi-9b, internlm2-1.8b, minicpm-2b and qwen1.5-32b,
+and serves as the text backbone of internvl2-2b (``vlm.py``).
+
+The layer params stay stacked ``(L, ...)`` as in the reference, and a
+Python loop indexes them (the reference's ``lax.scan`` computes the
+same layers in the same order).  ``cfg.remat`` is ignored: there is no
+backward pass in this package.  ``constrain(tensor, logical_axes)`` is
+the reference's sharding hook, the identity here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from ..device import resolve_device
+from . import moe as _moe
+from .base import (
+    P,
+    attention_specs,
+    causal_additive_mask,
+    einsum,
+    gqa_attention,
+    layer_slice,
+    map_specs,
+    mlp,
+    mlp_specs,
+    padded_vocab,
+    rms_norm,
+    softmax_xent,
+)
+
+
+def _identity(t, axes):
+    return t
+
+
+def _stack_specs(layer_specs: Dict[str, Any], n_layers: int):
+    """Prefix every per-layer spec with a stacked ('layers') axis."""
+    return map_specs(
+        lambda _path, p: P((n_layers, *p.shape), ("layers", *p.axes),
+                           p.dtype, p.scale),
+        layer_specs)
+
+
+def layer_specs(cfg):
+    head_dim = cfg.head_dim or cfg.d_model // cfg.n_heads
+    s = {
+        "ln_attn": P((cfg.d_model,), ("embed",)),
+        "ln_mlp": P((cfg.d_model,), ("embed",)),
+        "attn": attention_specs(cfg.d_model, cfg.n_heads, cfg.n_kv, head_dim,
+                                cfg.qkv_bias),
+    }
+    if cfg.moe is not None:
+        s["moe"] = _moe.moe_specs(cfg.d_model, cfg.moe.d_ff_expert,
+                                  cfg.moe.n_experts)
+    else:
+        s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff)
+    return s
+
+
+def param_specs(cfg):
+    vp = padded_vocab(cfg.vocab)
+    specs = {
+        "embed": P((vp, cfg.d_model), ("vocab", "embed"), scale=1.0),
+        "ln_f": P((cfg.d_model,), ("embed",)),
+        "layers": _stack_specs(layer_specs(cfg), cfg.n_layers),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P((cfg.d_model, vp), ("embed", "vocab"))
+    return specs
+
+
+def _layer_fwd(cfg, constrain, lp, x, positions, kv_cache=None,
+               cache_index=None, attn_mask=None):
+    """One transformer layer.  Returns (x, new_kv)."""
+    h, new_kv = gqa_attention(
+        lp["attn"], rms_norm(x, lp["ln_attn"]), positions,
+        causal=True, rope_theta=cfg.rope_theta,
+        kv_cache=kv_cache, cache_index=cache_index, attn_mask=attn_mask,
+    )
+    x = constrain(x + h, ("batch", None, "embed"))
+    h2 = rms_norm(x, lp["ln_mlp"])
+    if cfg.moe is not None:
+        if cfg.moe_impl == "ep" and getattr(constrain, "mesh", None):
+            # the reference's shard_map expert parallelism needs a mesh,
+            # which arrives with the partitioning item (ROADMAP A13d)
+            raise NotImplementedError(
+                "moe_impl='ep' over a mesh waits for ROADMAP A13d")
+        h2 = _moe.moe_gspmd(lp["moe"], h2, top_k=cfg.moe.top_k,
+                            capacity_factor=cfg.moe.capacity_factor,
+                            constrain=constrain)
+    else:
+        h2 = mlp(lp["mlp"], h2)
+    return constrain(x + h2, ("batch", None, "embed")), new_kv
+
+
+def _positions(B: int, S: int, device):
+    return torch.arange(S, device=device)[None, :].expand(B, S)
+
+
+def forward(params, tokens, cfg, constrain=None, *, embedded=None):
+    """Training/prefill-style forward (no cache).  Returns hidden (B,S,D)."""
+    constrain = constrain or _identity
+    x = params["embed"][tokens] if embedded is None else embedded
+    x = constrain(x, ("batch", None, "embed"))
+    B, S = x.shape[0], x.shape[1]
+    positions = _positions(B, S, x.device)
+    attn_mask = causal_additive_mask(positions)  # hoisted out of layers
+    for i in range(cfg.n_layers):
+        x, _ = _layer_fwd(cfg, constrain, layer_slice(params["layers"], i),
+                          x, positions, attn_mask=attn_mask)
+    return rms_norm(x, params["ln_f"])
+
+
+def logits_fn(params, hidden, cfg, constrain=None):
+    constrain = constrain or _identity
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = einsum("bsd,dv->bsv", hidden, head)
+    vp = head.shape[-1]
+    if vp != cfg.vocab:  # mask padded vocab columns out of the softmax
+        cols = torch.arange(vp, device=logits.device)
+        pad_mask = torch.where(cols < cfg.vocab, 0.0, -1e30)
+        logits = logits + pad_mask.to(logits.dtype)
+    return constrain(logits, ("batch", None, "vocab"))
+
+
+def loss_fn(params, batch, cfg, constrain=None):
+    """Next-token CE (the value).  batch: {tokens (B,S), labels (B,S),
+    mask}."""
+    hidden = forward(params, batch["tokens"], cfg, constrain)
+    logits = logits_fn(params, hidden, cfg, constrain)
+    return softmax_xent(logits, batch["labels"], batch.get("mask"))
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill builds the cache, decode appends one token
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                  device=None):
+    """Per-layer cache tuple of ``{"k", "v"}``, each ``(B, KV, T, Dh)``
+    zeros on ``device`` (cuda unless ``"cpu"``)."""
+    dev = resolve_device(device)
+    head_dim = cfg.head_dim or cfg.d_model // cfg.n_heads
+    shape = (batch, cfg.n_kv, max_len, head_dim)
+    return tuple({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                  "v": torch.zeros(shape, dtype=dtype, device=dev)}
+                 for _ in range(cfg.n_layers))
+
+
+def _cached_stack(params, cfg, constrain, x, positions, cache, cache_index):
+    """The layer stack threading the per-layer KV caches (tuple of
+    dicts), each layer writing its keys and values into its cache."""
+    out = []
+    for i in range(cfg.n_layers):
+        c = cache[i]
+        x, (nk, nv) = _layer_fwd(cfg, constrain,
+                                 layer_slice(params["layers"], i), x,
+                                 positions, kv_cache=(c["k"], c["v"]),
+                                 cache_index=cache_index)
+        out.append({"k": nk, "v": nv})
+    return x, tuple(out)
+
+
+def prefill(params, tokens, cache, cfg, constrain=None, *, embedded=None):
+    """Prefill: runs the full prompt, fills cache.  Returns (logits_last,
+    cache).  tokens: (B, S)."""
+    constrain = constrain or _identity
+    x = params["embed"][tokens] if embedded is None else embedded
+    x = constrain(x, ("batch", None, "embed"))
+    B, S = x.shape[0], x.shape[1]
+    positions = _positions(B, S, x.device)
+    x, cache = _cached_stack(params, cfg, constrain, x, positions, cache, 0)
+    hidden = rms_norm(x[:, -1:], params["ln_f"])
+    return logits_fn(params, hidden, cfg, constrain)[:, 0], cache
+
+
+def decode_step(params, tokens, cache, cache_index, cfg, constrain=None):
+    """One decode step.  tokens: (B, 1); cache_index: int (#valid).
+    Returns (logits (B, V), cache)."""
+    constrain = constrain or _identity
+    x = params["embed"][tokens]
+    x = constrain(x, ("batch", None, "embed"))
+    B = x.shape[0]
+    positions = torch.full((B, 1), int(cache_index), dtype=torch.long,
+                           device=x.device)
+    x, cache = _cached_stack(params, cfg, constrain, x, positions, cache,
+                             cache_index)
+    hidden = rms_norm(x, params["ln_f"])
+    return logits_fn(params, hidden, cfg, constrain)[:, 0], cache

@@ -1,0 +1,61 @@
+"""InternVL2-2B: stub InternViT frontend + InternLM2-2B text backbone.
+
+The counterpart of ``repro.models.vlm``.  The vision tower is a STUB as
+in the reference: the batch carries precomputed patch embeddings
+(B, n_patches, d_frontend); only the MLP projector (2-layer, as in
+InternVL) and the LM backbone are real.  Patch tokens are prepended to
+the text sequence; the loss is computed on the text positions only.
+Decoding after the prefill is the LM's ``decode_step``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import lm as _lm
+from .base import P, mm, rms_norm, softmax_xent
+
+
+def param_specs(cfg):
+    specs = _lm.param_specs(cfg)
+    specs["projector"] = {
+        "ln": P((cfg.d_frontend,), (None,)),
+        "w1": P((cfg.d_frontend, cfg.d_model), (None, "embed")),
+        "w2": P((cfg.d_model, cfg.d_model), ("embed", "embed")),
+    }
+    return specs
+
+
+def _project(params, patches):
+    p = params["projector"]
+    h = rms_norm(patches, p["ln"])
+    return mm(F.gelu(mm(h, p["w1"]), approximate="tanh"), p["w2"])
+
+
+def _embed(params, batch):
+    """Projected patches (cast to bf16, as the reference does) followed
+    by the text embeddings; ``torch.cat`` promotes as
+    ``jnp.concatenate`` does."""
+    vis = _project(params, batch["patches"]).to(torch.bfloat16)
+    txt = params["embed"][batch["tokens"]]
+    return vis, torch.cat([vis, txt], dim=1)
+
+
+def loss_fn(params, batch, cfg, constrain=None):
+    """batch: patches (B,P,Dv), tokens (B,S), labels (B,S)."""
+    vis, x = _embed(params, batch)
+    hidden = _lm.forward(params, None, cfg, constrain, embedded=x)
+    n_p = vis.shape[1]
+    logits = _lm.logits_fn(params, hidden[:, n_p:], cfg, constrain)
+    return softmax_xent(logits, batch["labels"], batch.get("mask"))
+
+
+def prefill(params, batch, cache, cfg, constrain=None):
+    """Multimodal prefill: patches + prompt tokens fill the cache."""
+    _vis, x = _embed(params, batch)
+    return _lm.prefill(params, None, cache, cfg, constrain, embedded=x)
+
+
+decode_step = _lm.decode_step          # text-only decode after prefill
+init_kv_cache = _lm.init_kv_cache

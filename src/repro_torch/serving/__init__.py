@@ -28,11 +28,13 @@ the port's ``Index``:
 modules.  All of it serves a ``dist.ShardedIndex`` as well: the pipeline
 pins a ``ShardedSnapshot``, the queue's flush is one fan-out lookup,
 and ``recover_index`` restores a sharded checkpoint directory.
-``kv_cache.PagedKVCache`` is the paged-KV block table over the index.
+``kv_cache.PagedKVCache`` is the paged-KV block table over the index,
+and ``engine.ServingEngine`` the LLM decode loop over it: one batched
+page lookup a round through a ``MicroBatchQueue``.
 """
 
 from ..core.results import Overloaded
-from .engine import MicroBatchQueue
+from .engine import MicroBatchQueue, Request, ServingEngine
 from .pipeline import EpochPipeline, IndexSnapshot, pin_index
 from .wal import IngestWAL, WALRecord, recover_index, replay
 
@@ -42,6 +44,8 @@ __all__ = [
     "IngestWAL",
     "MicroBatchQueue",
     "Overloaded",
+    "Request",
+    "ServingEngine",
     "WALRecord",
     "pin_index",
     "recover_index",

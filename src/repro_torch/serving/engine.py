@@ -1,6 +1,26 @@
-"""Cross-caller batch aggregation for index calls (``MicroBatchQueue``).
+"""The decode loop over the learned-index block table
+(``ServingEngine``) and cross-caller batch aggregation for index calls
+(``MicroBatchQueue``).
 
-Small index calls are dominated by fixed per-call host overhead
+``ServingEngine`` is the reference's ``repro.serving.engine``
+scheduler: FIFO admission up to ``max_batch`` concurrent requests; each
+round decodes one token for every active request (static batch slots,
+padded).  The paged KV block table is the gapped learned index
+(``kv_cache.PagedKVCache``): every round resolves the current page of
+each active request with ONE batched lookup through a
+``MicroBatchQueue`` (padded to its 512-query bucket, so one
+fused-lookup kernel launch on the card) and allocates the misses in
+one batch.  What is kept as the reference has it, by design: one
+``cache_index`` for every slot, no prefill of the prompt (decoding
+starts from the prompt's last token), the coalesced admission
+``alloc_batch``, ``free_request`` on completion, and the final
+``kv_*`` stats.  The model step is the eager ``model.decode_fn`` (the
+reference jits it).  Sampling at ``temperature > 0`` draws with a
+``torch.Generator`` seeded by the round, which cannot reproduce
+``jax.random.categorical``'s draws; ``temperature <= 0`` is argmax,
+exact against the reference.
+
+``MicroBatchQueue``: small index calls are dominated by fixed per-call host overhead
 (argument preparation, the kernel launch, the result copy back), so the
 queue amortizes that overhead across CALLERS instead of across keys:
 
@@ -14,9 +34,7 @@ queue amortizes that overhead across CALLERS instead of across keys:
   ``LookupResult``/``IngestReport`` slices.
 
 The class is the reference's ``repro.serving.engine.MicroBatchQueue``,
-unchanged (tests/test_torch_freeze.py holds its syntax tree equal);
-the decode loop of that module (``Request``, ``ServingEngine``) and the
-paged KV cache are not ported yet (ROADMAP.md queue A, items A12-A13).
+unchanged (tests/test_torch_freeze.py holds its syntax tree equal).
 
 The ``max_wait_ms`` deadline flush runs on a daemon timer thread, so a
 flush launches the CUDA kernels from that thread: each launch takes the
@@ -32,13 +50,27 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Optional
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..core.results import Overloaded
+from ..device import resolve_device
+from ..models import Model
+from .kv_cache import _PAGE_SHIFT, PagedKVCache
 
-__all__ = ["MicroBatchQueue"]
+__all__ = ["MicroBatchQueue", "Request", "ServingEngine"]
+
+
+@dataclasses.dataclass
+class Request:
+    request_id: int
+    prompt: np.ndarray
+    max_new_tokens: int = 16
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    slot: int = -1
 
 
 class MicroBatchQueue:
@@ -322,3 +354,127 @@ class MicroBatchQueue:
         only takes the lock and returns when nothing is pending)."""
         with self._lock:
             self._cancel_deadline()
+
+
+class ServingEngine:
+    """Continuous-batching decode over the learned-index block table (see
+    the module doc).  ``device`` (cuda unless ``"cpu"``) holds the
+    caches and the block table's device state; ``load`` takes params on
+    that device."""
+
+    def __init__(self, model: Model, max_batch: int = 4,
+                 max_len: int = 256, page_size: int = 16,
+                 temperature: float = 0.0, device=None):
+        self.model = model
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.temperature = temperature
+        self.device = resolve_device(device)
+        self.params = None
+        self.caches = None
+        self.cache_index = 0
+        self.kv_pages = PagedKVCache.create(
+            n_pages=max_batch * (max_len // page_size + 1),
+            page_size=page_size, expected_requests=max_batch * 4,
+            device=self.device)
+        self.queue: List[Request] = []
+        self.active: Dict[int, Request] = {}
+        # cross-caller aggregation over the block-table index: one
+        # lookup a round for all concurrent requests' pages
+        self.aggregator = MicroBatchQueue(self.kv_pages.index)
+        self.stats = {"decoded_tokens": 0, "rounds": 0, "page_lookups": 0}
+        self._decode = model.decode_fn
+
+    def load(self, params):
+        self.params = params
+        self.caches = self.model.init_caches(self.max_batch, self.max_len,
+                                             device=self.device)
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _admit(self):
+        free_slots = [s for s in range(self.max_batch)
+                      if s not in {r.slot for r in self.active.values()}]
+        rids, pages = [], []
+        while self.queue and free_slots:
+            req = self.queue.pop(0)
+            req.slot = free_slots.pop(0)
+            self.active[req.request_id] = req
+            n_pages = len(req.prompt) // self.kv_pages.page_size + 1
+            rids.append(np.full(n_pages, req.request_id, np.int64))
+            pages.append(np.arange(n_pages, dtype=np.int64))
+        if rids:
+            # ONE coalesced prompt allocation for every request admitted
+            # this round
+            self.kv_pages.alloc_batch(np.concatenate(rids),
+                                      np.concatenate(pages))
+
+    def _sample(self, logits: np.ndarray) -> np.ndarray:
+        if self.temperature <= 0:
+            return np.argmax(logits, axis=-1)
+        gen = torch.Generator().manual_seed(self.stats["rounds"])
+        probs = torch.softmax(torch.from_numpy(logits) / self.temperature,
+                              dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0].numpy()
+
+    def step(self):
+        """One decode round for all active requests."""
+        self._admit()
+        if not self.active:
+            return
+        tokens = np.zeros((self.max_batch, 1), np.int64)
+        for req in self.active.values():
+            last = (req.generated[-1] if req.generated
+                    else int(req.prompt[-1]) % self.model.cfg.vocab)
+            tokens[req.slot, 0] = last
+        # resolve the current page of every active request via the index:
+        # ONE batched lookup for the whole round, then one batched alloc
+        # for the misses
+        rids = np.array([r.request_id for r in self.active.values()])
+        pages = np.array([
+            (len(r.prompt) + len(r.generated)) // self.kv_pages.page_size
+            for r in self.active.values()])
+        ticket = self.aggregator.submit_lookup(
+            ((rids.astype(np.int64) << _PAGE_SHIFT)
+             | pages.astype(np.int64)).astype(np.float64))
+        self.aggregator.flush()
+        known = np.asarray(
+            self.aggregator.result(ticket).payloads).astype(np.int64)
+        miss = known < 0
+        if np.any(miss):
+            self.kv_pages.alloc_batch(rids[miss], pages[miss])
+        self.stats["page_lookups"] += len(rids)
+
+        logits, self.caches = self._decode(
+            self.params,
+            {"tokens": torch.from_numpy(tokens).to(self.device)},
+            self.caches, self.cache_index)
+        self.cache_index = min(self.cache_index + 1, self.max_len - 1)
+        nxt = self._sample(logits.float().cpu().numpy())
+        for req in list(self.active.values()):
+            tok = int(nxt[req.slot])
+            req.generated.append(tok)
+            self.stats["decoded_tokens"] += 1
+            if len(req.generated) >= req.max_new_tokens:
+                req.done = True
+                self.kv_pages.free_request(
+                    req.request_id,
+                    (len(req.prompt) + len(req.generated))
+                    // self.kv_pages.page_size + 1)
+                del self.active[req.request_id]
+        self.stats["rounds"] += 1
+
+    def run_until_done(self, max_rounds: int = 1000):
+        t0 = time.perf_counter()
+        while (self.queue or self.active) and self.stats["rounds"] < max_rounds:
+            self.step()
+        self.stats["wall_s"] = time.perf_counter() - t0
+        # block-table health: epoch distance covered by delta updates vs
+        # full refreezes (the Index handle's device sync)
+        idx = self.kv_pages.index
+        self.stats["kv_epoch"] = idx.epoch
+        self.stats["kv_delta_updates"] = idx.stats["delta_updates"]
+        self.stats["kv_refreezes"] = idx.stats["refreezes"]
+        return self.stats

@@ -1,8 +1,9 @@
 """The port's host build and freeze equal the reference's, array for
 array: the verbatim core copies (and the verbatim serving, robustness
 and data copies, with ``MicroBatchQueue`` held by its syntax tree),
-the copied numpy freeze/sizing helpers, and whole builds at sample_rate 1.0 and 0.01 with equal
-seeds.  Inputs are made with numpy from a seed and handed to both."""
+the copied numpy freeze/sizing helpers, the copied ``configs/``, and
+whole builds at sample_rate 1.0 and 0.01 with equal seeds.  Inputs are
+made with numpy from a seed and handed to both."""
 
 import ast
 from pathlib import Path
@@ -21,6 +22,8 @@ COPIED = ("links", "mechanisms", "sampling", "gaps", "results", "mdl",
 COPIED_OUTSIDE_CORE = ("robustness/__init__.py", "robustness/faults.py",
                        "serving/pipeline.py", "data/__init__.py",
                        "data/token_store.py", "data/pipeline.py")
+CONFIG_FILES = tuple(sorted(
+    p.name for p in (ROOT / "src" / "repro" / "configs").glob("*.py")))
 
 
 @pytest.mark.parametrize("name", COPIED)
@@ -35,6 +38,21 @@ def test_serving_and_robustness_copies_are_verbatim(path):
     ref = (ROOT / "src" / "repro" / path).read_bytes()
     port = (ROOT / "src" / "repro_torch" / path).read_bytes()
     assert port == ref
+
+
+@pytest.mark.parametrize("name", CONFIG_FILES)
+def test_config_copies_are_verbatim(name):
+    """``configs/`` is copied byte for byte: the package, ``base.py``
+    and the ten architecture files."""
+    ref = (ROOT / "src" / "repro" / "configs" / name).read_bytes()
+    port = (ROOT / "src" / "repro_torch" / "configs" / name).read_bytes()
+    assert port == ref
+
+
+def test_config_copies_cover_the_reference():
+    port = sorted(p.name for p in
+                  (ROOT / "src" / "repro_torch" / "configs").glob("*.py"))
+    assert port == list(CONFIG_FILES) and len(CONFIG_FILES) == 12
 
 
 def _class_tree(path, name):

@@ -744,3 +744,98 @@ def test_grouped_fused_lookup_launches_once_per_touched_shard():
     assert fused_lookup.launches - n0 == touched
     for f in ("payloads", "slots", "found"):
         assert np.array_equal(getattr(want, f), getattr(got, f)), f
+
+
+@pytest.mark.gpu
+def test_reduced_decode_on_the_card_equals_the_cpu():
+    """The decode path at a reduced depth in f32 (TF32 off, f32 caches):
+    prefill and two decode steps of ``reduced(internlm2-1.8b)`` give the
+    CPU's logits on the card within 1e-4 (sums in another order), with
+    equal argmax; and a ``ServingEngine`` on the card (bf16 caches, as
+    served) generates the CPU engine's tokens at temperature 0, its
+    page lookups one ``fused_lookup`` launch a round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+    cfg = reduced(ARCHS["internlm2-1.8b"])
+    model = build_model(cfg)
+    from repro_torch.models import lm
+
+    def tree_to(t, **kw):
+        if isinstance(t, dict):
+            return {k: tree_to(v, **kw) for k, v in t.items()}
+        return t.to(**kw)
+
+    p_cpu = tree_to(model.init_params(torch.Generator().manual_seed(1),
+                                      "cpu"), dtype=torch.float32)
+    p_gpu = tree_to(p_cpu, device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (3, 9)))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        for prm, dev in ((p_cpu, "cpu"), (p_gpu, "cuda")):
+            cache = lm.init_kv_cache(cfg, 3, 32, dtype=torch.float32,
+                                     device=dev)
+            lg, cache = model.prefill_fn(prm, {"tokens": tok[:, :7].to(dev)},
+                                         cache)
+            seq = [lg.float().cpu()]
+            for i in (7, 8):
+                lg, cache = model.decode_fn(
+                    prm, {"tokens": tok[:, i:i + 1].to(dev)}, cache, i)
+                seq.append(lg.float().cpu())
+            outs.append(seq)
+        for a, b in zip(*outs):
+            assert float((a - b).abs().max()) <= 1e-4
+            assert torch.equal(a.argmax(-1), b.argmax(-1))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+    gen = []
+    for prm, dev in ((p_cpu, "cpu"), (p_gpu, "cuda")):
+        eng = ServingEngine(model, max_batch=4, max_len=64, device=dev)
+        eng.load(prm)
+        rng = np.random.default_rng(3)
+        reqs = [Request(request_id=r, prompt=rng.integers(
+            0, cfg.vocab, rng.integers(4, 24), dtype=np.int32),
+            max_new_tokens=6) for r in range(1, 9)]
+        for r in reqs:
+            eng.submit(r)
+        launches = fused_lookup.launches
+        stats = eng.run_until_done()
+        gen.append([r.generated for r in reqs])
+        if dev == "cuda":
+            assert fused_lookup.launches - launches == stats["rounds"]
+    assert gen[0] == gen[1]
+
+
+@pytest.mark.gpu
+def test_xla_engine_on_the_card_equals_the_kernel_engine():
+    """``QueryEngine(fused_impl="xla")`` on the card (the rank-router
+    graph in torch ops, no kernel launch) answers as the kernel engine
+    does, and its placement primitives equal the kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for seed, span in ((0, 2 ** 22), (2, 2 ** 40)):
+        idx, q = _index(seed, span)
+        eng = idx.sync_device()
+        xeng = ops.QueryEngine(eng.arrays, eng.err_lo, eng.err_hi,
+                               fused_impl="xla", w_tile=eng.w_tile)
+        launches = fused_lookup.launches
+        got = xeng.lookup(q)
+        assert fused_lookup.launches == launches
+        want = eng.lookup(q)
+        for g, w in zip(got[:3], want[:3]):
+            assert np.array_equal(np.asarray(g), np.asarray(w))
+        assert xeng.last_stage == "fused"
+        keys = np.setdiff1d(np.floor(np.random.default_rng(seed).uniform(
+            q.min(), q.max(), 3000)), q)
+        place = gap_place.ingest_place.launches
+        (gp, ge), (kp, ke) = xeng.ingest_place(keys), eng.ingest_place(keys)
+        assert gap_place.ingest_place.launches == place + 1
+        assert np.array_equal(ge, ke)
+        for f in gp:
+            assert np.array_equal(gp[f], kp[f]), f
