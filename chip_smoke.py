@@ -8,10 +8,11 @@
 Drives ``repro_torch``'s main paths — build, freeze, batched lookups,
 the §5.3 write path, device Eq. 3, the legacy lookup backends, the
 range-sharded index, the serving stack, the index's consumers and LLM
-decode serving over the learned-index block table — on the card, and
-holds each hand-written CUDA kernel against its plain torch version.
-Prints one JSON line per phase (they run in the order 1-9, 11, 10, 12,
-13: phase 11 reuses the read phase's keys and index):
+decode serving over the learned-index block table (a transformer, a
+Mamba-2 hybrid, an xLSTM) — on the card, and holds each hand-written
+CUDA kernel against its plain torch version.  Prints one JSON line per
+phase (they run in the order 1-9, 11, 10, 12, 13, 14: phase 11 reuses
+the read phase's keys and index):
 
 1. environment and kernel build (one nvcc per source, in parallel, into
    build/repro_torch/);
@@ -179,7 +180,27 @@ Prints one JSON line per phase (they run in the order 1-9, 11, 10, 12,
    the 65 tokens (atol 1e-3, equal argmax), the bf16 differences
    printed; the first two layers on the card against the CPU in f32;
    and ``fused_lookup`` against its plain version at the last round's
-   bucket.
+   bucket;
+14. recurrent decode serving: the same run (``serve_decode``: 64
+   requests x 64 new tokens, 32 slots, ``max_len`` 512, bf16 params
+   from ``--seed``, every round's page lookup against the host map, the
+   block table against a host-only replay, ``decode`` lines) over
+   zamba2-1.2b (configs/zamba2_1_2b.py: 38 Mamba-2 layers, d_model
+   2048, 32 SSM heads of 128, state 64, one shared attention block of
+   width 4096 after every 6th layer, d_ff 8192, vocabulary 32,000;
+   1.19B params, 1.47 GB of decode state) and xlstm-125m
+   (configs/xlstm_125m.py: 12 blocks, the 8th an sLSTM, d_model 768,
+   4 heads, vocabulary 50,304; 0.20B params, 0.83 GB of f32 matrix
+   memories), each at full width and depth; the step's byte bound
+   counts the weights and the whole decode state read once and the
+   state a step rewrites.  Then each model's numerics in f32 (TF32
+   off, batch 2 x 64 tokens, ``conditioned`` params): the chunked
+   ``forward`` against 64 ``decode_step``s from zero caches at every
+   position (atol 1e-3, equal argmax), the bf16 and as-drawn
+   differences printed, and the first layers that run every block kind
+   (zamba's first 6, one shared block; xLSTM's first 8, its sLSTM) on
+   the card against the CPU; ``fused_lookup`` against its plain version
+   at each run's bucket.
 
 Scale: SOSD's key sets (Marcus et al., Benchmarking Learned Indexes,
 VLDB 2020) hold 200M keys; the read phase cuts that to 32M so the host
@@ -197,9 +218,10 @@ size, where the fused ingest is admitted, and so does phase 11's
 durability run.  Phase 11 cuts the read index into 8 shards of about
 4.6M slots, each under the placement gate; its writes are cut to 8
 batches by the time limit (each costs a host partition and a delta
-diff per touched shard, and the host replay as much again).  Phase 13
-serves the config at full width and depth; its traffic (64 x 64
-tokens through 32 slots, 128 rounds) is sized to stay near two minutes.
+diff per touched shard, and the host replay as much again).  Phases 13
+and 14 serve their configs at full width and depth; their traffic (64 x
+64 tokens through 32 slots, 128 rounds) is sized to keep each near a
+minute or two.  Nothing was cut for phase 14.
 
 Every kernel timing reports ``ms`` (CUDA events around 20 back-to-back
 wrapper calls, over the count: host and device together),
@@ -220,6 +242,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2998,8 +3021,14 @@ def tree_leaves(tree):
 
 
 def tree_map(fn, tree):
+    """``fn`` over the tensors of a tree of dicts, tuples and
+    NamedTuples (param trees and caches)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        leaves = (tree_map(fn, v) for v in tree)
+        return (type(tree)(*leaves) if hasattr(tree, "_fields")
+                else tuple(leaves))
     return fn(tree)
 
 
@@ -3138,21 +3167,63 @@ def replay_block_table(ops, n_pages):
     return kv
 
 
-def conditioned(params, cfg):
+def conditioned(params):
     """The same draws with the attention projections rescaled to std
-    1/sqrt(their contraction size).  The reference's init rule takes
-    ``fan_in = shape[-2]``, which for ``wq``/``wk``/``wv`` (d_model,
-    heads, head_dim) is the head count and for ``wo`` the head size: the
-    scores come out ~sqrt(d_model / heads) times too large, the softmax
-    saturates, and at full depth the random-init model is chaotic (a
-    small change of the inputs grows layer by layer), so two evaluation
-    orders of one f32 function part by O(logits)."""
-    a = dict(params["layers"]["attn"])
-    for k in ("wq", "wk", "wv"):
-        a[k] = a[k] * (a[k].shape[-2] / cfg.d_model) ** 0.5
-    a["wo"] = a["wo"] * (a["wo"].shape[-2]
-                         / (cfg.n_heads * cfg.head_dim_)) ** 0.5
-    return {**params, "layers": {**params["layers"], "attn": a}}
+    1/sqrt(their contraction size), Mamba-2's per-head SSM vectors set
+    by its own recipe and the mLSTM gate projections zeroed.
+
+    * Attention: the LM's stacked ``layers.attn`` and zamba's
+      ``shared_attn.attn`` (contraction 2·d_model).  The reference's
+      init rule takes ``fan_in = shape[-2]``, which for
+      ``wq``/``wk``/``wv`` (d, heads, head_dim) is the head count and
+      for ``wo`` the head size: the scores come out ~sqrt(d / heads)
+      times too large and the softmax saturates.
+    * Mamba-2 (zamba's ``mamba_layers.ssm``): the rule draws ``A_log``,
+      ``dt_bias`` and ``D`` as N(0, 1/heads) weights, so dt = softplus(
+      ~N(0, 1)) is ~0.7, the state forgets in a step or two and the
+      block's output is cubic in its input (``(c·b) dt x``); Mamba-2
+      initialises A uniform in [1, 16], dt log-uniform in [1e-3, 1e-1]
+      (``dt_bias`` its inverse softplus) and D = 1 (Dao & Gu 2024,
+      arXiv:2405.21060), drawn here from a generator seeded 0.
+    * mLSTM (xLSTM's ``blocks.b*.cell.w_if``): drawn, the exponential
+      input gate and the forget gate swing by O(1) from token to token;
+      the xLSTM reference implementation zero-initialises both gate
+      projections (arXiv:2405.04517; its gate biases, which this model
+      does not have, set the rest), so here i = 0 and f = sigmoid(0).
+
+    As drawn, each of these makes the random-init model chaotic at full
+    depth (a one-ulp change of the inputs grows layer by layer), so two
+    evaluation orders of one f32 function part by far more than their
+    roundings."""
+    out = dict(params)
+    for top in ("layers", "shared_attn"):
+        if top not in params or "attn" not in params[top]:
+            continue
+        a = dict(params[top]["attn"])
+        for k in ("wq", "wk", "wv"):   # (..., d, heads, head_dim)
+            a[k] = a[k] * (a[k].shape[-2] / a[k].shape[-3]) ** 0.5
+        wo = a["wo"]                   # (..., heads, head_dim, d)
+        a["wo"] = wo * (wo.shape[-2] / (wo.shape[-3] * wo.shape[-2])) ** 0.5
+        out[top] = {**params[top], "attn": a}
+    if "mamba_layers" in params:
+        s = dict(params["mamba_layers"]["ssm"])
+        shape, dev = s["A_log"].shape, s["A_log"].device
+        g = torch.Generator().manual_seed(0)
+        a_init = 1.0 + 15.0 * torch.rand(shape, generator=g)
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        dt = torch.exp(lo + (hi - lo) * torch.rand(shape, generator=g))
+        s["A_log"] = torch.log(a_init).to(device=dev, dtype=s["A_log"].dtype)
+        s["dt_bias"] = (dt + torch.log(-torch.expm1(-dt))).to(
+            device=dev, dtype=s["dt_bias"].dtype)
+        s["D"] = torch.ones_like(s["D"])
+        out["mamba_layers"] = {**params["mamba_layers"], "ssm": s}
+    if "blocks" in params:
+        out["blocks"] = {
+            k: ({**b, "cell": {**b["cell"],
+                               "w_if": torch.zeros_like(b["cell"]["w_if"])}}
+                if "w_if" in b["cell"] else b)
+            for k, b in params["blocks"].items()}
+    return out
 
 
 def decode_numerics(model, params, smi) -> dict:
@@ -3202,10 +3273,10 @@ def decode_numerics(model, params, smi) -> dict:
         p32 = tree_map(lambda t: t.float(), params)
         drawn = {"f32": diffs(run(p32, torch.float32, CARD)),
                  "bf16": diffs(run(params, torch.bfloat16, CARD))}
-        c32 = conditioned(p32, cfg)
+        c32 = conditioned(p32)
         del p32
         f32 = diffs(run(c32, torch.float32, CARD))
-        bf16 = diffs(run(conditioned(params, cfg), torch.bfloat16, CARD))
+        bf16 = diffs(run(conditioned(params), torch.bfloat16, CARD))
         if not (f32["prefill_vs_forward"] <= DECODE_ATOL
                 and f32["decode_vs_forward"] <= DECODE_ATOL
                 and f32["argmax_equal"]):
@@ -3237,20 +3308,40 @@ def decode_numerics(model, params, smi) -> dict:
     return out
 
 
-def phase_decode(rng, seed, smi, profile=False) -> dict:
-    """Phase 13: ``ServingEngine`` over internlm2-1.8b at full width and
-    depth (bf16 params from ``seed``) on the card, 64 requests x 64 new
-    tokens through 32 slots; every round's page lookup held against the
-    block table's host map, the block table at the end against a
-    host-only replay, the model's numerics against ``forward``, and
-    ``fused_lookup`` against its plain version at the block table's
-    shapes after the counts were read."""
+def step_written_bytes(cfg, caches) -> int:
+    """Bytes of decode state a step must write: the LM's new key and
+    value in every layer; zamba's whole SSM caches (conv window and
+    state are rewritten) and the shared block's new key and value at
+    every application; every xLSTM cache (the matrix memories, the
+    normalisers and stabilisers are rewritten)."""
+    if cfg.arch == "xlstm":
+        return tree_bytes(caches)
+    if cfg.arch == "zamba":
+        kv = caches["k"]
+        return (tree_bytes(caches["ssm"])
+                + 2 * kv.shape[0] * kv.shape[1] * kv.shape[2]
+                * kv.shape[4] * kv.element_size())
+    kv = caches[0]["k"]
+    return (2 * len(caches) * kv.shape[0] * kv.shape[1] * kv.shape[3]
+            * kv.element_size())
+
+
+def serve_decode(rng, seed, smi, arch, profile=False) -> tuple:
+    """``ServingEngine`` over ``arch`` at full width and depth (bf16
+    params from ``seed``) on the card, ``DECODE_REQUESTS`` x
+    ``DECODE_NEW`` tokens through ``DECODE_BATCH`` slots; every round's
+    page lookup held against the block table's host map, the block
+    table at the end against a host-only replay, and ``fused_lookup``
+    against its plain version at the block table's shapes after the
+    counts were read.  Emits ``decode_setup`` and ``decode`` (and
+    ``decode_profile`` with ``profile``); returns (result, model,
+    params)."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.gap_place import ingest_place
     from repro_torch.kernels.lookup import fused_lookup
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
-    cfg = ARCHS[DECODE_ARCH]
+    cfg = ARCHS[arch]
     model = build_model(cfg)
     t0 = time.perf_counter()
     gen = torch.Generator(device=CARD).manual_seed(seed)
@@ -3261,15 +3352,16 @@ def phase_decode(rng, seed, smi, profile=False) -> dict:
                            max_len=DECODE_LEN, page_size=DECODE_PAGE,
                            temperature=0.0, device=CARD)
     engine.load(params)
-    w_bytes, kv_bytes = tree_bytes(params), tree_bytes(engine.caches)
-    emit("decode_setup", card=smi, arch=cfg.name, layers=cfg.n_layers,
-         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv,
-         d_ff=cfg.d_ff, vocab=cfg.vocab,
+    w_bytes, state_bytes = tree_bytes(params), tree_bytes(engine.caches)
+    written = step_written_bytes(cfg, engine.caches)
+    emit("decode_setup", card=smi, arch=cfg.name, family=cfg.arch,
+         layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+         kv_heads=cfg.n_kv, d_ff=cfg.d_ff, vocab=cfg.vocab,
          padded_vocab=int(params["embed"].shape[0]),
          params=model.param_count(), weight_bytes=w_bytes,
-         kv_cache_bytes=kv_bytes, init_seconds=init_s,
-         max_batch=DECODE_BATCH, max_len=DECODE_LEN, page_size=DECODE_PAGE,
-         block_table_pages=engine.kv_pages.n_pages)
+         decode_state_bytes=state_bytes, step_written_bytes=written,
+         init_seconds=init_s, max_batch=DECODE_BATCH, max_len=DECODE_LEN,
+         page_size=DECODE_PAGE, block_table_pages=engine.kv_pages.n_pages)
     reqs = decode_requests(rng, cfg.vocab, DECODE_REQUESTS)
     for r in reqs:
         engine.submit(r)
@@ -3295,32 +3387,36 @@ def phase_decode(rng, seed, smi, profile=False) -> dict:
     # checks
     n_tok = DECODE_REQUESTS * DECODE_NEW
     if stats["decoded_tokens"] != n_tok or not all(r.done for r in reqs):
-        raise AssertionError(f"decoded {stats['decoded_tokens']} of "
-                             f"{n_tok} tokens")
+        raise AssertionError(f"{arch}: decoded {stats['decoded_tokens']} "
+                             f"of {n_tok} tokens")
     if not probe.logits_finite or not 0 <= probe.max_token < cfg.vocab:
-        raise AssertionError("non-finite logits or a token past vocab")
+        raise AssertionError(f"{arch}: non-finite logits or a token past "
+                             "vocab")
     if any(not 0 <= t < cfg.vocab for r in reqs for t in r.generated):
-        raise AssertionError("a generated token is past vocab")
+        raise AssertionError(f"{arch}: a generated token is past vocab")
     if launches["fused_lookup"] != stats["rounds"]:
-        raise AssertionError(f"{launches['fused_lookup']} fused_lookup "
-                             f"launches for {stats['rounds']} rounds")
+        raise AssertionError(f"{arch}: {launches['fused_lookup']} "
+                             f"fused_lookup launches for {stats['rounds']} "
+                             "rounds")
     replay = replay_block_table(probe.ops, engine.kv_pages.n_pages)
     kv = engine.kv_pages
     if (replay.allocated != kv.allocated
             or replay.free_pages != kv.free_pages):
-        raise AssertionError("the block table differs from its replay")
+        raise AssertionError(f"{arch}: the block table differs from its "
+                             "replay")
     assert_same_state(kv.index.gapped, replay.index.gapped, "decode")
     if replay.index.epoch != kv.index.epoch:
-        raise AssertionError(f"block-table epoch {kv.index.epoch} against "
-                             f"{replay.index.epoch} replayed")
+        raise AssertionError(f"{arch}: block-table epoch {kv.index.epoch} "
+                             f"against {replay.index.epoch} replayed")
 
     # the kernel at the block table's shapes, after the counts were read
-    _a, _s, _g, lookup_err = kernel_case("decode_block_table", kv.index,
-                                         probe.last_bucket)
+    _a, _s, _g, lookup_err = kernel_case(f"decode_block_table_{arch}",
+                                         kv.index, probe.last_bucket)
     rounds = stats["rounds"]
     wall = stats["wall_s"]
-    bound_ms = (w_bytes + kv_bytes) / H100_BYTES_PER_S * 1e3
+    bound_bytes = w_bytes + state_bytes + written
     out = {
+        "arch": cfg.name,
         "requests": DECODE_REQUESTS, "new_tokens": DECODE_NEW,
         "decoded_tokens": stats["decoded_tokens"], "rounds": rounds,
         "wall_seconds": wall, "tokens_per_second": n_tok / wall,
@@ -3333,8 +3429,8 @@ def phase_decode(rng, seed, smi, profile=False) -> dict:
         "alloc_ms_p99": pct(probe.alloc_s, 99) * 1e3,
         "sampling_ms_p50": pct(probe.sample_s, 50) * 1e3,
         "sampling_ms_p99": pct(probe.sample_s, 99) * 1e3,
-        "step_byte_bound_ms": bound_ms,
-        "step_bound_bytes": w_bytes + kv_bytes,
+        "step_byte_bound_ms": bound_bytes / H100_BYTES_PER_S * 1e3,
+        "step_bound_bytes": bound_bytes,
         "launches": launches,
         "page_lookups": stats["page_lookups"],
         "lookup_bucket": int(probe.last_bucket.size),
@@ -3345,7 +3441,9 @@ def phase_decode(rng, seed, smi, profile=False) -> dict:
         "block_table_equals_host_replay": True,
         "fused_lookup_max_abs_err": lookup_err,
     }
-    emit("decode", card=smi, **out, kernel_vs_plain=TOL)
+    emit("decode", card=smi, **out, kernel_vs_plain=TOL,
+         bound="weights + the whole decode state read once + the state a "
+               "step writes, at 3.35 TB/s")
     if profile:
         for r in decode_requests(rng, cfg.vocab, DECODE_BATCH,
                                  first_id=DECODE_REQUESTS + 1):
@@ -3356,14 +3454,151 @@ def phase_decode(rng, seed, smi, profile=False) -> dict:
         def eight_rounds():
             for _ in range(8):
                 engine.step()
-        traced(eight_rounds, smi, "decode_profile", rounds=8)
-        emit("decode_profile_launches", card=smi,
+        traced(eight_rounds, smi, "decode_profile", arch=cfg.name, rounds=8)
+        emit("decode_profile_launches", card=smi, arch=cfg.name,
              fused_lookup_per_round=(fused_lookup.launches - n0) / 8)
     del engine, probe
+    return out, model, params
+
+
+def phase_decode(rng, seed, smi, profile=False) -> dict:
+    """Phase 13: ``serve_decode`` over internlm2-1.8b, then the model's
+    numerics (``decode_numerics``)."""
+    out, model, params = serve_decode(rng, seed, smi, DECODE_ARCH, profile)
     out["numerics"] = decode_numerics(model, params, smi)
     del params
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: recurrent decode serving (Mamba-2 + shared attention, xLSTM)
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ("zamba2-1.2b", "xlstm-125m")   # configs/, full size
+
+
+def first_group(cfg, params):
+    """The config and params cut to the first layers that run every
+    block kind: zamba's first ``attn_every`` Mamba layers (one
+    shared-block application, ``attn_every`` as configured), xLSTM's
+    first ``SLSTM_EVERY`` blocks (its sLSTM is block 7)."""
+    import dataclasses
+
+    from repro_torch.models import xlstm_lm
+    if cfg.arch == "zamba":
+        n = min(cfg.attn_every, cfg.n_layers)
+        cut = {**params, "mamba_layers": tree_map(
+            lambda t: t[:n].contiguous(), params["mamba_layers"])}
+    else:
+        n = min(xlstm_lm.SLSTM_EVERY, cfg.n_layers)
+        cut = {**params, "blocks": {f"b{i}": params["blocks"][f"b{i}"]
+                                    for i in range(n)}}
+    return dataclasses.replace(cfg, n_layers=n), cut
+
+
+def recurrent_numerics(model, params, smi) -> dict:
+    """The recurrent model at full width and depth, ``DECODE_CHECK_B`` x
+    ``DECODE_CHECK_S`` tokens: the chunked ``forward`` over the S tokens
+    against S ``decode_step``s (the sequential recurrence) from zero
+    caches, at every position.  In f32 (TF32 off, f32 caches) on the
+    ``conditioned`` params within ``DECODE_ATOL`` with equal argmax at
+    every position; the same differences printed for the conditioned
+    params in bf16 (the served cache dtypes) and for the drawn params in
+    f32; then ``first_group`` of the conditioned params, the card
+    against the CPU in f32."""
+    from repro_torch.models import build_model, lm, xlstm_lm, zamba
+    cfg = model.cfg
+    fwd = zamba.forward if cfg.arch == "zamba" else xlstm_lm.forward
+    B, S = DECODE_CHECK_B, DECODE_CHECK_S
+    g = torch.Generator(device="cpu").manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=g)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def run(prm, cache_dtype, dev, cfg_=cfg):
+        m = model if cfg_ is cfg else build_model(cfg_)
+        tok = tokens.to(dev)
+        v = cfg_.vocab   # the real vocabulary (padded columns are -1e30)
+        hidden, _ = fwd(prm, tok, cfg_)
+        full = lm.logits_fn(prm, hidden, cfg_)[..., :v].float().cpu()
+        caches = m.init_caches(B, S, device=dev)   # the served dtypes
+        if cache_dtype is not None:
+            caches = tree_map(lambda c: c.to(cache_dtype), caches)
+        dec = []
+        for t in range(S):
+            lg, caches = m.decode_fn(prm, {"tokens": tok[:, t:t + 1]},
+                                     caches, t)
+            dec.append(lg[:, :v].float().cpu())
+        return full, torch.stack(dec, dim=1)
+
+    def diffs(r):
+        full, dec = r
+        return {"sequential_vs_chunked": float((dec - full).abs().max()),
+                "argmax_equal": bool(torch.equal(dec.argmax(-1),
+                                                 full.argmax(-1))),
+                "argmax_equal_share": float(
+                    (dec.argmax(-1) == full.argmax(-1)).float().mean()),
+                "logit_scale": float(full.abs().max())}
+
+    try:
+        p32 = tree_map(lambda t: t.float(), params)
+        drawn = {"f32": diffs(run(p32, torch.float32, CARD))}
+        c32 = conditioned(p32)
+        del p32
+        f32 = diffs(run(c32, torch.float32, CARD))
+        bf16 = diffs(run(conditioned(params), None, CARD))
+        if not (f32["sequential_vs_chunked"] <= DECODE_ATOL
+                and f32["argmax_equal"]):
+            raise AssertionError(f"{cfg.name}: f32 chunked vs sequential "
+                                 f"numerics: {f32}")
+        cfg2, p2 = first_group(cfg, c32)
+        del c32
+        gpu2 = run(p2, torch.float32, CARD, cfg2)
+        cpu2 = run(tree_map(lambda t: t.cpu(), p2), torch.float32, "cpu",
+                   cfg2)
+        del p2
+        card_vs_cpu = max(float((a - b).abs().max())
+                          for a, b in zip(gpu2, cpu2))
+        if card_vs_cpu > DECODE_ATOL:
+            raise AssertionError(f"{cfg.name}: {cfg2.n_layers}-layer f32 "
+                                 f"logits differ between the card and the "
+                                 f"CPU by {card_vs_cpu}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.backends.cudnn.allow_tf32 = tf32[1]
+        torch.cuda.empty_cache()
+    out = {"arch": cfg.name, "batch": B, "seq": S, "atol": DECODE_ATOL,
+           "f32": f32, "bf16": bf16, "drawn_params": drawn,
+           "first_group_layers": cfg2.n_layers,
+           "first_group_card_vs_cpu_f32": card_vs_cpu}
+    emit("decode_numerics", card=smi, **out,
+         params="the served draws conditioned (chip_smoke.conditioned: "
+                "zamba's shared-block attention rescaled to std "
+                "1/sqrt(contraction size), Mamba-2's A_log / dt_bias / D "
+                "by its recipe; xLSTM's mLSTM gate projections zeroed); "
+                "drawn_params: the draws as served, unchecked")
+    return out
+
+
+def phase_recurrent(rng, seed, smi, profile=False) -> dict:
+    """Phase 14: ``serve_decode`` over each of ``RECURRENT_ARCHS``, then
+    its chunked-vs-sequential numerics (``recurrent_numerics``).
+    Returns the per-config results and their summed launches."""
+    per = {}
+    for arch in RECURRENT_ARCHS:
+        out, model, params = serve_decode(rng, seed, smi, arch, profile)
+        out["numerics"] = recurrent_numerics(model, params, smi)
+        del params
+        torch.cuda.empty_cache()
+        per[arch] = out
+    return {"per_arch": per,
+            "launches": {k: sum(o["launches"][k] for o in per.values())
+                         for k in ("fused_lookup", "ingest_place")},
+            "fused_lookup_max_abs_err": max(
+                o["fused_lookup_max_abs_err"] for o in per.values())}
 
 
 def main() -> int:
@@ -3445,6 +3680,7 @@ def main() -> int:
     serve = phase_serve(rng, args.seed, smi, args.serve_keys)
     consumers = phase_consumers(rng, args.seed, smi)
     decode = phase_decode(rng, args.seed, smi, args.profile)
+    recurrent = phase_recurrent(rng, args.seed, smi, args.profile)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the run")
 
@@ -3452,7 +3688,8 @@ def main() -> int:
     # phases 10-12's kernel-vs-plain checks at their own shapes
     later_vs_plain = [serve["kernel_vs_plain"], shard["kernel_vs_plain"],
                       *consumers["kernel_vs_plain"].values()]
-    decode_lookup_err = decode["fused_lookup_max_abs_err"]
+    decode_lookup_err = max(decode["fused_lookup_max_abs_err"],
+                            recurrent["fused_lookup_max_abs_err"])
 
     def times(row):
         return {k: row[k] for k in ("ms", "device_ms", "graph_ms", "host_us",
@@ -3467,14 +3704,16 @@ def main() -> int:
         # the read path, the write phases' lookup checks, the serving
         # stack's live lookups and its lookups after recovery, the
         # sharded index's grouped path and shard durability, the
-        # consumers' lookups, the decode loop's page lookups
+        # consumers' lookups, the decode loops' page lookups (phases 13
+        # and 14)
         "launches": (main_res["launches"]
                      + fused_res["launches"]["fused_lookup"]
                      + two_res["launches"]["fused_lookup"]
                      + serve["launches"]["fused_lookup"]
                      + shard["launches"]["fused_lookup"]
                      + consumers["launches"]["fused_lookup"]
-                     + decode["launches"]["fused_lookup"]),
+                     + decode["launches"]["fused_lookup"]
+                     + recurrent["launches"]["fused_lookup"]),
         "max_abs_err": max([b["max_abs_err"]
                             for b in main_res["per_batch"].values()]
                            + [r["fused_lookup_max_abs_err"]
@@ -3491,7 +3730,8 @@ def main() -> int:
                      + serve["launches"]["ingest_place"]
                      + shard["launches"]["ingest_place"]
                      + consumers["launches"]["ingest_place"]
-                     + decode["launches"]["ingest_place"]),
+                     + decode["launches"]["ingest_place"]
+                     + recurrent["launches"]["ingest_place"]),
         "max_abs_err": max([place_timing["max_abs_err"]]
                            + [r["ingest_place_max_abs_err"]
                               for r in later_vs_plain]),
@@ -3555,7 +3795,15 @@ def main() -> int:
              "model_step_ms_p50", "page_lookup_ms_p50", "alloc_ms_p50",
              "sampling_ms_p50", "step_byte_bound_ms", "launches")},
          decode_numerics={k: decode["numerics"][k] for k in (
-             "f32", "bf16", "two_layers_card_vs_cpu_f32")})
+             "f32", "bf16", "two_layers_card_vs_cpu_f32")},
+         recurrent_decode={arch: {
+             **{k: o[k] for k in (
+                 "tokens_per_second", "round_ms_p50", "round_ms_p99",
+                 "model_step_ms_p50", "page_lookup_ms_p50",
+                 "step_byte_bound_ms", "launches")},
+             "numerics": {k: o["numerics"][k] for k in (
+                 "f32", "bf16", "first_group_card_vs_cpu_f32")}}
+             for arch, o in recurrent["per_arch"].items()})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

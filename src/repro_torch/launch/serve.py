@@ -4,8 +4,10 @@ block table is the gapped learned index.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
       --requests 8 --max-new 16
 
-runs on the card; ``--device cpu --reduced`` runs a small same-family
-config on the CPU.  Params are random, from ``--seed``.
+runs on the card (any config with a decode path: the dense and MoE
+LMs, the VLM and enc-dec, ``zamba2-1.2b``, ``xlstm-125m``);
+``--device cpu --reduced`` runs a small same-family config on the CPU.
+Params are random, from ``--seed``.
 """
 
 from __future__ import annotations

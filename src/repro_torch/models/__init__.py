@@ -6,9 +6,11 @@ moe.py       top-k capacity MoE (the scatter-dispatch implementation)
 lm.py        decoder-only LM (dense/MoE) over stacked layers + KV cache
 vlm.py       InternVL2 (stub ViT frontend) over the LM backbone
 encdec.py    whisper-style encoder-decoder (stub audio frontend)
+ssm.py       Mamba-2 (SSD) block: chunked form + decode recurrence
+zamba.py     Zamba2 hybrid: Mamba-2 backbone + one shared attention block
+xlstm.py     xLSTM cells: mLSTM (chunked + recurrent) and sLSTM
+xlstm_lm.py  xLSTM-125M language model (7:1 mLSTM:sLSTM)
 api.py       the ``Model`` facade the serving engine drives
-
-The zamba (Mamba-2) and xLSTM families wait for ROADMAP A13b.
 """
 
 from .api import Model, build_model

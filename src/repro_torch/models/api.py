@@ -11,10 +11,10 @@ a :class:`Model` exposing:
   init_caches(batch, max_len, device)         -> the reference's layouts
   input_sample(shape, generator, device)      -> a real batch
 
-for the ``lm``, ``vlm`` and ``encdec`` families.  ``zamba`` and
-``xlstm`` wait for ROADMAP A13b; ``abstract_params``, ``logical_axes``,
-``cache_specs`` and ``input_specs`` serve the dry run and partitioning
-(A13d-e) and wait with them.
+for the ``lm``, ``vlm``, ``encdec``, ``zamba`` (Mamba-2 + shared
+attention) and ``xlstm`` families.  ``abstract_params``,
+``logical_axes``, ``cache_specs`` and ``input_specs`` serve the dry run
+and partitioning (ROADMAP A13d-e) and wait for them.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ from . import base as _base
 from . import encdec as _encdec
 from . import lm as _lm
 from . import vlm as _vlm
+from . import xlstm_lm as _xlstm
+from . import zamba as _zamba
 
 
 @dataclasses.dataclass
@@ -155,8 +157,24 @@ def build_model(cfg: ModelConfig) -> Model:
             init_caches=lambda batch, max_len, device=None: _encdec_caches(
                 cfg, batch, max_len, device),
         )
-    if cfg.arch in ("zamba", "xlstm"):
-        raise NotImplementedError(
-            f"the {cfg.arch} family ({cfg.name}) is not in the port yet: "
-            "ROADMAP A13b (zamba / Mamba-2 and xLSTM decode)")
+    if cfg.arch == "zamba":
+        return Model(
+            cfg=cfg,
+            _specs=_zamba.param_specs(cfg),
+            loss_fn=lambda p, b, c=None: _zamba.loss_fn(p, b, cfg, c),
+            decode_fn=lambda p, b, cache, idx, c=None: _zamba.decode_step(
+                p, b["tokens"], cache, idx, cfg, c),
+            init_caches=lambda batch, max_len, device=None:
+                _zamba.init_caches(cfg, batch, max_len, device=device),
+        )
+    if cfg.arch == "xlstm":
+        return Model(
+            cfg=cfg,
+            _specs=_xlstm.param_specs(cfg),
+            loss_fn=lambda p, b, c=None: _xlstm.loss_fn(p, b, cfg, c),
+            decode_fn=lambda p, b, cache, idx, c=None: _xlstm.decode_step(
+                p, b["tokens"], cache, idx, cfg, c),
+            init_caches=lambda batch, max_len, device=None:
+                _xlstm.init_caches(cfg, batch, device=device),
+        )
     raise KeyError(cfg.arch)

@@ -91,9 +91,14 @@ def init_params(spec_tree, generator: torch.Generator,
 
 
 def layer_slice(tree, i: int):
-    """Layer ``i`` of a stacked ``(L, ...)`` param (or cache) tree."""
+    """Layer ``i`` of a stacked ``(L, ...)`` param (or cache) tree:
+    dicts and NamedTuples (``ssm.SSMCache``) are walked field by field
+    (``[i]`` on a NamedTuple would pick its i-th field); a tensor is
+    indexed."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(layer_slice(v, i) for v in tree))
     return tree[i]
 
 

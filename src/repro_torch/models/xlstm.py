@@ -1,0 +1,281 @@
+"""xLSTM blocks (sLSTM + mLSTM), arXiv:2405.04517.
+
+The counterpart of ``repro.models.xlstm``, op for op:
+
+* mLSTM: matrix-memory cell with an exponential input gate and a
+  stabiliser, in the same chunked form as the SSD (the decay is the
+  cumulative forget gate) for a sequence, and the O(1) recurrence for
+  decode;
+* sLSTM: scalar-memory cell with *recurrent* weights, sequential over
+  time in both branches (the paper: not parallelisable).
+
+mLSTM blocks pre-up-project (factor 2) with SiLU gating; sLSTM blocks
+post-project with a gated FFN (factor 4/3, GeLU with the tanh
+approximation, ``jax.nn.gelu``'s default).  The inner maths run in
+f32 (q, k, v and the gates are cast before the cells' einsums); the
+projections of bf16 weights go through ``base.mm``.  A
+three-operand ``einsum`` is contracted pairwise by torch, in another
+order than XLA's: only f32 rounding moves.  ``jax.nn.log_sigmoid`` is
+``F.logsigmoid``.  This is plain torch; the reference computes the
+blocks in XLA, outside any Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from .base import P, mm, rms_norm
+
+__all__ = ["MLSTMCache", "SLSTMCache", "mlstm_specs", "mlstm_forward",
+           "slstm_specs", "slstm_forward", "init_mlstm_cache",
+           "init_slstm_cache"]
+
+
+class MLSTMCache(NamedTuple):
+    c: torch.Tensor  # (B, H, N, N) matrix memory (keys N = values N = head dim)
+    n: torch.Tensor  # (B, H, N) normalizer
+    m: torch.Tensor  # (B, H) stabilizer
+
+
+class SLSTMCache(NamedTuple):
+    c: torch.Tensor  # (B, H, N) cell
+    n: torch.Tensor  # (B, H, N) normalizer
+    h: torch.Tensor  # (B, H, N) hidden (recurrent input)
+    m: torch.Tensor  # (B, H, N) stabilizer
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def mlstm_specs(d_model: int, n_heads: int, expand: int = 2):
+    d_inner = d_model * expand
+    return {
+        "w_up": P((d_model, 2 * d_inner), ("embed", "ffn")),  # [x, gate]
+        "w_qkv": P((d_inner, 3 * d_inner), (None, "heads_x")),
+        "w_if": P((d_inner, 2 * n_heads), (None, None), dtype=torch.float32),
+        "norm_w": P((d_inner,), (None,)),
+        "w_down": P((d_inner, d_model), ("ffn", "embed")),
+    }
+
+
+def _mlstm_cell_chunked(q, k, v, i_gate, f_gate, chunk: int):
+    """Chunked stabilized mLSTM.  q/k/v: (B,S,H,N); gates (B,S,H) raw.
+
+    Log-space cumulative forget gates; the within-chunk quadratic form
+    and a sequential loop across chunks (the skeleton of
+    ``ssm.ssd_chunked``), jointly stabilised by ``m_tot``.
+    """
+    B, S, H, N = q.shape
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    G = S // chunk
+    sq = math.sqrt(N)
+    q, k, v = (t.reshape(B, G, chunk, *t.shape[2:]).float()
+               for t in (q, k, v))
+    logf = F.logsigmoid(f_gate).reshape(B, G, chunk, H)
+    logi = i_gate.reshape(B, G, chunk, H).float()
+    cumf = torch.cumsum(logf, dim=2)
+
+    # within-chunk unnormalized weights: D_ts = exp(cumf_t - cumf_s + i_s)
+    seg = (cumf[:, :, :, None, :] - cumf[:, :, None, :, :]
+           + logi[:, :, None, :, :])
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=q.device))[None, None, :, :, None]
+    seg = torch.where(tri, seg, torch.full((), -math.inf, dtype=seg.dtype,
+                                           device=seg.device))
+    # stabilizer per (b,g,t,h): max over s and the carried chunk state
+    m_intra = torch.amax(seg, dim=3)                  # (B,G,t,H)
+
+    scores = torch.einsum("bgthn,bgshn->bgtsh", q, k) / sq
+
+    # chunk summaries for the inter-chunk recurrence
+    rem = cumf[:, :, -1:, :] - cumf + logi            # weight of step t in carry
+    e_rem = torch.exp(rem)
+    chunk_c = torch.einsum("bgthn,bgth,bgthm->bghnm", k, e_rem, v)
+    chunk_n = torch.einsum("bgthn,bgth->bghn", k, e_rem)
+    chunk_f = torch.exp(cumf[:, :, -1, :])            # (B,G,H)
+
+    c = torch.zeros((B, H, N, N), dtype=torch.float32, device=q.device)
+    n = torch.zeros((B, H, N), dtype=torch.float32, device=q.device)
+    c_prev, n_prev = [], []
+    for g in range(G):
+        c_prev.append(c)
+        n_prev.append(n)
+        c = c * chunk_f[:, g, :, None, None] + chunk_c[:, g]
+        n = n * chunk_f[:, g, :, None] + chunk_n[:, g]
+    c_prev = torch.stack(c_prev, dim=1)               # (B,G,H,N,N)
+    n_prev = torch.stack(n_prev, dim=1)               # (B,G,H,N)
+
+    # combine intra + inter with joint stabilization
+    m_tot = torch.maximum(m_intra, cumf)              # inter weight is exp(cumf)
+    w_intra = torch.exp(seg - m_tot[:, :, :, None, :])
+    num_intra = torch.einsum("bgtsh,bgtsh,bgshn->bgthn", scores, w_intra, v)
+    den_intra = torch.einsum("bgtsh,bgtsh->bgth", w_intra, scores)
+
+    w_inter = torch.exp(cumf - m_tot)                 # (B,G,t,H)
+    num_inter = torch.einsum("bgthn,bgth,bghnm->bgthm", q, w_inter,
+                             c_prev) / sq
+    den_inter = torch.einsum("bgthn,bgth,bghn->bgth", q, w_inter,
+                             n_prev) / sq
+
+    num = num_intra + num_inter
+    den = den_intra + den_inter
+    den = torch.maximum(torch.abs(den), torch.exp(-m_tot))  # max(|n|, e^-m)
+    return (num / den[..., None]).reshape(B, S, H, N)
+
+
+def mlstm_forward(params, x, *, n_heads, cache: Optional[MLSTMCache] = None,
+                  chunk: int = 64):
+    """x: (B, S, D).  Without ``cache`` the chunked form (S padded to a
+    chunk multiple); with it the recurrence.  Returns (out, new cache or
+    None), the new cache cast to the cache's dtypes."""
+    B, S, D = x.shape
+    up = mm(x, params["w_up"])
+    xi, gate = torch.chunk(up, 2, dim=-1)
+    d_inner = xi.shape[-1]
+    N = d_inner // n_heads
+    qkv = mm(xi, params["w_qkv"])
+    q, k, v = (t.reshape(B, S, n_heads, N)
+               for t in torch.chunk(qkv, 3, dim=-1))
+    gates = mm(xi, params["w_if"]).float()
+    # i and f interleave per head: (..., H, 2), index 0 and index 1
+    gates = gates.reshape(B, S, n_heads, 2)
+    i_gate, f_gate = gates[..., 0], gates[..., 1]
+
+    if cache is None:
+        ch = min(chunk, S)
+        if S % ch:
+            padlen = ch - S % ch
+
+            def p3(t):
+                return F.pad(t, [0, 0, 0, 0, 0, padlen])
+
+            def p2(t):
+                return F.pad(t, [0, 0, 0, padlen])
+            h = _mlstm_cell_chunked(p3(q), p3(k), p3(v), p2(i_gate),
+                                    p2(f_gate), ch)[:, :S]
+        else:
+            h = _mlstm_cell_chunked(q, k, v, i_gate, f_gate, ch)
+        new_cache = None
+    else:
+        sq = math.sqrt(N)
+        c, n, m = cache.c.float(), cache.n.float(), cache.m.float()
+        qf, kf, vf = q.float(), k.float(), v.float()
+        hs = []
+        for t in range(S):
+            qt, kt, vt = qf[:, t], kf[:, t], vf[:, t]
+            it, ft = i_gate[:, t], f_gate[:, t]
+            logf = F.logsigmoid(ft)
+            m_new = torch.maximum(logf + m, it)
+            fi = torch.exp(logf + m - m_new)
+            ii = torch.exp(it - m_new)
+            # einsum("bhn,bhm->bhnm") is an outer product: one rounding
+            c = (c * fi[:, :, None, None]
+                 + ii[:, :, None, None] * (kt[..., :, None]
+                                           * vt[..., None, :]) / sq)
+            n = n * fi[:, :, None] + ii[:, :, None] * kt / sq
+            num = torch.einsum("bhn,bhnm->bhm", qt, c)
+            den = torch.maximum(
+                torch.abs(torch.einsum("bhn,bhn->bh", qt, n)),
+                torch.exp(-m_new))
+            m = m_new
+            hs.append(num / den[..., None])
+        h = torch.stack(hs, dim=1)
+        new_cache = MLSTMCache(c=c.to(cache.c.dtype), n=n.to(cache.n.dtype),
+                               m=m.to(cache.m.dtype))
+
+    h = h.reshape(B, S, d_inner).to(x.dtype)
+    h = rms_norm(h, params["norm_w"]) * F.silu(gate)
+    return mm(h, params["w_down"]), new_cache
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def slstm_specs(d_model: int, n_heads: int):
+    N = d_model // n_heads
+    return {
+        "w_in": P((d_model, 4 * d_model), ("embed", "heads_x")),  # z i f o
+        "r_in": P((n_heads, N, 4 * N), ("heads", None, None)),    # recurrent
+        "norm_w": P((d_model,), (None,)),
+        # gated FFN (factor 4/3, GeGLU) per the paper's sLSTM block
+        "w_ff_gate": P((d_model, 4 * d_model // 3), ("embed", "ffn")),
+        "w_ff_up": P((d_model, 4 * d_model // 3), ("embed", "ffn")),
+        "w_ff_down": P((4 * d_model // 3, d_model), ("ffn", "embed")),
+    }
+
+
+def slstm_forward(params, x, *, n_heads, cache: Optional[SLSTMCache] = None):
+    """Sequential sLSTM with recurrent weights + post FFN.  x: (B,S,D).
+    Without ``cache`` the state starts at c = h = m = 0, n = 1."""
+    B, S, D = x.shape
+    N = D // n_heads
+    zifo = mm(x, params["w_in"]).reshape(B, S, n_heads, 4 * N)
+
+    if cache is None:
+        def z():
+            return torch.zeros((B, n_heads, N), dtype=torch.float32,
+                               device=x.device)
+        c, h, m = z(), z(), z()
+        n = torch.ones((B, n_heads, N), dtype=torch.float32, device=x.device)
+    else:
+        c, n, h, m = (cache.c.float(), cache.n.float(), cache.h.float(),
+                      cache.m.float())
+
+    r_w = params["r_in"].float()
+    hs = []
+    for t in range(S):
+        zifo_t = zifo[:, t].float()                   # (B, H, 4N)
+        rec = torch.einsum("bhn,hnm->bhm", h, r_w)
+        z_r, i_r, f_r, o_r = torch.chunk(zifo_t + rec, 4, dim=-1)
+        zt = torch.tanh(z_r)
+        o = torch.sigmoid(o_r)
+        logf = F.logsigmoid(f_r)
+        m_new = torch.maximum(logf + m, i_r)
+        i = torch.exp(i_r - m_new)
+        f = torch.exp(logf + m - m_new)
+        c = f * c + i * zt
+        n = f * n + i
+        h = o * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    out_h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    out_h = rms_norm(out_h, params["norm_w"])
+    ff = (F.gelu(mm(out_h, params["w_ff_gate"]), approximate="tanh")
+          * mm(out_h, params["w_ff_up"]))
+    out = mm(ff, params["w_ff_down"])
+    new_cache = None
+    if cache is not None:
+        new_cache = SLSTMCache(c=c.to(cache.c.dtype), n=n.to(cache.n.dtype),
+                               h=h.to(cache.h.dtype), m=m.to(cache.m.dtype))
+    return out, new_cache
+
+
+def init_mlstm_cache(batch, n_heads, head_dim, dtype=torch.float32,
+                     device=None):
+    dev = resolve_device(device)
+    return MLSTMCache(
+        c=torch.zeros((batch, n_heads, head_dim, head_dim), dtype=dtype,
+                      device=dev),
+        n=torch.zeros((batch, n_heads, head_dim), dtype=dtype, device=dev),
+        m=torch.zeros((batch, n_heads), dtype=dtype, device=dev),
+    )
+
+
+def init_slstm_cache(batch, n_heads, head_dim, dtype=torch.float32,
+                     device=None):
+    dev = resolve_device(device)
+
+    def z():
+        return torch.zeros((batch, n_heads, head_dim), dtype=dtype,
+                           device=dev)
+    return SLSTMCache(c=z(), n=torch.ones_like(z()), h=z(), m=z())

@@ -1,0 +1,176 @@
+"""Zamba2-style hybrid: Mamba-2 backbone + one *shared* GQA attention
+block applied every ``attn_every`` layers (arXiv:2411.15242).
+
+The counterpart of ``repro.models.zamba``.  The shared block attends
+over ``[hidden ; original embedding]`` concatenated (width 2·d_model)
+and projects back to d_model; at decode it keeps one KV cache per
+application.  ``cfg.remat`` is ignored (no backward pass here).
+
+With caches, each Mamba layer's new conv window and SSM state are
+written INTO the stacked ``(L, ...)`` cache tensors, and the shared
+block's keys and values into its ``(A, ...)`` KV caches, where the
+reference stacks a new copy of every layer each step; the values are
+the reference's.  One case changes a cache tensor: the reference's new
+conv window has the promoted dtype of the cache and the activations
+(``ssm._causal_conv``), so f32 params over a bf16 cache turn the
+stacked conv cache f32 after the first step; the port promotes the
+stacked tensor once, then writes into it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..device import resolve_device
+from .base import (
+    P,
+    attention_specs,
+    gqa_attention,
+    layer_slice,
+    mlp,
+    mlp_specs,
+    mm,
+    padded_vocab,
+    rms_norm,
+    softmax_xent,
+)
+from .lm import _identity, _stack_specs, logits_fn
+from .ssm import SSMCache, mamba2_forward, mamba2_specs
+
+
+def _ssm_geometry(cfg):
+    n_heads = cfg.n_heads
+    head_dim = (2 * cfg.d_model) // n_heads  # expand=2
+    return n_heads, head_dim, cfg.ssm_state
+
+
+def param_specs(cfg):
+    n_heads, head_dim, d_state = _ssm_geometry(cfg)
+    mamba = {
+        "ln": P((cfg.d_model,), ("embed",)),
+        "ssm": mamba2_specs(cfg.d_model, n_heads, head_dim, d_state),
+    }
+    shared = {
+        "ln_attn": P((2 * cfg.d_model,), ("embed",)),
+        "attn": attention_specs(2 * cfg.d_model, cfg.n_heads, cfg.n_kv,
+                                cfg.head_dim_),
+        "w_proj": P((2 * cfg.d_model, cfg.d_model), (None, "embed")),
+        "ln_mlp": P((cfg.d_model,), ("embed",)),
+        "mlp": mlp_specs(cfg.d_model, cfg.d_ff),
+    }
+    vp = padded_vocab(cfg.vocab)
+    return {
+        "embed": P((vp, cfg.d_model), ("vocab", "embed")),
+        "ln_f": P((cfg.d_model,), ("embed",)),
+        "mamba_layers": _stack_specs(mamba, cfg.n_layers),
+        "shared_attn": shared,
+        "lm_head": P((cfg.d_model, vp), ("embed", "vocab")),
+    }
+
+
+def _shared_block(params, x, x0, positions, cfg, constrain,
+                  kv_cache=None, cache_index=None):
+    """Shared attention over [x ; x0] -> project back to d_model."""
+    sp = params["shared_attn"]
+    cat = torch.cat([x, x0], dim=-1)
+    a, new_kv = gqa_attention(sp["attn"], rms_norm(cat, sp["ln_attn"]),
+                              positions, causal=True,
+                              rope_theta=cfg.rope_theta,
+                              kv_cache=kv_cache, cache_index=cache_index)
+    x = constrain(x + mm(a, sp["w_proj"]), ("batch", None, "embed"))
+    h = mlp(sp["mlp"], rms_norm(x, sp["ln_mlp"]))
+    return constrain(x + h, ("batch", None, "embed")), new_kv
+
+
+def _groups(cfg):
+    """Layer indices after which the shared block runs."""
+    return [i for i in range(cfg.n_layers) if (i + 1) % cfg.attn_every == 0]
+
+
+def forward(params, tokens, cfg, constrain=None, *, caches=None,
+            cache_index=None):
+    """Training forward (caches=None, the chunked SSD) or cached decode
+    (the sequential recurrence).
+
+    caches: {"ssm": SSMCache stacked (L, ...), "k"/"v": shared attn KV
+    (A, B, KV, T, Dh)}, written in place (see the module doc).
+    Returns (hidden, caches or None).
+    """
+    constrain = constrain or _identity
+    x = params["embed"][tokens]
+    x = constrain(x, ("batch", None, "embed"))
+    x0 = x
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    if cache_index is not None:
+        positions = int(cache_index) + positions
+    n_heads, head_dim, d_state = _ssm_geometry(cfg)
+    attn_after = set(_groups(cfg))
+    conv = state = None
+    if caches is not None:
+        conv, state = caches["ssm"].conv, caches["ssm"].state
+
+    app = 0
+    for i in range(cfg.n_layers):
+        lp = layer_slice(params["mamba_layers"], i)
+        cache_i = (None if caches is None
+                   else layer_slice(SSMCache(conv, state), i))
+        o, nc = mamba2_forward(
+            lp["ssm"], rms_norm(x, lp["ln"]), n_heads=n_heads,
+            head_dim=head_dim, d_state=d_state, cache=cache_i)
+        x = constrain(x + o, ("batch", None, "embed"))
+        if nc is not None:
+            if nc.conv.dtype != conv.dtype:  # see the module doc
+                conv = conv.to(nc.conv.dtype)
+            conv[i].copy_(nc.conv)
+            state[i].copy_(nc.state)
+        if i in attn_after:
+            kvc = (None if caches is None
+                   else (caches["k"][app], caches["v"][app]))
+            x, _kv = _shared_block(
+                params, x, x0, positions, cfg, constrain,
+                kv_cache=kvc, cache_index=cache_index)
+            app += 1
+    hidden = rms_norm(x, params["ln_f"])
+    if caches is None:
+        return hidden, None
+    return hidden, {"ssm": SSMCache(conv=conv, state=state),
+                    "k": caches["k"], "v": caches["v"]}
+
+
+def loss_fn(params, batch, cfg, constrain=None):
+    """Next-token CE (the value; the backward is ROADMAP A13c)."""
+    hidden, _ = forward(params, batch["tokens"], cfg, constrain)
+    logits = logits_fn(params, hidden, cfg, constrain)
+    return softmax_xent(logits, batch["labels"], batch.get("mask"))
+
+
+def decode_step(params, tokens, caches, cache_index, cfg, constrain=None):
+    """One decode step.  tokens: (B, 1); cache_index: int (the shared
+    block's #valid KV entries).  Returns (logits (B, V), caches)."""
+    hidden, caches = forward(params, tokens, cfg, constrain, caches=caches,
+                             cache_index=cache_index)
+    logits = logits_fn(params, hidden, cfg, constrain)[:, 0]
+    return logits, caches
+
+
+def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                device=None):
+    """Zero caches on ``device`` (cuda unless ``"cpu"``): the stacked
+    SSM caches ``(L, B, 3, conv_ch)`` / ``(L, B, H, N, P)`` and the
+    shared block's KV ``(A, B, KV, max_len, Dh)``."""
+    dev = resolve_device(device)
+    n_heads, head_dim, d_state = _ssm_geometry(cfg)
+    conv_ch = n_heads * head_dim + 2 * d_state
+    L = cfg.n_layers
+    A = len(_groups(cfg))
+    kv = (A, batch, cfg.n_kv, max_len, cfg.head_dim_)
+
+    def z(shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    return {
+        "ssm": SSMCache(conv=z((L, batch, 3, conv_ch)),
+                        state=z((L, batch, n_heads, d_state, head_dim))),
+        "k": z(kv),
+        "v": z(kv),
+    }

@@ -1,16 +1,21 @@
 """The port's decode loop against the reference's on the CPU:
-``ServingEngine`` at ``reduced(internlm2-1.8b)`` with the reference's
-params carried across in f32, temperature 0, the same requests through
-both engines.  The generated tokens, the engine stats and the block
-table (``kv_pages.allocated``, the index state) are compared exactly.
-The KV caches are bf16 in both (``init_caches``' default), so both
-round keys and values alike before attention reads them.
+``ServingEngine`` at ``reduced(internlm2-1.8b)``, ``reduced(zamba2-1.2b)``
+and ``reduced(xlstm-125m)`` with the reference's params carried across
+in f32, temperature 0, the same requests through both engines.  The
+generated tokens, the engine stats and the block table
+(``kv_pages.allocated``, the index state) are compared exactly.  The
+caches are ``init_caches``' defaults in both (bf16 KV and SSM state,
+f32 xLSTM memories), so both round alike before the next step reads
+them; at the end they agree leaf by leaf.  A slot taken by a new
+request keeps the recurrent state its last request left (the
+reference's behaviour: one global ``cache_index``, no reset).
 
 Also: ``launch.serve.main`` on the CPU, and sampling at temperature > 0
 (a ``torch.Generator`` seeded by the round: reproducible, but not the
 reference's ``jax.random`` draws)."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -26,6 +31,7 @@ from repro_torch.kernels.lookup import fused_lookup
 from repro_torch.launch import serve
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
+from test_torch_ssm import BF16_STEP, BF16_STEPS, same_caches
 
 STATS = ("decoded_tokens", "rounds", "page_lookups", "kv_epoch",
          "kv_delta_updates", "kv_refreezes")
@@ -42,8 +48,10 @@ def _requests(cls, vocab, n, seed):
             for rid in range(1, n + 1)]
 
 
-def _engines(max_batch=4, max_len=64):
-    arch = "internlm2-1.8b"
+DECODE_ARCHS = ("internlm2-1.8b", "zamba2-1.2b", "xlstm-125m")
+
+
+def _engines(max_batch=4, max_len=64, arch="internlm2-1.8b"):
     rcfg, cfg = ref_reduced(REF_ARCHS[arch]), reduced(ARCHS[arch])
     rmodel, model = ref_build(rcfg), build_model(cfg)
     rp = jax.tree.map(lambda a: a.astype(jnp.float32),
@@ -57,9 +65,14 @@ def _engines(max_batch=4, max_len=64):
     return ref, port, cfg
 
 
-def test_serving_engine_matches_reference():
-    ref, port, cfg = _engines()
-    assert port.caches[0]["k"].dtype == torch.bfloat16
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_serving_engine_matches_reference(arch):
+    ref, port, cfg = _engines(arch=arch)
+    served = {"internlm2-1.8b": lambda c: c[0]["k"],
+              "zamba2-1.2b": lambda c: c["ssm"].state,
+              "xlstm-125m": lambda c: c["b0"].c}[arch](port.caches)
+    assert served.dtype == (torch.float32 if arch == "xlstm-125m"
+                            else torch.bfloat16)
     r_reqs = _requests(RefRequest, cfg.vocab, 10, seed=3)
     p_reqs = _requests(Request, cfg.vocab, 10, seed=3)
     for a, b in zip(r_reqs, p_reqs):
@@ -81,6 +94,11 @@ def test_serving_engine_matches_reference():
     assert port.aggregator.stats == ref.aggregator.stats
     # the CPU run resolves pages on the kernel's plain version
     assert fused_lookup.launches == launches0
+    # 10 requests through 4 slots: slots were taken again, and the
+    # caches (recurrent state carried across requests) are the
+    # reference's; bf16 leaves within 8 bf16 steps of their scale
+    assert len({b.slot for b in p_reqs}) == 4
+    same_caches(port.caches, ref.caches, 1e-4, BF16_STEPS * BF16_STEP)
 
 
 def test_sampling_at_temperature_is_reproducible():
@@ -100,10 +118,11 @@ def test_sampling_at_temperature_is_reproducible():
     assert cfg.vocab == 256
 
 
-def test_serve_launcher_on_the_cpu(capsys):
-    stats = serve.main(["--device", "cpu", "--reduced", "--requests", "5",
-                        "--max-new", "6", "--max-batch", "2",
-                        "--max-len", "64"])
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_serve_launcher_on_the_cpu(capsys, arch):
+    stats = serve.main(["--arch", arch, "--device", "cpu", "--reduced",
+                        "--requests", "5", "--max-new", "6",
+                        "--max-batch", "2", "--max-len", "64"])
     assert stats["decoded_tokens"] == 30
     assert stats["page_lookups"] == 30
     assert stats["kv_epoch"] > 0

@@ -813,6 +813,113 @@ def test_reduced_decode_on_the_card_equals_the_cpu():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m"])
+def test_reduced_recurrent_decode_on_the_card_equals_the_cpu(arch):
+    """The Mamba-2 / shared-attention and xLSTM decode paths at
+    ``reduced`` size in f32 (TF32 off, f32 caches) on the draws as
+    ``chip_smoke.conditioned`` conditions them (drawn, the shared
+    block's saturated softmax and Mamba-2's fast-forgetting state make
+    reduced zamba amplify a one-ulp change of its params, so two sum
+    orders part by more than 1e-4): the chunked ``forward`` and three
+    decode steps give the
+    CPU's logits on the card within 1e-4, with equal argmax, and every
+    cache leaf after the steps within 1e-4; then the sLSTM cell (which
+    ``reduced(xlstm)``'s two blocks do not reach) on the card against
+    the CPU, both branches, within 1e-5; and a ``ServingEngine`` on the
+    card (the served cache dtypes) generates the CPU engine's tokens at
+    temperature 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import conditioned
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model
+    from repro_torch.models import lm, xlstm_lm, zamba
+    from repro_torch.models import xlstm as pxl
+    from repro_torch.models.base import init_params
+    from repro_torch.serving import Request, ServingEngine
+    cfg = reduced(ARCHS[arch])
+    model = build_model(cfg)
+    fwd = zamba.forward if cfg.arch == "zamba" else xlstm_lm.forward
+
+    def tree_to(t, **kw):
+        if isinstance(t, dict):
+            return {k: tree_to(v, **kw) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return type(t)(*(tree_to(v, **kw) for v in t))
+        return t.to(**kw)
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        if isinstance(t, tuple):
+            return [x for v in t for x in leaves(v)]
+        return [t]
+
+    p_cpu = conditioned(tree_to(model.init_params(
+        torch.Generator().manual_seed(1), "cpu"), dtype=torch.float32))
+    p_gpu = tree_to(p_cpu, device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (3, 9)))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs, caches = [], []
+        for prm, dev in ((p_cpu, "cpu"), (p_gpu, "cuda")):
+            hidden, _ = fwd(prm, tok.to(dev), cfg)
+            seq = [lm.logits_fn(prm, hidden, cfg).float().cpu()]
+            cache = tree_to(model.init_caches(3, 32, device=dev),
+                            dtype=torch.float32)
+            for i in range(3):
+                lg, cache = model.decode_fn(
+                    prm, {"tokens": tok[:, i:i + 1].to(dev)}, cache, i)
+                seq.append(lg.float().cpu())
+            outs.append(seq)
+            caches.append([t.float().cpu() for t in leaves(cache)])
+        for a, b in zip(*outs):
+            assert float((a - b).abs().max()) <= 1e-4
+            assert torch.equal(a.argmax(-1), b.argmax(-1))
+        for a, b in zip(*caches):
+            assert float((a - b).abs().max()) <= 1e-4
+        sl = init_params(pxl.slstm_specs(64, 4),
+                         torch.Generator().manual_seed(4), "cpu")
+        sl = {k: v.float() for k, v in sl.items()}
+        x = torch.randn((2, 5, 64), generator=torch.Generator().manual_seed(5))
+        for cached in (False, True):
+            got = []
+            for dev in ("cpu", "cuda"):
+                c = (pxl.init_slstm_cache(2, 4, 16, device=dev) if cached
+                     else None)
+                o, nc = pxl.slstm_forward(tree_to(sl, device=dev),
+                                          x.to(dev), n_heads=4, cache=c)
+                got.append([o.cpu()] + ([t.cpu() for t in nc] if cached
+                                        else []))
+            for a, b in zip(*got):
+                assert float((a - b).abs().max()) <= 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+    gen = []
+    for prm, dev in ((p_cpu, "cpu"), (p_gpu, "cuda")):
+        eng = ServingEngine(model, max_batch=4, max_len=64, device=dev)
+        eng.load(prm)
+        rng = np.random.default_rng(3)
+        reqs = [Request(request_id=r, prompt=rng.integers(
+            0, cfg.vocab, rng.integers(4, 24), dtype=np.int32),
+            max_new_tokens=6) for r in range(1, 9)]
+        for r in reqs:
+            eng.submit(r)
+        launches = fused_lookup.launches
+        stats = eng.run_until_done()
+        gen.append([r.generated for r in reqs])
+        if dev == "cuda":
+            assert fused_lookup.launches - launches == stats["rounds"]
+    assert gen[0] == gen[1]
+
+
+@pytest.mark.gpu
 def test_xla_engine_on_the_card_equals_the_kernel_engine():
     """``QueryEngine(fused_impl="xla")`` on the card (the rank-router
     graph in torch ops, no kernel launch) answers as the kernel engine

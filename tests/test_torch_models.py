@@ -170,8 +170,8 @@ def _ref_spec_leaves(tree, path=()):
 
 
 @pytest.mark.parametrize("arch", sorted(a for a, c in ARCHS.items()
-                                        if c.arch in ("lm", "vlm",
-                                                      "encdec")))
+                                        if c.arch in ("lm", "vlm", "encdec",
+                                                      "zamba", "xlstm")))
 def test_specs_and_counts_match_reference(arch):
     for cfg, rcfg in ((ARCHS[arch], REF_ARCHS[arch]),
                       (reduced(ARCHS[arch]), ref_reduced(REF_ARCHS[arch]))):
@@ -214,9 +214,12 @@ def test_init_params_rule_and_families_still_to_port():
     prm = small.init_params(torch.Generator().manual_seed(0), "cpu")
     assert prm["layers"]["attn"]["wq"].shape == (2, 64, 4, 16)
     assert model.cfg.vocab == 92_544
-    for arch in ("zamba2-1.2b", "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            build_model(ARCHS[arch])
+    # the families of ROADMAP A13b build, with the reference's counts
+    for arch, count in (("zamba2-1.2b", 1_192_987_200),
+                        ("xlstm-125m", 199_719_936)):
+        m = build_model(ARCHS[arch])
+        assert m.param_count() == count
+        assert m.decode_fn is not None and m.init_caches is not None
 
 
 def test_params_carry_across_leaf_for_leaf():
