@@ -7,12 +7,13 @@
 
 Drives ``repro_torch``'s main paths — build, freeze, batched lookups,
 the §5.3 write path, device Eq. 3, the legacy lookup backends, the
-range-sharded index, the serving stack, the index's consumers and LLM
+range-sharded index, the serving stack, the index's consumers, LLM
 decode serving over the learned-index block table (a transformer, a
-Mamba-2 hybrid, an xLSTM) — on the card, and holds each hand-written
-CUDA kernel against its plain torch version.  Prints one JSON line per
-phase (they run in the order 1-9, 11, 10, 12, 13, 14: phase 11 reuses
-the read phase's keys and index):
+Mamba-2 hybrid, an xLSTM) and training over the learned-index data
+path — on the card, and holds each hand-written CUDA kernel against its
+plain torch version.  Prints one JSON line per phase (they run in the
+order 1-9, 11, 10, 12, 13, 14, 15: phase 11 reuses the read phase's
+keys and index):
 
 1. environment and kernel build (one nvcc per source, in parallel, into
    build/repro_torch/);
@@ -51,9 +52,10 @@ the read phase's keys and index):
 5. the fused write path at the largest size the fused gate admits
    (``n_slots < 2^22``: ``--fused-keys``, 3.6M keys by default): the
    read-heavy dynamic workload of the paper (w = 0.3,
-   benchmarks/fig11_dynamic.py) — all the keys held out of the build
-   (30% of the drawn keys, ``--fused-batches`` to cut them) inserted in
-   random order in batches of 16,384 and 4,096, with a delete batch and
+   benchmarks/fig11_dynamic.py) — the keys held out of the build (30%
+   of the drawn keys; the first 64 batches of them, ``--fused-batches``)
+   inserted in random order in batches of 16,384 and 4,096, with a
+   delete batch and
    a payload-update batch of 4,096 present keys every 16 insert
    batches; its fused commit rate is the phase's number.  Then a
    mechanism test: 8 batches of 4,096 built to pass the fused gate
@@ -200,13 +202,36 @@ the read phase's keys and index):
    differences printed, and the first layers that run every block kind
    (zamba's first 6, one shared block; xLSTM's first 8, its sLSTM) on
    the card against the CPU; ``fused_lookup`` against its plain version
-   at each run's bucket.
+   at each run's bucket;
+15. training (``phase_train``): ``Trainer`` over internlm2-1.8b at full
+   width and depth (bf16 params, AdamW, ``remat="full"``) on
+   ``launch/train.py``'s data path (``PackedTokenStore.synthetic(2048,
+   mean_len=513)``, ``IndexedTokenDataset.build(method="pgm",
+   sample_rate=0.1, gap_rho=0.15)``, ``ShardedLoader(global_batch=8,
+   seq_len=512)``; its 8-key lookups stay under ``min_device_batch`` and
+   take the host path, as in the reference, so no kernel runs), 12
+   cosine steps with a checkpoint every 6 and a crash injected at 9; a
+   fresh trainer and loader resume at 6 and end at 12.  Every loss
+   finite, the replayed steps 7-9 within 1e-3 of run 1's, the final
+   checkpoint restored bit for bit, the held-out loss before and after
+   printed; step ms p50 / p99 (CUDA events around the forward, the
+   backward and the optimizer), tokens/s, ``mfu`` (6·N·T +
+   12·L·d_attn·S·T over 989 TFLOP/s), peak memory, checkpoint seconds
+   and bytes (``train``; ``train_profile`` with ``--profile``).  Then
+   loss and every grad on the card against the CPU in f32 (TF32 off,
+   ``conditioned`` params, 2 x 64 tokens) within 1e-3 for 2-layer cuts
+   of internlm2-1.8b and granite-moe-1b-a400m at full width,
+   zamba2-1.2b's first group and xlstm-125m's first 8 blocks, and
+   ``remat="full"`` / ``"dots"`` against ``"none"`` on the card
+   (``train_numerics``).
 
 Scale: SOSD's key sets (Marcus et al., Benchmarking Learned Indexes,
 VLDB 2020) hold 200M keys; the read phase cuts that to 32M so the host
 build and the host oracle fit the run's time limit (``--n-keys``).
-The write phases are sized by the device gates.  Phase 5 inserts all
-of its 1.54M held-out keys; phase 6's traffic is cut by the time limit
+The write phases are sized by the device gates.  Phase 5's traffic is
+cut by the time limit to its first 64 batches (0.66M of its 1.54M
+held-out keys; all 151 until phase 15 came: a batch and its host
+replay cost about 1 s); phase 6's traffic is cut by the time limit
 to 16 batches (0.26M of 6.2M held-out keys; 32 until phases 11-12
 came): at 16.65M slots a batch costs about 2 s of host partition and
 delta diff, and its host replay about 1.3 s more, so all 381 batches
@@ -221,7 +246,9 @@ batches by the time limit (each costs a host partition and a delta
 diff per touched shard, and the host replay as much again).  Phases 13
 and 14 serve their configs at full width and depth; their traffic (64 x
 64 tokens through 32 slots, 128 rounds) is sized to keep each near a
-minute or two.  Nothing was cut for phase 14.
+minute or two.  Nothing was cut for phase 14.  Phase 15 trains at
+full width and depth on launch/train.py's batch; only the step count
+(12) is cut, by the time limit.
 
 Every kernel timing reports ``ms`` (CUDA events around 20 back-to-back
 wrapper calls, over the count: host and device together),
@@ -243,6 +270,7 @@ import argparse
 import copy
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -649,9 +677,11 @@ def fused_ops(statics, n_q) -> int:
     return n_q * (per_q * cmp + 10 + trips * cmp)
 
 
-def traced(fn, smi, phase, **fields) -> None:
+def traced(fn, smi, phase, **fields) -> dict:
     """Run ``fn()`` under torch.profiler: the device's busy share of the
-    wall time and the device and host ops that fill it."""
+    wall time and the device and host ops that fill it (emitted; the
+    wall and busy ms, the idle share and the count of device ops
+    returned)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -676,13 +706,19 @@ def traced(fn, smi, phase, **fields) -> None:
                    for ev in prof.key_averages()
                    if "CUDA" not in str(getattr(ev, "device_type", ""))),
                   reverse=True)
+    summary = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+               "device_idle_share": ((1.0 - busy_ms / wall_ms) if wall_ms
+                                     else None),
+               "device_ops": sum(r[2] for r in rows)}
     emit(phase, card=smi, **fields, wall_ms=wall_ms,
          device_busy_ms=busy_ms,
-         device_idle_share=(1.0 - busy_ms / wall_ms) if wall_ms else None,
+         device_idle_share=summary["device_idle_share"],
+         device_ops=summary["device_ops"],
          top_device_ops=[{"op": k[:60], "count": c, "ms": u / 1e3}
                          for u, k, c in rows[:10]],
          top_host_ops=[{"op": k[:60], "count": c, "ms": u / 1e3}
                        for u, k, c in host[:10]])
+    return summary
 
 
 def profile_lookup(idx, q, smi, calls: int = 3) -> None:
@@ -3172,12 +3208,13 @@ def conditioned(params):
     1/sqrt(their contraction size), Mamba-2's per-head SSM vectors set
     by its own recipe and the mLSTM gate projections zeroed.
 
-    * Attention: the LM's stacked ``layers.attn`` and zamba's
-      ``shared_attn.attn`` (contraction 2·d_model).  The reference's
-      init rule takes ``fan_in = shape[-2]``, which for
-      ``wq``/``wk``/``wv`` (d, heads, head_dim) is the head count and
-      for ``wo`` the head size: the scores come out ~sqrt(d / heads)
-      times too large and the softmax saturates.
+    * Attention: the LM's stacked ``layers.attn``, zamba's
+      ``shared_attn.attn`` (contraction 2·d_model) and the enc-dec's
+      ``enc_layers.attn``, ``dec_layers.attn`` and
+      ``dec_layers.cross``.  The reference's init rule takes ``fan_in =
+      shape[-2]``, which for ``wq``/``wk``/``wv`` (d, heads, head_dim)
+      is the head count and for ``wo`` the head size: the scores come
+      out ~sqrt(d / heads) times too large and the softmax saturates.
     * Mamba-2 (zamba's ``mamba_layers.ssm``): the rule draws ``A_log``,
       ``dt_bias`` and ``D`` as N(0, 1/heads) weights, so dt = softplus(
       ~N(0, 1)) is ~0.7, the state forgets in a step or two and the
@@ -3196,15 +3233,17 @@ def conditioned(params):
     evaluation orders of one f32 function part by far more than their
     roundings."""
     out = dict(params)
-    for top in ("layers", "shared_attn"):
-        if top not in params or "attn" not in params[top]:
+    for top, sub in (("layers", "attn"), ("shared_attn", "attn"),
+                     ("enc_layers", "attn"), ("dec_layers", "attn"),
+                     ("dec_layers", "cross")):
+        if top not in params or sub not in params[top]:
             continue
-        a = dict(params[top]["attn"])
+        a = dict(params[top][sub])
         for k in ("wq", "wk", "wv"):   # (..., d, heads, head_dim)
             a[k] = a[k] * (a[k].shape[-2] / a[k].shape[-3]) ** 0.5
         wo = a["wo"]                   # (..., heads, head_dim, d)
         a["wo"] = wo * (wo.shape[-2] / (wo.shape[-3] * wo.shape[-2])) ** 0.5
-        out[top] = {**params[top], "attn": a}
+        out[top] = {**out.get(top, params[top]), sub: a}
     if "mamba_layers" in params:
         s = dict(params["mamba_layers"]["ssm"])
         shape, dev = s["A_log"].shape, s["A_log"].device
@@ -3601,15 +3640,446 @@ def phase_recurrent(rng, seed, smi, profile=False) -> dict:
                 o["fused_lookup_max_abs_err"] for o in per.values())}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training internlm2-1.8b at full size, with a crash and a resume
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "internlm2-1.8b"    # configs/internlm2_1_8b.py, full size
+TRAIN_DOCS = 2_048               # launch/train.py's --n-docs
+TRAIN_BATCH, TRAIN_SEQ = 8, 512  # launch/train.py's batch, phase 13's max_len
+TRAIN_STEPS, TRAIN_WARMUP = 12, 2
+TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 6, 9
+TRAIN_HELDOUT_STEP = 100         # a loader step the 12 steps never reach
+TRAIN_RTOL = 1e-3
+TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 64
+H100_BF16_FLOPS = 989e12         # H100 SXM data sheet, dense bf16
+
+
+class TrainProbe:
+    """Wraps a trainer's model loss, ``loss_and_grads`` and optimizer
+    update to time each step with CUDA events (the forward, the backward
+    with its recomputation, the optimizer), and its checkpoint manager's
+    calls with the host clock.  The wrappers call the trainer's own
+    functions and add no device work to a step."""
+
+    def __init__(self, trainer):
+        import dataclasses
+        # per step: (start, after forward, after backward, after opt)
+        self.steps = []
+        self.ckpt_s = {"save_async": [], "wait": [], "save": [],
+                       "restore": []}
+        lg, upd = trainer.loss_and_grads, trainer._opt_update
+        loss_fn = trainer.model.loss_fn
+        ck = trainer.ckpt
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def forward(*a, **kw):
+            out = loss_fn(*a, **kw)
+            self._open.append(event())
+            return out
+
+        def loss_and_grads(params, batch):
+            self._open = [event()]
+            out = lg(params, batch)
+            self._open.append(event())
+            return out
+
+        def opt_update(*a, **kw):
+            out = upd(*a, **kw)
+            self.steps.append((*self._open, event()))
+            return out
+
+        trainer.model = dataclasses.replace(trainer.model, loss_fn=forward)
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.ckpt_s[name].append(time.perf_counter() - t0)
+            return run
+
+        trainer.loss_and_grads, trainer._opt_update = loss_and_grads, \
+            opt_update
+        for name in self.ckpt_s:
+            setattr(ck, name, timed(name, getattr(ck, name)))
+
+    def times(self):
+        """``[(step ms, forward ms, backward ms, optimizer ms)]``."""
+        torch.cuda.synchronize()
+        return [(a.elapsed_time(d), a.elapsed_time(b), b.elapsed_time(c),
+                 c.elapsed_time(d)) for a, b, c, d in self.steps]
+
+
+def train_model_flops(cfg, model, tokens: int, seq: int) -> float:
+    """6·N·T + 12·L·d_attn·S·T (PaLM, Chowdhery et al. 2022, App. B):
+    N the params less the input embedding (the head counts), T the
+    tokens of a step, S the sequence length."""
+    n = model.param_count()
+    if not cfg.tie_embeddings:
+        n -= model.param_specs()["embed"].shape[0] * cfg.d_model
+    d_attn = cfg.n_heads * (cfg.head_dim or cfg.d_model // cfg.n_heads)
+    return 6.0 * n * tokens + 12.0 * cfg.n_layers * d_attn * seq * tokens
+
+
+def state_bytes(model) -> int:
+    """Bytes of a trainer state: the params in their dtypes and AdamW's
+    two f32 moments (the residual is 0-d without compression)."""
+    total = 0
+    for _, p in model._leaves():
+        n = int(np.prod(p.shape))
+        total += n * (torch.empty((), dtype=p.dtype).element_size() + 8)
+    return total
+
+
+def cut_config(arch: str):
+    """The card-vs-CPU cuts: the first layers of ``arch`` at full width
+    (2 LM layers; zamba's first ``attn_every`` Mamba-2 layers and its
+    shared block; xLSTM's first 8 blocks, the 8th its sLSTM)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import xlstm_lm
+    cfg = ARCHS[arch]
+    n = {"zamba": cfg.attn_every,
+         "xlstm": xlstm_lm.SLSTM_EVERY}.get(cfg.arch, 2)
+    return dataclasses.replace(cfg, n_layers=n)
+
+
+def grads_on(model, params, batch, dev):
+    """``(loss, {leaf name: grad})`` on ``dev`` in the params' dtype."""
+    from repro_torch.tree import leaf_paths
+    prm = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
+                   params)
+    paths = leaf_paths(prm)
+    loss = model.loss_fn(prm, {k: v.to(dev) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, [t for _, t in paths])
+    return float(loss.detach()), {
+        "__".join(map(str, p)): g.detach().cpu() for (p, _), g in
+        zip(paths, grads)}
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| over max |want| (relative in max-norm)."""
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def train_numerics(smi, seed) -> dict:
+    """Loss and every grad on the card against the CPU in f32 (TF32
+    off, ``conditioned`` params, a ``TRAIN_CHECK_B`` x ``TRAIN_CHECK_S``
+    batch) for four cuts at full width: internlm2-1.8b's first 2 layers,
+    granite-moe-1b-a400m's (MoE), zamba2-1.2b's first group, xlstm-125m's
+    first 8 blocks; within ``TRAIN_RTOL`` relative in max-norm.  Then
+    the remat policies on the card: ``"full"`` and ``"dots"`` against
+    ``"none"`` for the internlm2 and zamba cuts (the families with
+    remat), within the same bound, their bit equality printed."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    per, remat = {}, {}
+    try:
+        for arch in (TRAIN_ARCH, "granite-moe-1b-a400m", "zamba2-1.2b",
+                     "xlstm-125m"):
+            cfg = cut_config(arch)
+            model = build_model(cfg)
+            g = torch.Generator(device="cpu").manual_seed(seed + 23)
+            params = conditioned(tree_map(
+                lambda t: t.float(), model.init_params(g, "cpu")))
+            shape = (TRAIN_CHECK_B, TRAIN_CHECK_S)
+            batch = {"tokens": torch.randint(0, cfg.vocab, shape,
+                                             generator=g),
+                     "labels": torch.randint(0, cfg.vocab, shape,
+                                             generator=g),
+                     "mask": torch.ones(shape)}
+            t0 = time.perf_counter()
+            card = grads_on(model, params, batch, CARD)
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = grads_on(model, params, batch, "cpu")
+            cpu_s = time.perf_counter() - t0
+            errs = {k: rel_max(card[1][k], cpu[1][k]) for k in cpu[1]}
+            worst = max(errs, key=errs.get)
+            row = {"layers": cfg.n_layers, "remat": cfg.remat,
+                   "loss_card": card[0], "loss_cpu": cpu[0],
+                   "loss_rel_err": abs(card[0] - cpu[0]) / abs(cpu[0]),
+                   "grad_max_rel_err": errs[worst], "worst_leaf": worst,
+                   "finite": all(bool(torch.isfinite(t).all())
+                                 for t in card[1].values()),
+                   "card_s": card_s, "cpu_s": cpu_s}
+            per[arch] = row
+            if not (row["finite"] and row["loss_rel_err"] <= TRAIN_RTOL
+                    and row["grad_max_rel_err"] <= TRAIN_RTOL):
+                raise AssertionError(f"{arch}: card vs CPU f32 grads: {row}")
+            if cfg.arch in ("lm", "zamba") and cfg.moe is None:
+                base = None
+                for policy in ("none", "full", "dots"):
+                    m = build_model(dataclasses.replace(cfg, remat=policy))
+                    out = grads_on(m, params, batch, CARD)
+                    if base is None:
+                        base = out
+                        continue
+                    err = max(rel_max(out[1][k], base[1][k])
+                              for k in base[1])
+                    bits = (out[0] == base[0] and all(
+                        torch.equal(out[1][k], base[1][k]) for k in base[1]))
+                    remat[f"{arch}:{policy}"] = {
+                        "grad_max_rel_err_vs_none": err,
+                        "bit_identical": bits}
+                    if err > TRAIN_RTOL or abs(out[0] - base[0]) > \
+                            TRAIN_RTOL * abs(base[0]):
+                        raise AssertionError(
+                            f"{arch}: remat {policy} differs from none by "
+                            f"{err}")
+            del params, card, cpu
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.backends.cudnn.allow_tf32 = tf32[1]
+        torch.cuda.empty_cache()
+    out = {"batch": TRAIN_CHECK_B, "seq": TRAIN_CHECK_S,
+           "rtol": TRAIN_RTOL, "card_vs_cpu_f32": per, "remat_on_card": remat}
+    emit("train_numerics", card=smi, **out,
+         params="draws in f32, conditioned (chip_smoke.conditioned)")
+    return out
+
+
+def phase_train(rng, seed, smi, tmp, profile=False) -> dict:
+    """Phase 15: ``Trainer`` over internlm2-1.8b at full width and depth
+    (bf16 params, AdamW, ``remat="full"``) on ``launch/train.py``'s data
+    path, ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
+    tokens with a checkpoint every ``TRAIN_CKPT_EVERY``: run 1 crashes at
+    step ``TRAIN_CRASH_AT``; run 2, a fresh trainer and loader on the
+    same directory, resumes at 6 and ends at 12.  Checks: every loss
+    finite, run 2's replayed steps equal run 1's, the final checkpoint
+    restores bit for bit, the held-out loss before and after; then
+    ``train_numerics``.  Emits ``train_setup``, ``train`` (and
+    ``train_profile`` with ``profile``)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import (IndexedTokenDataset, PackedTokenStore,
+                                  ShardedLoader)
+    from repro_torch.kernels.gap_place import ingest_place
+    from repro_torch.kernels.lookup import fused_lookup
+    from repro_torch.models import build_model
+    from repro_torch.train import (CheckpointManager, FailureInjector,
+                                   TrainConfig, Trainer)
+    from repro_torch.tree import leaf_paths
+    cfg = ARCHS[TRAIN_ARCH]
+    if (cfg.remat, cfg.optimizer) != ("full", "adamw"):
+        raise AssertionError(f"{cfg.name}: remat {cfg.remat}, optimizer "
+                             f"{cfg.optimizer}")
+    model = build_model(cfg)
+    baseline = torch.cuda.memory_allocated()
+    ckpt_dir = Path(tmp) / "train_ckpt"
+    need = 2 * state_bytes(model)
+    free = shutil.disk_usage(tmp).free
+    if free < need * 1.05:
+        raise AssertionError(f"{tmp}: {free / 1e9:.1f} GB free, two "
+                             f"checkpoints need {need / 1e9:.1f} GB")
+    t0 = time.perf_counter()
+    store = PackedTokenStore.synthetic(TRAIN_DOCS, mean_len=TRAIN_SEQ + 1,
+                                       vocab=cfg.vocab, seed=seed)
+
+    def loader():
+        ds = IndexedTokenDataset.build(store, method="pgm", sample_rate=0.1,
+                                       gap_rho=0.15, device=CARD)
+        return ShardedLoader(ds, global_batch=TRAIN_BATCH,
+                             seq_len=TRAIN_SEQ, seed=seed)
+
+    tcfg = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP,
+                       schedule="cosine", ckpt_every=TRAIN_CKPT_EVERY,
+                       ckpt_dir=str(ckpt_dir), keep_ckpts=1, log_every=1)
+    held = loader()
+    held.seek(TRAIN_HELDOUT_STEP)
+    trainer1 = Trainer(model, tcfg, loader(),
+                       failure_injector=FailureInjector(
+                           {TRAIN_CRASH_AT: "crash"}), device=CARD)
+    heldout = trainer1.device_batch(held.next_batch())
+    with torch.no_grad():
+        p0 = model.init_params(
+            torch.Generator(device=CARD).manual_seed(seed), CARD)
+        loss_before = float(model.loss_fn(p0, heldout))
+        del p0
+    setup_s = time.perf_counter() - t0
+    emit("train_setup", card=smi, arch=cfg.name,
+         params=model.param_count(), remat=cfg.remat,
+         optimizer=cfg.optimizer, tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+         state_bytes=state_bytes(model), tmp_free_bytes=free,
+         setup_seconds=setup_s)
+
+    fused_lookup.launches = 0
+    ingest_place.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    probe1 = TrainProbe(trainer1)
+    t0 = time.perf_counter()
+    try:
+        trainer1.run(seed=seed)
+        raise AssertionError(f"run 1 did not crash at {TRAIN_CRASH_AT}")
+    except RuntimeError as e:
+        if f"injected crash at step {TRAIN_CRASH_AT}" not in str(e):
+            raise
+    # the crash is injected into a live process: its async save of
+    # step 6 completes before the restart reads the directory
+    trainer1.ckpt.wait()
+    trainer1.watchdog.close()
+    run1_s = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated()
+    run1 = trainer1.metrics
+    if [m["step"] for m in run1] != list(range(1, TRAIN_CRASH_AT + 1)):
+        raise AssertionError(f"run 1 logged {[m['step'] for m in run1]}")
+    latest = CheckpointManager(str(ckpt_dir)).latest_step()
+    if latest != TRAIN_CKPT_EVERY:
+        raise AssertionError(f"latest checkpoint {latest}, not "
+                             f"{TRAIN_CKPT_EVERY}")
+    del trainer1
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    loader2 = loader()
+    trainer2 = Trainer(model, tcfg, loader2, device=CARD)
+    probe2 = TrainProbe(trainer2)
+    t0 = time.perf_counter()
+    out = trainer2.run(seed=seed)
+    run2_s = time.perf_counter() - t0
+    resume_peak = torch.cuda.max_memory_allocated()
+    launches = {"fused_lookup": fused_lookup.launches,
+                "ingest_place": ingest_place.launches}
+    run2 = out["metrics"]
+    if [m["step"] for m in run2] != list(range(TRAIN_CKPT_EVERY + 1,
+                                               TRAIN_STEPS + 1)):
+        raise AssertionError(f"run 2 logged {[m['step'] for m in run2]}")
+    if loader2.step != TRAIN_STEPS:
+        raise AssertionError(f"loader at {loader2.step}, not {TRAIN_STEPS}")
+    losses = [m["loss"] for m in run1 + run2]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    replay = {m["step"]: m for m in run2 if m["step"] <= TRAIN_CRASH_AT}
+    diffs = {s: abs(replay[s]["loss"] - run1[s - 1]["loss"])
+             / abs(run1[s - 1]["loss"]) for s in replay}
+    replay_err = max(diffs.values())
+    if replay_err > TRAIN_RTOL:
+        raise AssertionError(f"replayed steps differ: {diffs}")
+    state = out["state"]
+    replay_op = None
+    if replay_err != 0.0:
+        # name where the nondeterminism is: two loss_and_grads on one
+        # state and batch, the loss and the grad leaves that differ
+        la, ga = trainer2.loss_and_grads(state["params"], heldout)
+        lb, gb = trainer2.loss_and_grads(state["params"], heldout)
+        replay_op = {
+            "forward_equal": bool(torch.equal(la, lb)),
+            "grad_leaves_differing": [
+                "__".join(map(str, p)) for (p, a), (_, b) in zip(
+                    leaf_paths(ga), leaf_paths(gb))
+                if not torch.equal(a, b)][:8]}
+        del ga, gb
+
+    t0 = time.perf_counter()
+    restored, extra = CheckpointManager(str(ckpt_dir)).restore(
+        template=state)
+    verify_restore_s = time.perf_counter() - t0
+    bit_equal = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaf_paths(restored), leaf_paths(state)))
+    if not bit_equal or extra != {"step": TRAIN_STEPS,
+                                  "loader_step": TRAIN_STEPS}:
+        raise AssertionError(f"final checkpoint restores other state "
+                             f"(extra {extra})")
+    del restored
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        loss_after = float(model.loss_fn(state["params"], heldout))
+
+    steady = probe1.times()[1:] + probe2.times()[1:]
+    step_ms = [t[0] for t in steady]
+    opt_ms = [t[3] for t in steady]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_model_flops(cfg, model, tokens, TRAIN_SEQ)
+    p50 = pct(step_ms, 50)
+    ck = {k: probe1.ckpt_s[k] + probe2.ckpt_s[k] for k in probe1.ckpt_s}
+    result = {
+        "arch": cfg.name, "steps": TRAIN_STEPS, "crash_at": TRAIN_CRASH_AT,
+        "resumed_at": TRAIN_CKPT_EVERY, "tokens_per_step": tokens,
+        "losses_run1": [m["loss"] for m in run1],
+        "losses_run2": [m["loss"] for m in run2],
+        "gnorms": [m["gnorm"] for m in run1 + run2],
+        "replayed_steps_max_rel_diff": replay_err,
+        "replay_nondeterminism": replay_op,
+        "heldout_loss_before": loss_before, "heldout_loss_after": loss_after,
+        "final_checkpoint_restores_bit_for_bit": bit_equal,
+        "step_ms_p50": p50, "step_ms_p99": pct(step_ms, 99),
+        "forward_ms_p50": pct([t[1] for t in steady], 50),
+        "backward_ms_p50": pct([t[2] for t in steady], 50),
+        "optimizer_ms_p50": pct(opt_ms, 50),
+        "optimizer_share": sum(opt_ms) / sum(step_ms),
+        "first_step_ms": [probe1.times()[0][0], probe2.times()[0][0]],
+        "steps_timed": len(steady),
+        "tokens_per_second": tokens / (p50 / 1e3),
+        "model_flops_per_step": flops,
+        "mfu": flops / (p50 / 1e3) / H100_BF16_FLOPS,
+        "peak_memory_bytes": train_peak, "baseline_memory_bytes": baseline,
+        "resume_peak_memory_bytes": resume_peak,
+        "checkpoint_bytes": state_bytes(model),
+        "save_async_host_copy_s": ck["save_async"],
+        "async_wait_s": ck["wait"], "save_s": ck["save"],
+        "restore_s": ck["restore"] + [verify_restore_s],
+        "run1_wall_s": run1_s, "run2_wall_s": run2_s,
+        "launches": launches,
+    }
+    emit("train", card=smi, **result,
+         mfu_basis="6·N·T + 12·L·d_attn·S·T over 989 TFLOP/s (H100 SXM "
+                   "dense bf16); N = params less the input embedding",
+         step_timing="CUDA events around the forward, the backward "
+                     "(with the remat recomputation) and the optimizer, "
+                     "each run's first step left out",
+         memory="peak_memory_bytes: run 1 (init and 9 steps); "
+                "resume_peak_memory_bytes: run 2 (the restore holds "
+                "init_state's template beside the restored state); both "
+                "include baseline_memory_bytes, what earlier phases "
+                "still held when the phase began",
+         checkpoints="save_s: every write (run 1's step-6 async write, "
+                     "run 2's step-12 async write, then its final "
+                     "synchronous save of step 12, as the reference "
+                     "trainer writes them); save_async_host_copy_s: the "
+                     "copy to the host before each async write; "
+                     "async_wait_s: every wait (backpressure, after the "
+                     "crash, before the final save); restore_s: run 2's "
+                     "resume, then the final checkpoint's check")
+    if profile:
+        def two_steps():
+            for _ in range(2):
+                trainer2.train_step(
+                    state, trainer2.device_batch(loader2.next_batch()))
+        trace = traced(two_steps, smi, "train_profile", arch=cfg.name,
+                       steps=2)
+        result["profile"] = {
+            "launches_per_step": trace["device_ops"] / 2,
+            "device_idle_share": trace["device_idle_share"]}
+        emit("train_profile_launches", card=smi, arch=cfg.name,
+             **result["profile"])
+    del state, out, trainer2, probe1, probe2
+    torch.cuda.empty_cache()
+    result["numerics"] = train_numerics(smi, seed)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-keys", type=int, default=32_000_000)
     ap.add_argument("--fused-keys", type=int, default=0,
                     help="keys in phase 5's build (default: the largest "
                          "of 3.6M, 3.5M, 3.4M whose n_slots < 2^22)")
-    ap.add_argument("--fused-batches", type=int, default=0,
+    ap.add_argument("--fused-batches", type=int, default=64,
                     help="insert batches of the w = 0.3 traffic in phase 5 "
-                         "(default 0: all of the held-out keys)")
+                         "(0: all of the held-out keys, 151 batches)")
     ap.add_argument("--place-keys", type=int, default=0,
                     help="keys in phase 6's build (default: the largest "
                          "of 14.5M, 14M whose n_slots < 2^24)")
@@ -3626,9 +4096,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace three lookups per batch size (read "
                          "path and shard fan-out), two insert batches "
-                         "of each write path and eight decode rounds, "
-                         "with torch.profiler and print the device-time "
-                         "breakdown")
+                         "of each write path, eight decode rounds and "
+                         "two training steps with torch.profiler and "
+                         "print the device-time breakdown")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — nothing to run", file=sys.stderr)
@@ -3681,6 +4151,8 @@ def main() -> int:
     consumers = phase_consumers(rng, args.seed, smi)
     decode = phase_decode(rng, args.seed, smi, args.profile)
     recurrent = phase_recurrent(rng, args.seed, smi, args.profile)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train = phase_train(rng, args.seed, smi, tmp, args.profile)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the run")
 
@@ -3713,7 +4185,8 @@ def main() -> int:
                      + shard["launches"]["fused_lookup"]
                      + consumers["launches"]["fused_lookup"]
                      + decode["launches"]["fused_lookup"]
-                     + recurrent["launches"]["fused_lookup"]),
+                     + recurrent["launches"]["fused_lookup"]
+                     + train["launches"]["fused_lookup"]),
         "max_abs_err": max([b["max_abs_err"]
                             for b in main_res["per_batch"].values()]
                            + [r["fused_lookup_max_abs_err"]
@@ -3731,7 +4204,8 @@ def main() -> int:
                      + shard["launches"]["ingest_place"]
                      + consumers["launches"]["ingest_place"]
                      + decode["launches"]["ingest_place"]
-                     + recurrent["launches"]["ingest_place"]),
+                     + recurrent["launches"]["ingest_place"]
+                     + train["launches"]["ingest_place"]),
         "max_abs_err": max([place_timing["max_abs_err"]]
                            + [r["ingest_place_max_abs_err"]
                               for r in later_vs_plain]),
@@ -3803,7 +4277,16 @@ def main() -> int:
                  "step_byte_bound_ms", "launches")},
              "numerics": {k: o["numerics"][k] for k in (
                  "f32", "bf16", "first_group_card_vs_cpu_f32")}}
-             for arch, o in recurrent["per_arch"].items()})
+             for arch, o in recurrent["per_arch"].items()},
+         train={**{k: train[k] for k in (
+             "step_ms_p50", "step_ms_p99", "optimizer_share",
+             "tokens_per_second", "mfu", "peak_memory_bytes",
+             "save_s", "async_wait_s", "restore_s",
+             "replayed_steps_max_rel_diff", "heldout_loss_before",
+             "heldout_loss_after", "launches")},
+             "card_vs_cpu_f32": {
+                 a: r["grad_max_rel_err"] for a, r in
+                 train["numerics"]["card_vs_cpu_f32"].items()}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

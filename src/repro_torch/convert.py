@@ -19,7 +19,9 @@ shard in the form ``index_from_state`` takes.
 
 ``model_params_from_reference`` carries a reference model's param
 tree across (numpy leaves, nested dicts) into the port's tree of
-tensors, leaf for leaf.
+tensors, leaf for leaf; ``train_state_from_reference`` does the same
+for a reference trainer state (params, the AdamW or Adafactor slots,
+the compression residual).
 
 A snapshot on disk goes through ``Index.restore`` (``ShardedIndex
 .restore`` for a sharded one) instead.  Its pickle
@@ -43,7 +45,9 @@ from .core.links import CSRLinks
 from .core.mechanisms import MECHANISMS, PiecewiseLinearModel
 from .device import resolve_device
 
-__all__ = ["index_from_state", "sharded_from_state", "PLM_LEAVES"]
+__all__ = ["index_from_state", "sharded_from_state",
+           "model_params_from_reference", "train_state_from_reference",
+           "PLM_LEAVES"]
 
 PLM_LEAVES = ("seg_first_key", "slope", "icept", "err_lo", "err_hi")
 
@@ -124,3 +128,19 @@ def model_params_from_reference(tree, device=None, dtype=None):
         return leaf(node)
 
     return walk(tree)
+
+
+def train_state_from_reference(state, device=None, dtype=None):
+    """The port's trainer state for a reference ``Trainer`` state given
+    as numpy arrays (``{"params", "opt", "residual"}``, nested dicts):
+    every leaf a copy on ``device`` (cuda unless ``"cpu"``), in its own
+    dtype (bf16 leaves through f32, which is lossless).  ``dtype``, a
+    torch float dtype, casts the params alone (the optimizer keeps its
+    f32 moments and bf16 momentum, the residual its f32); the 0-d
+    ``step`` stays int32."""
+    return {
+        "params": model_params_from_reference(state["params"], device,
+                                              dtype),
+        "opt": model_params_from_reference(state["opt"], device),
+        "residual": model_params_from_reference(state["residual"], device),
+    }

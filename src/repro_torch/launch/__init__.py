@@ -1,1 +1,2 @@
-"""Launchers of the port: the serving entry point (``serve.py``)."""
+"""Launchers of the port: the serving (``serve.py``) and training
+(``train.py``) entry points."""

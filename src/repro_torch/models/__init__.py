@@ -1,5 +1,6 @@
-"""Model substrate of the port: the decode paths of the reference's
-``repro.models`` in torch.
+"""Model substrate of the port: the reference's ``repro.models`` in
+torch, the training losses (differentiable by autograd, under the
+remat policies of ``base.remat``) and the decode paths.
 
 base.py      param specs + the shared layers (GQA, RoPE, MLP, norms)
 moe.py       top-k capacity MoE (the scatter-dispatch implementation)
@@ -10,7 +11,7 @@ ssm.py       Mamba-2 (SSD) block: chunked form + decode recurrence
 zamba.py     Zamba2 hybrid: Mamba-2 backbone + one shared attention block
 xlstm.py     xLSTM cells: mLSTM (chunked + recurrent) and sLSTM
 xlstm_lm.py  xLSTM-125M language model (7:1 mLSTM:sLSTM)
-api.py       the ``Model`` facade the serving engine drives
+api.py       the ``Model`` facade the trainer and serving engine drive
 """
 
 from .api import Model, build_model

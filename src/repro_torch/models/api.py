@@ -5,7 +5,7 @@ a :class:`Model` exposing:
 
   param_specs / init_params(generator, device)
   param_count / active_param_count
-  loss_fn(params, batch, constrain)           -> scalar
+  loss_fn(params, batch, constrain)           -> scalar (autograd backward)
   prefill_fn(params, batch, cache, constrain) -> (logits, cache)   [if any]
   decode_fn(params, batch, cache, idx, constrain) -> (logits, cache)
   init_caches(batch, max_len, device)         -> the reference's layouts

@@ -24,6 +24,28 @@ JAX part named where they are handled:
   torch indexing raises; the serving engine's tokens are always below
   ``vocab`` (prompt tokens are reduced modulo ``vocab``, sampled ones
   are argmax / draws over the real vocabulary), so no clamp is needed.
+
+The backward pass is ``torch.autograd``'s over these functions.  Two
+helpers serve it: ``layer_list`` splits stacked ``(L, ...)`` params
+into per-layer views with one ``unbind`` (its backward stacks the
+layers' grads once, where ``L`` separate ``t[i]`` selects would each
+scatter into a zero tensor of the whole stack), and ``remat`` applies
+the reference's ``REMAT_POLICIES`` (``lm.py``) to a layer body:
+
+* ``"none"``: the body as is (autograd saves what it needs);
+* ``"full"`` (``nothing_saveable``): ``torch.utils.checkpoint`` around
+  the body, non-reentrant: only the body's inputs are kept and the
+  body runs again in the backward;
+* ``"dots"`` (``dots_with_no_batch_dims_saveable``): selective
+  checkpointing that saves the outputs of the products with no batch
+  dimension — ``aten.mm`` and the batch-1 ``aten.bmm`` a
+  ``torch.einsum`` without batch dims becomes (the weight products) —
+  and recomputes the rest (the attention products, norms, gates).
+  The batch dims are read from the ``bmm``'s size, so an attention
+  product whose batch and KV heads are both 1 is saved too.
+
+Either way the recomputation gives the same values, so the grads do not
+change.  A body runs as is when grad is disabled.
 """
 
 from __future__ import annotations
@@ -40,7 +62,8 @@ Params = Dict[str, Any]
 __all__ = ["P", "Params", "init_params", "map_specs", "padded_vocab",
            "rms_norm", "rope", "attention_specs", "gqa_attention",
            "mlp_specs", "mlp", "softmax_xent", "causal_additive_mask",
-           "mm", "einsum", "layer_slice"]
+           "mm", "einsum", "layer_slice", "layer_list", "remat",
+           "REMAT_POLICIES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +123,55 @@ def layer_slice(tree, i: int):
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(layer_slice(v, i) for v in tree))
     return tree[i]
+
+
+def layer_list(tree, n: int) -> list:
+    """The ``n`` layers of a stacked ``(L, ...)`` param tree (dicts of
+    tensors) as a list of per-layer trees: one ``unbind`` a tensor."""
+    if isinstance(tree, dict):
+        per = {k: layer_list(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    parts = torch.unbind(tree, 0)
+    if len(parts) != n:
+        raise ValueError(f"stacked dim {len(parts)} != {n} layers")
+    return list(parts)
+
+
+REMAT_POLICIES = ("none", "full", "dots")
+
+
+def _saves_dot(op, args) -> bool:
+    aten = torch.ops.aten
+    return (op is aten.mm.default
+            or (op is aten.bmm.default and args[0].shape[0] == 1))
+
+
+def _dots_context():
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if _saves_dot(op, args)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def remat(fn, policy: str):
+    """``fn`` under the remat ``policy`` (see the module doc)."""
+    if policy not in REMAT_POLICIES:
+        raise KeyError(policy)
+    if policy == "none":
+        return fn
+
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        from torch.utils.checkpoint import checkpoint
+        if policy == "full":
+            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_dots_context, **kwargs)
+    return wrapped
 
 
 # ---------------------------------------------------------------------------

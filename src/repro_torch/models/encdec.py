@@ -5,7 +5,9 @@ The counterpart of ``repro.models.encdec``.  Encoder: bidirectional
 self-attention over precomputed frame embeddings (the conv stem is a
 stub: the batch supplies (B, F, D) frames).  Decoder: causal
 self-attention + cross-attention to the encoder output.  Serving: the
-decoder step with a self-KV cache and a precomputed cross-KV.
+decoder step with a self-KV cache and a precomputed cross-KV.  The
+encoder and decoder layer bodies of ``loss_fn`` run under ``cfg.remat``
+(``base.remat``), as the reference's at ``encdec.py:67,121``.
 """
 
 from __future__ import annotations
@@ -17,10 +19,12 @@ from .base import (
     attention_specs,
     einsum,
     gqa_attention,
+    layer_list,
     layer_slice,
     mlp,
     mlp_specs,
     padded_vocab,
+    remat,
     rms_norm,
     softmax_xent,
 )
@@ -64,13 +68,17 @@ def encode(params, frames, cfg, constrain):
     x = constrain(x, ("batch", None, "embed"))
     B, F = x.shape[0], x.shape[1]
     positions = _positions(B, F, x.device)
-    for i in range(cfg.n_enc_layers):
-        lp = layer_slice(params["enc_layers"], i)
-        a, _ = gqa_attention(lp["attn"], rms_norm(x, lp["ln_attn"]),
+
+    def body(lp, h):
+        a, _ = gqa_attention(lp["attn"], rms_norm(h, lp["ln_attn"]),
                              positions, causal=False,
                              rope_theta=cfg.rope_theta)
-        x = constrain(x + a, ("batch", None, "embed"))
-        x = x + mlp(lp["mlp"], rms_norm(x, lp["ln_mlp"]))
+        h = constrain(h + a, ("batch", None, "embed"))
+        return h + mlp(lp["mlp"], rms_norm(h, lp["ln_mlp"]))
+
+    body = remat(body, cfg.remat)
+    for lp in layer_list(params["enc_layers"], cfg.n_enc_layers):
+        x = body(lp, x)
     return rms_norm(x, params["ln_enc"])
 
 
@@ -105,10 +113,14 @@ def loss_fn(params, batch, cfg, constrain=None):
     x = constrain(x, ("batch", None, "embed"))
     B, S = x.shape[0], x.shape[1]
     positions = _positions(B, S, x.device)
-    for i in range(cfg.n_layers):
-        x, _ = _dec_layer(cfg, constrain,
-                          layer_slice(params["dec_layers"], i), x,
-                          positions, enc_out=enc_out)
+
+    def body(lp, h):
+        return _dec_layer(cfg, constrain, lp, h, positions,
+                          enc_out=enc_out)[0]
+
+    body = remat(body, cfg.remat)
+    for lp in layer_list(params["dec_layers"], cfg.n_layers):
+        x = body(lp, x)
     hidden = rms_norm(x, params["ln_f"])
     logits = logits_fn(params, hidden, cfg, constrain)
     return softmax_xent(logits, batch["labels"], batch.get("mask"))

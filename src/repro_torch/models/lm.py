@@ -5,10 +5,13 @@ kimi-k2-1t-a32b, yi-9b, internlm2-1.8b, minicpm-2b and qwen1.5-32b,
 and serves as the text backbone of internvl2-2b (``vlm.py``).
 
 The layer params stay stacked ``(L, ...)`` as in the reference, and a
-Python loop indexes them (the reference's ``lax.scan`` computes the
-same layers in the same order).  ``cfg.remat`` is ignored: there is no
-backward pass in this package.  ``constrain(tensor, logical_axes)`` is
-the reference's sharding hook, the identity here.
+Python loop runs them (the reference's ``lax.scan`` computes the same
+layers in the same order).  ``forward`` is the training path: each
+layer body runs under ``cfg.remat`` (``base.remat``, the reference's
+``REMAT_POLICIES`` at ``lm.py:32``) over ``base.layer_list``'s
+per-layer views, and ``loss_fn`` is differentiable by autograd.
+``constrain(tensor, logical_axes)`` is the reference's sharding hook,
+the identity here.
 """
 
 from __future__ import annotations
@@ -25,11 +28,13 @@ from .base import (
     causal_additive_mask,
     einsum,
     gqa_attention,
+    layer_list,
     layer_slice,
     map_specs,
     mlp,
     mlp_specs,
     padded_vocab,
+    remat,
     rms_norm,
     softmax_xent,
 )
@@ -111,9 +116,14 @@ def forward(params, tokens, cfg, constrain=None, *, embedded=None):
     B, S = x.shape[0], x.shape[1]
     positions = _positions(B, S, x.device)
     attn_mask = causal_additive_mask(positions)  # hoisted out of layers
-    for i in range(cfg.n_layers):
-        x, _ = _layer_fwd(cfg, constrain, layer_slice(params["layers"], i),
-                          x, positions, attn_mask=attn_mask)
+
+    def body(lp, h):
+        return _layer_fwd(cfg, constrain, lp, h, positions,
+                          attn_mask=attn_mask)[0]
+
+    body = remat(body, cfg.remat)
+    for lp in layer_list(params["layers"], cfg.n_layers):
+        x = body(lp, x)
     return rms_norm(x, params["ln_f"])
 
 

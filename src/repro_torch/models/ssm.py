@@ -18,6 +18,7 @@ kernel.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -103,8 +104,14 @@ def ssd_chunked(xh, b, c, dt_a, chunk: int):
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,G,t,s,H)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=xh.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(seg),
-                    torch.zeros((), dtype=seg.dtype, device=seg.device))
+    # masked BEFORE the exp: above the diagonal seg is the (positive)
+    # log decay from s back to t, whose exp overflows to inf once a
+    # chunk decays by more than e^88; the reference's where(tri,
+    # exp(seg), 0) gives the same values but a 0 * inf = NaN gradient
+    # there (ROADMAP queue C)
+    L = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                              torch.full((), -math.inf, dtype=seg.dtype,
+                                         device=seg.device)))
     gbc = einsum("bgtn,bgsn->bgts", c, b).float()
     y_intra = einsum("bgts,bgtsh,bgshp->bgthp", gbc, L, xh)
 

@@ -65,7 +65,8 @@ def forward(params, tokens, cfg, constrain=None, *, caches=None):
 
 
 def loss_fn(params, batch, cfg, constrain=None):
-    """Next-token CE (the value; the backward is ROADMAP A13c)."""
+    """Next-token CE, differentiable by autograd (no remat: the
+    reference's xLSTM has none)."""
     hidden, _ = forward(params, batch["tokens"], cfg, constrain)
     logits = logits_fn(params, hidden, cfg, constrain)
     return softmax_xent(logits, batch["labels"], batch.get("mask"))

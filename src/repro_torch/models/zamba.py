@@ -4,7 +4,9 @@ block applied every ``attn_every`` layers (arXiv:2411.15242).
 The counterpart of ``repro.models.zamba``.  The shared block attends
 over ``[hidden ; original embedding]`` concatenated (width 2·d_model)
 and projects back to d_model; at decode it keeps one KV cache per
-application.  ``cfg.remat`` is ignored (no backward pass here).
+application.  Without caches (training) each Mamba layer body runs
+under ``cfg.remat`` (``base.remat``), as the reference's at
+``zamba.py:98-115``; the shared block does not, as there.
 
 With caches, each Mamba layer's new conv window and SSM state are
 written INTO the stacked ``(L, ...)`` cache tensors, and the shared
@@ -26,11 +28,13 @@ from .base import (
     P,
     attention_specs,
     gqa_attention,
+    layer_list,
     layer_slice,
     mlp,
     mlp_specs,
     mm,
     padded_vocab,
+    remat,
     rms_norm,
     softmax_xent,
 )
@@ -110,15 +114,22 @@ def forward(params, tokens, cfg, constrain=None, *, caches=None,
     if caches is not None:
         conv, state = caches["ssm"].conv, caches["ssm"].state
 
+    def mamba_body(lp, h, cache=None):
+        o, nc = mamba2_forward(
+            lp["ssm"], rms_norm(h, lp["ln"]), n_heads=n_heads,
+            head_dim=head_dim, d_state=d_state, cache=cache)
+        return constrain(h + o, ("batch", None, "embed")), nc
+
+    if caches is None:   # training: remat over per-layer views
+        body = remat(mamba_body, cfg.remat)
+        layers = layer_list(params["mamba_layers"], cfg.n_layers)
     app = 0
     for i in range(cfg.n_layers):
-        lp = layer_slice(params["mamba_layers"], i)
-        cache_i = (None if caches is None
-                   else layer_slice(SSMCache(conv, state), i))
-        o, nc = mamba2_forward(
-            lp["ssm"], rms_norm(x, lp["ln"]), n_heads=n_heads,
-            head_dim=head_dim, d_state=d_state, cache=cache_i)
-        x = constrain(x + o, ("batch", None, "embed"))
+        if caches is None:
+            x, nc = body(layers[i], x)
+        else:
+            x, nc = mamba_body(layer_slice(params["mamba_layers"], i), x,
+                               layer_slice(SSMCache(conv, state), i))
         if nc is not None:
             if nc.conv.dtype != conv.dtype:  # see the module doc
                 conv = conv.to(nc.conv.dtype)
@@ -139,7 +150,7 @@ def forward(params, tokens, cfg, constrain=None, *, caches=None,
 
 
 def loss_fn(params, batch, cfg, constrain=None):
-    """Next-token CE (the value; the backward is ROADMAP A13c)."""
+    """Next-token CE, differentiable by autograd."""
     hidden, _ = forward(params, batch["tokens"], cfg, constrain)
     logits = logits_fn(params, hidden, cfg, constrain)
     return softmax_xent(logits, batch["labels"], batch.get("mask"))

@@ -1,0 +1,30 @@
+"""Optimizers + schedules: the counterpart of ``repro.optim``.
+
+adamw.py      AdamW with decoupled weight decay and global-norm clipping
+adafactor.py  factored second moment + bf16 momentum — the 1T-param path
+schedules.py  cosine and WSD (warmup-stable-decay, MiniCPM) schedules
+compress.py   error-feedback int8 gradient compression for DP all-reduce
+"""
+
+from .adamw import adamw_init, adamw_update
+from .adafactor import adafactor_init, adafactor_update
+from .schedules import cosine_schedule, wsd_schedule
+from .compress import compress_decompress, ef_compress_update, residual_init
+
+OPTIMIZERS = {
+    "adamw": (adamw_init, adamw_update),
+    "adafactor": (adafactor_init, adafactor_update),
+}
+
+__all__ = [
+    "OPTIMIZERS",
+    "adamw_init",
+    "adamw_update",
+    "adafactor_init",
+    "adafactor_update",
+    "cosine_schedule",
+    "wsd_schedule",
+    "compress_decompress",
+    "ef_compress_update",
+    "residual_init",
+]

@@ -1,23 +1,36 @@
-"""Atomic array checkpoints in the reference's on-disk layout, without
-JAX.
+"""Atomic, async array checkpoints in the reference's on-disk layout,
+without JAX.
 
 Layout (``repro.train.checkpoint.CheckpointManager``'s): ``<dir>/
-step_<k:08d>/`` with one fsynced ``<leaf>.npy`` per array and a
+step_<k:08d>/`` with one fsynced ``<leaf>.npy`` per leaf and a
 ``manifest.json`` holding ``step``, ``leaves``, ``dtypes``, ``treedef``
 and ``extra``.  A save writes ``step_<k>.tmp`` and renames it only
 after every file is fsynced, so a torn write never shadows the newest
-good checkpoint; ``keep`` bounds the published steps.
+good checkpoint; ``keep`` bounds the published steps.  ``save_async``
+runs the write in a daemon thread, at most one in flight.
 
-The state is a flat dict of numpy arrays.  Its leaves are written in
-sorted key order, the order in which JAX flattens a dict: the
-reference's ``Index.restore`` unflattens the listed arrays against a
-same-keyed template, so a snapshot that listed them in any other order
-would hand it the wrong array under a name.  ``treedef`` is written as
-an empty string: the reference serializes JAX's tree structure there,
-which cannot be built without JAX, and the index snapshots that this
-package writes and reads never consult the field (the reference
-restores them against its template).  ``restore`` maps the listed
-names to their arrays and does not read ``treedef`` either.
+The state is a tree (``repro_torch.tree``) of dicts, sequences and
+NamedTuples over tensors or numpy arrays.  Its leaves are listed in the
+order JAX flattens it (sorted keys at every level, not the sorted
+joined names: xLSTM's ``b1``, ``b10``, ``b11`` sort differently the two
+ways) and named as the reference's ``_leafname`` names them, the path's
+keys joined by ``__`` (``params__layers__attn__wq``).  The reference
+restores a checkpoint by unflattening the listed arrays against a
+template in that order, so both packages restore each other's files.
+A flat dict of arrays (the index snapshots) is the one-level case.
+
+* bf16 leaves are written as the reference writes them: numpy stores an
+  ``ml_dtypes.bfloat16`` array with the descriptor ``'<V2'`` and the
+  manifest names ``"bfloat16"``; the port writes the tensor's bits
+  under that header (through a 16-bit integer view: the card's machine
+  has no ``ml_dtypes``) and reads a ``V2`` leaf back the same way.
+* ``treedef`` is written as an empty string: the reference serializes
+  JAX's tree structure there, which cannot be built without JAX, and
+  restores trainer and index checkpoints against a template instead.
+* ``restore(template=...)`` unflattens against the template (the leaf
+  names must be the template's) and puts each leaf on the device of the
+  template's leaf; without a template it returns the flat dict of
+  listed names to numpy arrays (bf16 leaves as bf16 tensors).
 """
 
 from __future__ import annotations
@@ -25,37 +38,79 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Dict, Optional, Tuple
+import threading
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..tree import leaf_paths, unflatten
 
 __all__ = ["CheckpointManager"]
 
+_BF16_DESCR = "<V2"
+
+
+def _leafname(path) -> str:
+    return "__".join(str(k) for k in path) or "root"
+
+
+def _host(leaf, copy: bool = False):
+    """A leaf on the host: a CPU tensor or a numpy array (a copy when
+    ``copy``, else host data as it is)."""
+    if torch.is_tensor(leaf):
+        return leaf.detach().to("cpu", copy=copy)
+    return np.array(leaf, copy=True) if copy else np.asarray(leaf)
+
+
+def _write_leaf(f, leaf) -> str:
+    """Write one leaf as a ``.npy``; returns its manifest dtype."""
+    if torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16:
+        bits = leaf.contiguous().view(torch.int16).numpy()
+        header = np.lib.format.header_data_from_array_1_0(bits)
+        header["descr"] = _BF16_DESCR
+        np.lib.format.write_array_header_1_0(f, header)
+        f.write(memoryview(bits).cast("B"))
+        return "bfloat16"
+    arr = leaf.numpy() if torch.is_tensor(leaf) else np.asarray(leaf)
+    np.save(f, arr)
+    return str(arr.dtype)
+
+
+def _read_leaf(path: str, dtype: Optional[str]):
+    arr = np.load(path)
+    if arr.dtype.kind == "V" and dtype is not None:
+        if dtype != "bfloat16":
+            raise ValueError(f"{path}: raw {arr.dtype} leaf of dtype {dtype}")
+        return torch.from_numpy(
+            arr.view(np.int16).copy()).view(torch.bfloat16)
+    return arr
+
 
 class CheckpointManager:
-    """Save, list, restore and garbage-collect checkpoints of a flat
-    dict of numpy arrays under ``directory``."""
+    """Save, list, restore and garbage-collect checkpoints of a tree of
+    arrays under ``directory``."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = str(directory)
         self.keep = keep
         os.makedirs(self.directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
 
-    def save(self, step: int, state: Dict[str, np.ndarray],
-             extra: Optional[Dict] = None) -> str:
+    def save(self, step: int, state: Any, extra: Optional[Dict] = None) -> str:
         """Publish ``state`` as ``step_<step>``; returns its directory."""
         final = os.path.join(self.directory, f"step_{step:08d}")
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        names = sorted(state)
+        names = []
         dtypes = []
-        for name in names:
-            arr = np.asarray(state[name])
-            dtypes.append(str(arr.dtype))
+        for path, leaf in leaf_paths(state):
+            name = _leafname(path)
+            names.append(name)
             with open(os.path.join(tmp, name + ".npy"), "wb") as f:
-                np.save(f, arr)
+                dtypes.append(_write_leaf(f, _host(leaf)))
                 f.flush()
                 os.fsync(f.fileno())
         manifest = {
@@ -75,6 +130,23 @@ class CheckpointManager:
         self._gc()
         return final
 
+    def save_async(self, step: int, state: Any, extra: Optional[Dict] = None):
+        """Backpressured async save: waits for any in-flight save, copies
+        every leaf to the host now (the trainer updates its tensors in
+        place), then writes in a daemon thread."""
+        self.wait()
+        paths = leaf_paths(state)
+        snapshot = unflatten(state, [_host(leaf, copy=True)
+                                     for _, leaf in paths])
+        self._thread = threading.Thread(
+            target=self.save, args=(step, snapshot, extra), daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
     def latest_step(self) -> Optional[int]:
         steps = []
         for d in os.listdir(self.directory):
@@ -85,10 +157,12 @@ class CheckpointManager:
                     continue
         return max(steps) if steps else None
 
-    def restore(self, step: Optional[int] = None
-                ) -> Tuple[Dict[str, np.ndarray], Dict]:
-        """``(state, extra)`` of ``step`` (the newest when None): each
-        listed leaf name mapped to its array."""
+    def restore(self, step: Optional[int] = None, template: Any = None
+                ) -> Tuple[Any, Dict]:
+        """``(state, extra)`` of ``step`` (the newest when None).  With a
+        ``template``: a tree of its shape, each leaf a tensor of the
+        file's dtype on the device of the template's leaf.  Without: the
+        listed names mapped to their arrays."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -96,9 +170,23 @@ class CheckpointManager:
         d = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        state = {n: np.load(os.path.join(d, n + ".npy"))
-                 for n in manifest["leaves"]}
-        return state, manifest["extra"]
+        names = manifest["leaves"]
+        dtypes = manifest.get("dtypes", [None] * len(names))
+        if template is None:
+            return ({n: _read_leaf(os.path.join(d, n + ".npy"), dt)
+                     for n, dt in zip(names, dtypes)}, manifest["extra"])
+        tpaths = leaf_paths(template)
+        want = [_leafname(p) for p, _ in tpaths]
+        if want != names:
+            raise ValueError(f"checkpoint {d} lists other leaves than the "
+                             f"template: {sorted(set(names) ^ set(want))[:5]}")
+        out = []
+        for (_, tleaf), n, dt in zip(tpaths, names, dtypes):
+            arr = _read_leaf(os.path.join(d, n + ".npy"), dt)
+            t = arr if torch.is_tensor(arr) else torch.from_numpy(arr)
+            dev = tleaf.device if torch.is_tensor(tleaf) else "cpu"
+            out.append(t.to(dev))
+        return unflatten(template, out), manifest["extra"]
 
     def _gc(self):
         steps = sorted(

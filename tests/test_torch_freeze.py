@@ -1,6 +1,7 @@
 """The port's host build and freeze equal the reference's, array for
 array: the verbatim core copies (and the verbatim serving, robustness
-and data copies, with ``MicroBatchQueue`` held by its syntax tree),
+and data copies, the trainer's fault primitives, with
+``MicroBatchQueue`` held by its syntax tree),
 the copied numpy freeze/sizing helpers, the copied ``configs/``, and
 whole builds at sample_rate 1.0 and 0.01 with equal seeds.  Inputs are
 made with numpy from a seed and handed to both."""
@@ -21,7 +22,8 @@ COPIED = ("links", "mechanisms", "sampling", "gaps", "results", "mdl",
           "tuning")
 COPIED_OUTSIDE_CORE = ("robustness/__init__.py", "robustness/faults.py",
                        "serving/pipeline.py", "data/__init__.py",
-                       "data/token_store.py", "data/pipeline.py")
+                       "data/token_store.py", "data/pipeline.py",
+                       "train/fault.py")
 CONFIG_FILES = tuple(sorted(
     p.name for p in (ROOT / "src" / "repro" / "configs").glob("*.py")))
 

@@ -28,7 +28,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.dist.sharded, repro_torch.kernels.shard_fanout\n"
         "import repro_torch.data, repro_torch.serving.kv_cache\n"
         "import repro_torch.configs, repro_torch.models\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.optim, repro_torch.train.train_loop\n"
+        "import repro_torch.train.fault, repro_torch.train.checkpoint\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(','.join(bad))\n")

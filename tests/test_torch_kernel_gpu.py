@@ -946,3 +946,71 @@ def test_xla_engine_on_the_card_equals_the_kernel_engine():
         assert np.array_equal(ge, ke)
         for f in gp:
             assert np.array_equal(gp[f], kp[f]), f
+
+
+@pytest.mark.gpu
+def test_reduced_trainer_on_the_card_checkpoints_and_restores(tmp_path):
+    """A few ``Trainer`` steps of ``reduced(internlm2-1.8b)`` on the card
+    (f32 params from the CPU's draw, TF32 off) with a checkpoint, a crash
+    and a resume: the card's per-step losses equal the CPU trainer's
+    within 1e-4 relative, the resumed run replays the crashed run's
+    steps, and the final checkpoint restores onto the card bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.data import (IndexedTokenDataset, PackedTokenStore,
+                                  ShardedLoader)
+    from repro_torch.models import build_model
+    from repro_torch.train import (CheckpointManager, FailureInjector,
+                                   TrainConfig, Trainer)
+    from repro_torch.tree import leaf_paths, tree_map
+    cfg = dataclasses.replace(reduced(ARCHS["internlm2-1.8b"]), remat="full")
+    model = build_model(cfg)
+    store = PackedTokenStore.synthetic(256, mean_len=33, vocab=cfg.vocab,
+                                       seed=0)
+
+    def trainer(dev, d, crash=None):
+        ds = IndexedTokenDataset.build(store, method="pgm", sample_rate=0.1,
+                                       device=dev)
+        loader = ShardedLoader(ds, global_batch=4, seq_len=32, seed=0)
+        tcfg = TrainConfig(total_steps=8, warmup_steps=2, ckpt_every=4,
+                           ckpt_dir=str(tmp_path / d), log_every=1)
+        tr = Trainer(model, tcfg, loader, device=dev,
+                     failure_injector=FailureInjector(crash or {}))
+        f32 = tree_map(lambda t: t.float(), model.init_params(
+            torch.Generator().manual_seed(0), "cpu"))
+        tr.init_state = lambda seed=0: {   # the CPU's draw on either device
+            "params": tree_map(lambda t: t.to(dev), f32),
+            "opt": tr._opt_init(tree_map(lambda t: t.to(dev), f32)),
+            "residual": tree_map(lambda t: torch.zeros(
+                (), device=dev), f32)}
+        return tr
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = trainer("cpu", "cpu").run()
+        crashed = trainer("cuda", "card", {6: "crash"})
+        with pytest.raises(RuntimeError, match="injected crash"):
+            crashed.run()
+        crashed.ckpt.wait()
+        crashed.watchdog.close()
+        resumed = trainer("cuda", "card")
+        out = resumed.run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    card = crashed.metrics[:4] + out["metrics"]
+    assert [m["step"] for m in card] == list(range(1, 9))
+    for g, w in zip(card, cpu["metrics"]):
+        assert abs(g["loss"] - w["loss"]) <= 1e-4 * abs(w["loss"]), (g, w)
+    for g, w in zip(out["metrics"][:2], crashed.metrics[4:6]):
+        assert abs(g["loss"] - w["loss"]) <= 1e-4 * abs(w["loss"])
+    assert resumed.loader.step == 8
+    got, extra = CheckpointManager(str(tmp_path / "card")).restore(
+        template=out["state"])
+    assert extra == {"step": 8, "loader_step": 8}
+    for (_, a), (_, b) in zip(leaf_paths(got), leaf_paths(out["state"])):
+        assert a.device.type == "cuda" and torch.equal(a, b)
