@@ -9,11 +9,12 @@ Drives ``repro_torch``'s main paths — build, freeze, batched lookups,
 the §5.3 write path, device Eq. 3, the legacy lookup backends, the
 range-sharded index, the serving stack, the index's consumers, LLM
 decode serving over the learned-index block table (a transformer, a
-Mamba-2 hybrid, an xLSTM) and training over the learned-index data
-path — on the card, and holds each hand-written CUDA kernel against its
-plain torch version.  Prints one JSON line per phase (they run in the
-order 1-9, 11, 10, 12, 13, 14, 15: phase 11 reuses the read phase's
-keys and index):
+Mamba-2 hybrid, an xLSTM), training over the learned-index data path
+and training sharded over a ``torch.distributed`` mesh — on the card,
+and holds each hand-written CUDA kernel against its plain torch
+version.  Prints one JSON line per phase (they run in the
+order 1-9, 11, 10, 12, 13, 14, 15, 16: phase 11 reuses the read
+phase's keys and index):
 
 1. environment and kernel build (one nvcc per source, in parallel, into
    build/repro_torch/);
@@ -223,7 +224,19 @@ keys and index):
    of internlm2-1.8b and granite-moe-1b-a400m at full width,
    zamba2-1.2b's first group and xlstm-125m's first 8 blocks, and
    ``remat="full"`` / ``"dots"`` against ``"none"`` on the card
-   (``train_numerics``).
+   (``train_numerics``);
+16. partitioning (``phase_partition``): one process in an ``nccl``
+   group of one (a file store under the phase's temporary directory,
+   destroyed at its end) and the mesh of ``make_mesh_for(1, 1)``.  Two
+   ``Trainer`` steps of internlm2-1.8b at full width and 2 layers on
+   ``launch/train.py``'s data path, once plain and once with the mesh's
+   ``activation_constrainer`` (the state sharded over the mesh): losses,
+   gnorms and every state leaf bit for bit; the sharded state's
+   checkpoint restored through ``elastic_restore`` onto (1, 1) bit for
+   bit; granite-moe-1b-a400m at full width and 2 layers in f32 with
+   ``moe_impl="ep"`` over the mesh against ``moe_gspmd``, the hidden
+   states within the reference's 2e-4 and loss and grads within 1e-3
+   (``partition``, with the phase's seconds).
 
 Scale: SOSD's key sets (Marcus et al., Benchmarking Learned Indexes,
 VLDB 2020) hold 200M keys; the read phase cuts that to 32M so the host
@@ -3656,11 +3669,12 @@ H100_BF16_FLOPS = 989e12         # H100 SXM data sheet, dense bf16
 
 
 class TrainProbe:
-    """Wraps a trainer's model loss, ``loss_and_grads`` and optimizer
-    update to time each step with CUDA events (the forward, the backward
-    with its recomputation, the optimizer), and its checkpoint manager's
-    calls with the host clock.  The wrappers call the trainer's own
-    functions and add no device work to a step."""
+    """Wraps a trainer's model loss, ``loss_and_grads`` and
+    ``train_step`` to time each step with CUDA events (the forward, the
+    backward with its recomputation, the rest of the step: the
+    optimizer, run a leaf at a time), and its checkpoint manager's calls
+    with the host clock.  The wrappers call the trainer's own functions
+    and add no device work to a step."""
 
     def __init__(self, trainer):
         import dataclasses
@@ -3668,7 +3682,7 @@ class TrainProbe:
         self.steps = []
         self.ckpt_s = {"save_async": [], "wait": [], "save": [],
                        "restore": []}
-        lg, upd = trainer.loss_and_grads, trainer._opt_update
+        lg, step = trainer.loss_and_grads, trainer.train_step
         loss_fn = trainer.model.loss_fn
         ck = trainer.ckpt
 
@@ -3688,8 +3702,8 @@ class TrainProbe:
             self._open.append(event())
             return out
 
-        def opt_update(*a, **kw):
-            out = upd(*a, **kw)
+        def train_step(*a, **kw):
+            out = step(*a, **kw)
             self.steps.append((*self._open, event()))
             return out
 
@@ -3704,8 +3718,8 @@ class TrainProbe:
                     self.ckpt_s[name].append(time.perf_counter() - t0)
             return run
 
-        trainer.loss_and_grads, trainer._opt_update = loss_and_grads, \
-            opt_update
+        trainer.loss_and_grads, trainer.train_step = loss_and_grads, \
+            train_step
         for name in self.ckpt_s:
             setattr(ck, name, timed(name, getattr(ck, name)))
 
@@ -4071,6 +4085,206 @@ def phase_train(rng, seed, smi, tmp, profile=False) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 16: partitioning over a one-rank mesh
+# ---------------------------------------------------------------------------
+
+PART_STEPS = 2
+PART_MOE_ARCH = "granite-moe-1b-a400m"   # configs/, full width
+PART_EP_ATOL = 2e-4                      # the reference's (test_moe_ep.py)
+
+
+def same_tree(a, b) -> bool:
+    """Leaf for leaf bit-identical (DTensors compared whole)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import leaf_paths
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+    pa, pb = leaf_paths(a), leaf_paths(b)
+    return [p for p, _ in pa] == [p for p, _ in pb] and all(
+        torch.equal(whole(x).detach(), whole(y).detach())
+        for (_, x), (_, y) in zip(pa, pb))
+
+
+def partition_train(seed, tmp, mesh, store) -> dict:
+    """``TRAIN_ARCH`` at full width and 2 layers (bf16, AdamW,
+    ``remat="full"``): ``PART_STEPS`` ``Trainer`` steps on
+    ``launch/train.py``'s data path, once without a constrainer and
+    once with ``activation_constrainer(mesh)`` (the state sharded over
+    the mesh); losses, gnorms and every state leaf bit for bit.  Then
+    the sharded state's checkpoint, restored through ``elastic_restore``
+    onto a (1, 1) mesh, bit for bit."""
+    from repro_torch.data import IndexedTokenDataset, ShardedLoader
+    from repro_torch.dist import activation_constrainer
+    from repro_torch.dist.partitioning import batch_shard
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.elastic import elastic_restore
+    cfg = cut_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    shard_id, n_shards = batch_shard(mesh)
+    runs = {}
+    for label, hook in (("plain", None),
+                        ("mesh", activation_constrainer(mesh,
+                                                        fsdp=cfg.fsdp))):
+        ds = IndexedTokenDataset.build(store, method="pgm", sample_rate=0.1,
+                                       gap_rho=0.15, device=CARD)
+        loader = ShardedLoader(ds, global_batch=TRAIN_BATCH,
+                               seq_len=TRAIN_SEQ, seed=seed,
+                               shard_id=shard_id, n_shards=n_shards)
+        tr = Trainer(model, TrainConfig(
+            total_steps=PART_STEPS, warmup_steps=1,
+            ckpt_dir=str(Path(tmp) / f"part_{label}")), loader,
+            constrain=hook, device=CARD)
+        state = tr.init_state(seed)
+        metrics, step_s = [], []
+        for _ in range(PART_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(tr.train_step(
+                state, tr.device_batch(loader.next_batch())))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        runs[label] = {"trainer": tr, "state": state, "step_s": step_s,
+                       "losses": [float(m["loss"]) for m in metrics],
+                       "gnorms": [float(m["gnorm"]) for m in metrics]}
+    plain, sharded = runs["plain"], runs["mesh"]
+    bits = (plain["losses"] == sharded["losses"]
+            and plain["gnorms"] == sharded["gnorms"]
+            and same_tree(plain["state"], sharded["state"]))
+    if not bits or not all(math.isfinite(x) for x in plain["losses"]):
+        raise AssertionError(
+            f"the mesh trainer differs: losses {plain['losses']} / "
+            f"{sharded['losses']}, gnorms {plain['gnorms']} / "
+            f"{sharded['gnorms']}")
+    tr = sharded["trainer"]
+    t0 = time.perf_counter()
+    tr.ckpt.save(PART_STEPS, sharded["state"], extra={"step": PART_STEPS})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, rmesh, extra = elastic_restore(
+        model, tr.cfg.ckpt_dir, template=plain["state"], device=CARD)
+    restore_s = time.perf_counter() - t0
+    restored_bits = (tuple(rmesh.shape) == (1, 1)
+                     and extra == {"step": PART_STEPS}
+                     and same_tree(restored, sharded["state"]))
+    if not restored_bits:
+        raise AssertionError("elastic_restore onto (1, 1) differs from the "
+                             "saved state")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "steps": PART_STEPS,
+           "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
+           "losses": sharded["losses"], "gnorms": sharded["gnorms"],
+           "bit_identical_with_and_without_mesh": bits,
+           "plain_step_s": plain["step_s"],
+           "mesh_step_s": sharded["step_s"],
+           "elastic_restore_bit_for_bit": restored_bits,
+           "checkpoint_bytes": dir_bytes(Path(tr.cfg.ckpt_dir)),
+           "checkpoint_save_s": save_s, "elastic_restore_s": restore_s}
+    del runs, plain, sharded, tr, restored
+    torch.cuda.empty_cache()
+    return out
+
+
+def partition_moe(seed, mesh) -> dict:
+    """``PART_MOE_ARCH`` at full width and 2 layers in f32 (TF32 off,
+    ``conditioned`` params, 2 x 64 tokens): the forward's hidden states
+    with ``moe_impl="ep"`` over the mesh (``moe_ep_shardmap``) against
+    ``moe_gspmd`` within the reference's 2e-4, and the loss and grads
+    through the trainer's ``loss_and_grads`` within ``TRAIN_RTOL``."""
+    import dataclasses
+
+    from repro_torch.dist import activation_constrainer
+    from repro_torch.models import build_model, lm
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaf_paths
+    cfg = cut_config(PART_MOE_ARCH)
+    ep_cfg = dataclasses.replace(cfg, moe_impl="ep")
+    constrain = activation_constrainer(mesh, fsdp=cfg.fsdp)
+    g = torch.Generator(device="cpu").manual_seed(seed + 29)
+    gs_model, ep_model = build_model(cfg), build_model(ep_cfg)
+    params = conditioned(tree_map(
+        lambda t: t.float().to(CARD), gs_model.init_params(g, "cpu")))
+    shape = (TRAIN_CHECK_B, TRAIN_CHECK_S)
+    batch = {"tokens": torch.randint(0, cfg.vocab, shape, generator=g),
+             "labels": torch.randint(0, cfg.vocab, shape, generator=g),
+             "mask": torch.ones(shape)}
+    batch = {k: v.to(CARD) for k, v in batch.items()}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            h_gs = lm.forward(params, batch["tokens"], cfg)
+            h_ep = lm.forward(params, batch["tokens"], ep_cfg, constrain)
+        err = float((h_ep - h_gs).abs().max())
+        tc = TrainConfig(ckpt_dir=tempfile.mkdtemp(prefix="chip_smoke_moe_"))
+        one = Trainer(gs_model, tc, None, device=CARD)
+        sh = Trainer(ep_model, tc, None, constrain=constrain, device=CARD)
+        clone = lambda tr: tree_map(lambda t: t.detach().clone(), tr)  # noqa
+        l1, g1 = one.loss_and_grads(clone(params), batch)
+        l2, g2 = sh.loss_and_grads(clone(params), batch)
+        shutil.rmtree(tc.ckpt_dir, ignore_errors=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.backends.cudnn.allow_tf32 = tf32[1]
+    grad_err = max(rel_max(b, a) for (_, a), (_, b) in
+                   zip(leaf_paths(g1), leaf_paths(g2)))
+    loss_err = abs(float(l2) - float(l1)) / abs(float(l1))
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+           "hidden_max_abs_err": err, "hidden_bit_identical": err == 0.0,
+           "atol": PART_EP_ATOL, "loss_rel_err": loss_err,
+           "grad_max_rel_err": grad_err, "rtol": TRAIN_RTOL}
+    if not (err <= PART_EP_ATOL and loss_err <= TRAIN_RTOL
+            and grad_err <= TRAIN_RTOL):
+        raise AssertionError(f"expert parallelism differs: {out}")
+    del params, g1, g2, h_gs, h_ep
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_partition(seed, smi, tmp) -> dict:
+    """Phase 16: one process in an ``nccl`` group of one (a file store
+    under ``tmp``; ``gloo`` when ``CARD`` is the CPU), the mesh of
+    ``make_mesh_for(1, 1)``: ``partition_train`` and ``partition_moe``,
+    then the group destroyed.  Emits ``partition``."""
+    import torch.distributed as dist
+
+    from repro_torch.data import PackedTokenStore
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.gap_place import ingest_place
+    from repro_torch.kernels.lookup import fused_lookup
+    from repro_torch.launch.mesh import make_mesh_for
+    t0 = time.perf_counter()
+    if CARD == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if CARD == "cuda" else "gloo",
+                            init_method=f"file://{Path(tmp) / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for(1, 1, device=CARD)
+        store = PackedTokenStore.synthetic(
+            TRAIN_DOCS, mean_len=TRAIN_SEQ + 1,
+            vocab=ARCHS[TRAIN_ARCH].vocab, seed=seed)
+        fused_lookup.launches = 0
+        ingest_place.launches = 0
+        train = partition_train(seed, tmp, mesh, store)
+        launches = {"fused_lookup": fused_lookup.launches,
+                    "ingest_place": ingest_place.launches}
+        moe = partition_moe(seed, mesh)
+        out = {"mesh": list(mesh.shape),
+               "mesh_dims": list(mesh.mesh_dim_names),
+               "backend": dist.get_backend(), "train": train, "moe": moe,
+               "launches": launches}
+    finally:
+        dist.destroy_process_group()
+    out["phase_seconds"] = time.perf_counter() - t0
+    emit("partition", card=smi, **out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-keys", type=int, default=32_000_000)
@@ -4153,6 +4367,8 @@ def main() -> int:
     recurrent = phase_recurrent(rng, args.seed, smi, args.profile)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train = phase_train(rng, args.seed, smi, tmp, args.profile)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_part_") as tmp:
+        part = phase_partition(args.seed, smi, tmp)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the run")
 
@@ -4186,7 +4402,8 @@ def main() -> int:
                      + consumers["launches"]["fused_lookup"]
                      + decode["launches"]["fused_lookup"]
                      + recurrent["launches"]["fused_lookup"]
-                     + train["launches"]["fused_lookup"]),
+                     + train["launches"]["fused_lookup"]
+                     + part["launches"]["fused_lookup"]),
         "max_abs_err": max([b["max_abs_err"]
                             for b in main_res["per_batch"].values()]
                            + [r["fused_lookup_max_abs_err"]
@@ -4205,7 +4422,8 @@ def main() -> int:
                      + consumers["launches"]["ingest_place"]
                      + decode["launches"]["ingest_place"]
                      + recurrent["launches"]["ingest_place"]
-                     + train["launches"]["ingest_place"]),
+                     + train["launches"]["ingest_place"]
+                     + part["launches"]["ingest_place"]),
         "max_abs_err": max([place_timing["max_abs_err"]]
                            + [r["ingest_place_max_abs_err"]
                               for r in later_vs_plain]),
@@ -4286,7 +4504,15 @@ def main() -> int:
              "heldout_loss_after", "launches")},
              "card_vs_cpu_f32": {
                  a: r["grad_max_rel_err"] for a, r in
-                 train["numerics"]["card_vs_cpu_f32"].items()}})
+                 train["numerics"]["card_vs_cpu_f32"].items()}},
+         partition={"phase_seconds": part["phase_seconds"],
+                    "bit_identical_with_and_without_mesh": part["train"][
+                        "bit_identical_with_and_without_mesh"],
+                    "elastic_restore_bit_for_bit": part["train"][
+                        "elastic_restore_bit_for_bit"],
+                    "moe_ep_hidden_max_abs_err": part["moe"][
+                        "hidden_max_abs_err"],
+                    "launches": part["launches"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -138,6 +138,19 @@ class BackendSpec:
     min_batch: int          # below this the backend loses to the host
     engine_backend: Optional[str]  # kernels.ops.QueryEngine stage
 
+    def available(self) -> bool:
+        """Whether the backend may be picked without being asked for.
+        Host backends always are.  The reference's ``pallas`` is picked
+        only on a TPU, where its kernel is native; the port's is picked
+        only where ``torch.cuda.is_available()``, where
+        csrc/lookup_kernel.cu is native (on the CPU an explicit request
+        runs the kernel's plain version)."""
+        if not self.device:
+            return True
+        if self.name == "pallas":
+            return torch.cuda.is_available()
+        return True
+
 
 BACKENDS: Dict[str, BackendSpec] = {
     "fused": BackendSpec("fused", device=True, wide_keys=True,

@@ -16,7 +16,9 @@ __all__ = ["resolve_device"]
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` -> ``cuda``; ``"cpu"`` / ``"cuda[:i]"`` as given.
+    """``None`` -> ``cuda``; ``"cpu"`` / ``"cuda[:i]"`` as given;
+    ``"meta"`` (shapes and dtypes without data: the models' abstract
+    params and cache specs) as given.
 
     Raises ``RuntimeError`` when a CUDA device is wanted (the default
     included) and ``torch.cuda.is_available()`` is False.
@@ -27,6 +29,6 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "repro_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run the plain PyTorch "
             "versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

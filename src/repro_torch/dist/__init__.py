@@ -1,10 +1,25 @@
-# The range-partitioned ShardedIndex and its learned ShardRouter
-# (sharded.py), re-exported LAZILY as the reference's repro.dist does:
-# sharded.py pulls in core and kernels, and an eager import here would
-# load them with the package.  The reference's partitioning names
-# (mesh PartitionSpecs for the model code) are not part of the port.
+# Sharding policy: logical axis names -> mesh placements
+# (partitioning.py, the only module that spells a mesh axis name).
+#
+# sharded.py (range-partitioned ShardedIndex + learned ShardRouter) is
+# re-exported LAZILY, as the reference's repro.dist does: it pulls in
+# core and kernels, and an eager import here would load them with the
+# package.
+
+from .partitioning import (
+    activation_constrainer,
+    input_shardings,
+    param_pspecs,
+    param_shardings,
+    pspec_for_axes,
+)
 
 __all__ = [
+    "activation_constrainer",
+    "input_shardings",
+    "param_pspecs",
+    "param_shardings",
+    "pspec_for_axes",
     "ShardRouter",
     "ShardedIndex",
     "ShardedIngestReport",

@@ -34,8 +34,46 @@ ops_gap.py    — device Eq. 3 (``gap_positions_device``, its tables
                 points ``ingest_place`` and ``fused_ingest``
 _build.py     — nvcc + ctypes build of csrc/*.cu at first use, and the
                 wrappers' per-call checks and launch
+
+The package exports every name of the reference's
+``repro.kernels.__all__``; ``ingest_place`` is ``ops_gap``'s entry
+point (the kernel's wrapper is ``gap_place.ingest_place``).
 """
 
-from .ops_gap import gap_positions_device, gap_positions_oracle
+from .bounds import build_radix_router, build_rank_router
+from .delta import HostMirror, delta_update, freeze_state
+from .freeze import (IndexArrays, from_learned_index, keys_need_pair,
+                     keys_pair_exact, pair_alias_free, split_key_pair)
+from .ops import QueryEngine, batched_lookup
+from .ops_gap import (fused_ingest, gap_positions_device,
+                      gap_positions_oracle, ingest_place)
+from .ref import chain_hit_index, lookup_ref, predict_ref, resolve_chains
+from .shard_fanout import (FanoutUnavailable, ShardFanout,
+                           stack_shard_images)
 
-__all__ = ["gap_positions_device", "gap_positions_oracle"]
+__all__ = [
+    "FanoutUnavailable",
+    "HostMirror",
+    "IndexArrays",
+    "QueryEngine",
+    "ShardFanout",
+    "batched_lookup",
+    "build_radix_router",
+    "build_rank_router",
+    "chain_hit_index",
+    "delta_update",
+    "freeze_state",
+    "from_learned_index",
+    "fused_ingest",
+    "gap_positions_device",
+    "gap_positions_oracle",
+    "ingest_place",
+    "keys_need_pair",
+    "keys_pair_exact",
+    "lookup_ref",
+    "pair_alias_free",
+    "predict_ref",
+    "resolve_chains",
+    "split_key_pair",
+    "stack_shard_images",
+]

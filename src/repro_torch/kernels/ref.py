@@ -1,8 +1,8 @@
 """Device oracle stage in plain torch.
 
 Counterpart of ``repro.kernels.ref`` (``lookup_ref``, ``predict_ref``,
-``chain_hit_index``) and of the pair helpers and epilogue in
-``repro.kernels.ops`` (``_ple``, ``_peq``, ``_pair_bisect``,
+``chain_hit_index``, ``resolve_chains``) and of the pair helpers and
+epilogue in ``repro.kernels.ops`` (``_ple``, ``_peq``, ``_pair_bisect``,
 ``_pair_oracle``, ``_epilogue``).  For each query q:
 
 * ``slot``  — rightmost slot with slot_key <= q (-1 below all keys);
@@ -22,8 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["lookup_ref", "predict_ref", "chain_hit_index", "pair_oracle",
-           "epilogue", "epilogue_parts"]
+__all__ = ["lookup_ref", "predict_ref", "chain_hit_index", "resolve_chains",
+           "pair_oracle", "epilogue", "epilogue_parts"]
 
 
 def _take(table, idx):
@@ -142,6 +142,23 @@ def chain_hit_index(queries, slot, found, link_offsets, link_keys,
         eq = eq & (_take(link_keys_lo, loc) == queries_lo)
     hit = scan & (lo >= start) & eq
     return torch.where(hit, lo, miss)
+
+
+def resolve_chains(queries, slot, found, payload, link_offsets, link_keys,
+                   link_payloads, max_chain: int):
+    """Payloads per query: a first-level hit gives ``payload[slot]``, a
+    miss the chain scan's ``link_payloads`` entry, else -1 (narrow keys
+    and payloads).  Kept for the reference's API: the engine's
+    ``epilogue`` fuses the same gathers and handles hi/lo pairs."""
+    safe_slot = slot.clamp(0, payload.shape[0] - 1).long()
+    out = torch.where(found, payload[safe_slot],
+                      torch.full_like(payload[safe_slot], -1))
+    if link_keys.shape[0] == 0 or max_chain <= 0:
+        return out
+    hit = chain_hit_index(queries, slot, found, link_offsets, link_keys,
+                          max_chain)
+    return torch.where(hit >= 0, link_payloads[hit.clamp_min(0).long()]
+                       .to(out.dtype), out)
 
 
 def epilogue(queries, queries_lo, slot, found, a, max_chain: int):

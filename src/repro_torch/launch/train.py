@@ -8,20 +8,47 @@ watchdog) on the card:
 
 ``--device cpu --reduced`` runs a small same-family config on the CPU.
 Every sample is resolved by key through the learned index
-(``IndexedTokenDataset`` -> ``Index.lookup``).  ``--mesh single|multi``
-(the reference's production mesh and activation constraints) waits for
-the partitioning item, ROADMAP A13d, and raises.
+(``IndexedTokenDataset`` -> ``Index.lookup``).
+
+``--mesh single|multi`` builds the reference's production mesh
+(``launch/mesh.py``: (16, 16) or (2, 16, 16) ranks) and its activation
+constrainer, and the trainer shards its state over it; each rank loads
+its rows of every global batch.  Start one process a rank with the
+process group's address, world size and rank in the environment
+(``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK`` and
+``LOCAL_RANK``, as ``torchrun`` sets them); a group with fewer ranks
+than the mesh raises the mesh's ``ValueError``.  Rank 0 alone writes
+the checkpoints and every rank reads them: ``--ckpt-dir`` must then lie
+on a filesystem every rank can read (the default lies under each
+process's ``TMPDIR``: that holds only for ranks of one host sharing it).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch
 
 from ..configs import ARCHS, reduced as reduce_cfg
 from ..data import IndexedTokenDataset, PackedTokenStore, ShardedLoader
 from ..device import resolve_device
+from ..dist import activation_constrainer
+from ..dist.partitioning import batch_shard
+from ..launch.mesh import make_production_mesh
 from ..models import build_model
 from ..train import FailureInjector, TrainConfig, Trainer
+
+
+def _init_process_group(dev) -> None:
+    """Join the process group the environment describes (``env://``),
+    one process a rank on its own card."""
+    import torch.distributed as dist
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
 
 
 def main(argv=None):
@@ -49,10 +76,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} (the production mesh and its activation "
-            "constraints) waits for ROADMAP A13d")
     dev = resolve_device(args.device)
     cfg = ARCHS[args.arch]
     if args.reduced:
@@ -71,8 +94,16 @@ def main(argv=None):
     print(f"[train] index: {args.index_method} "
           f"segments={dataset.index.mech.plm.n_segments} "
           f"build={dataset.index.build_seconds*1e3:.1f}ms")
+    constrain, shard_id, n_shards = None, 0, 1
+    if args.mesh != "none":
+        _init_process_group(dev)
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device=dev)
+        constrain = activation_constrainer(mesh, fsdp=cfg.fsdp)
+        shard_id, n_shards = batch_shard(mesh)
     loader = ShardedLoader(dataset, global_batch=args.global_batch,
-                           seq_len=args.seq_len, seed=args.seed)
+                           seq_len=args.seq_len, seed=args.seed,
+                           shard_id=shard_id, n_shards=n_shards)
 
     injector = FailureInjector(
         {args.inject_crash_at: "crash"} if args.inject_crash_at >= 0 else {})
@@ -81,8 +112,8 @@ def main(argv=None):
         ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
         grad_compress=args.grad_compress,
         warmup_steps=max(2, args.steps // 20))
-    trainer = Trainer(model, tcfg, loader, failure_injector=injector,
-                      device=dev)
+    trainer = Trainer(model, tcfg, loader, constrain=constrain,
+                      failure_injector=injector, device=dev)
     out = trainer.run(seed=args.seed, resume=not args.no_resume)
     losses = [m["loss"] for m in out["metrics"]]
     print(f"[train] done: first_loss={losses[0]:.4f} "

@@ -3,18 +3,22 @@
 The counterpart of ``repro.models.api``.  ``build_model(cfg)`` returns
 a :class:`Model` exposing:
 
-  param_specs / init_params(generator, device)
+  param_specs / abstract_params / logical_axes / init_params(generator,
+  device)
   param_count / active_param_count
   loss_fn(params, batch, constrain)           -> scalar (autograd backward)
   prefill_fn(params, batch, cache, constrain) -> (logits, cache)   [if any]
   decode_fn(params, batch, cache, idx, constrain) -> (logits, cache)
-  init_caches(batch, max_len, device)         -> the reference's layouts
+  cache_specs(batch, max_len) / init_caches(batch, max_len, device)
+                                              -> the reference's layouts
+  input_specs(shape)  -> the batch's shapes and dtypes, no allocation
   input_sample(shape, generator, device)      -> a real batch
 
 for the ``lm``, ``vlm``, ``encdec``, ``zamba`` (Mamba-2 + shared
-attention) and ``xlstm`` families.  ``abstract_params``,
-``logical_axes``, ``cache_specs`` and ``input_specs`` serve the dry run
-and partitioning (ROADMAP A13d-e) and wait for them.
+attention) and ``xlstm`` families.  The reference's ``ShapeDtypeStruct``
+stand-ins (``abstract_params``, ``cache_specs``, ``input_specs``) are
+``meta`` tensors here; ``logical_axes`` feeds
+``dist.partitioning.param_shardings``.
 """
 
 from __future__ import annotations
@@ -42,10 +46,17 @@ class Model:
     loss_fn: Callable
     decode_fn: Optional[Callable] = None
     prefill_fn: Optional[Callable] = None
+    cache_specs: Optional[Callable] = None
     init_caches: Optional[Callable] = None
 
     def param_specs(self):
         return self._specs
+
+    def abstract_params(self):
+        return _base.abstract_params(self._specs)
+
+    def logical_axes(self):
+        return _base.logical_axes(self._specs)
 
     def _leaves(self):
         out = []
@@ -93,6 +104,12 @@ class Model:
                                 torch.bfloat16)
         return batch
 
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Dry-run stand-ins: ``meta`` tensors of the batch's shapes and
+        dtypes (no allocation)."""
+        return {name: torch.empty(shp, dtype=dtype, device="meta")
+                for name, (shp, dtype) in self._input_shapes(shape).items()}
+
     def input_sample(self, shape: ShapeConfig, generator: torch.Generator,
                      device=None) -> Dict[str, Any]:
         """A real batch: token ids uniform below ``vocab``, embeddings
@@ -132,6 +149,8 @@ def build_model(cfg: ModelConfig) -> Model:
                 p, b["tokens"], cache, cfg, c),
             decode_fn=lambda p, b, cache, idx, c=None: _lm.decode_step(
                 p, b["tokens"], cache, idx, cfg, c),
+            cache_specs=lambda batch, max_len: _lm.kv_cache_specs(
+                cfg, batch, max_len),
             init_caches=lambda batch, max_len, device=None: _lm.init_kv_cache(
                 cfg, batch, max_len, device=device),
         )
@@ -144,6 +163,8 @@ def build_model(cfg: ModelConfig) -> Model:
                 p, b, cache, cfg, c),
             decode_fn=lambda p, b, cache, idx, c=None: _vlm.decode_step(
                 p, b["tokens"], cache, idx, cfg, c),
+            cache_specs=lambda batch, max_len: _vlm.kv_cache_specs(
+                cfg, batch, max_len),
             init_caches=lambda batch, max_len, device=None:
                 _vlm.init_kv_cache(cfg, batch, max_len, device=device),
         )
@@ -154,6 +175,8 @@ def build_model(cfg: ModelConfig) -> Model:
             loss_fn=lambda p, b, c=None: _encdec.loss_fn(p, b, cfg, c),
             decode_fn=lambda p, b, cache, idx, c=None: _encdec.decode_step(
                 p, b["tokens"], cache, idx, cfg, c),
+            cache_specs=lambda batch, max_len: _encdec_caches(
+                cfg, batch, max_len, "meta"),
             init_caches=lambda batch, max_len, device=None: _encdec_caches(
                 cfg, batch, max_len, device),
         )
@@ -164,6 +187,8 @@ def build_model(cfg: ModelConfig) -> Model:
             loss_fn=lambda p, b, c=None: _zamba.loss_fn(p, b, cfg, c),
             decode_fn=lambda p, b, cache, idx, c=None: _zamba.decode_step(
                 p, b["tokens"], cache, idx, cfg, c),
+            cache_specs=lambda batch, max_len: _zamba.cache_specs(
+                cfg, batch, max_len),
             init_caches=lambda batch, max_len, device=None:
                 _zamba.init_caches(cfg, batch, max_len, device=device),
         )
@@ -174,6 +199,8 @@ def build_model(cfg: ModelConfig) -> Model:
             loss_fn=lambda p, b, c=None: _xlstm.loss_fn(p, b, cfg, c),
             decode_fn=lambda p, b, cache, idx, c=None: _xlstm.decode_step(
                 p, b["tokens"], cache, idx, cfg, c),
+            cache_specs=lambda batch, max_len: _xlstm.cache_specs(
+                cfg, batch),
             init_caches=lambda batch, max_len, device=None:
                 _xlstm.init_caches(cfg, batch, device=device),
         )

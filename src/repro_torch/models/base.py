@@ -5,8 +5,10 @@ dicts of torch tensors with the reference's nesting, leaf names and
 shapes, so a reference param tree carries across leaf for leaf
 (``convert.model_params_from_reference``).  Every parameter is declared
 as a :class:`P` spec carrying shape, logical axes, dtype and init
-scale; the axes are kept for the partitioning item that reads them
-(ROADMAP A13d) and are not used here.
+scale; ``repro_torch.dist.partitioning`` maps the logical axes to mesh
+placements (``logical_axes``), and ``abstract_params`` gives each
+param's shape and dtype as a ``meta`` tensor (no allocation), the
+counterpart of the reference's ``ShapeDtypeStruct`` tree.
 
 The layers are plain functions over those dicts, written op for op
 after the reference, with the places where the numerics of torch and
@@ -59,7 +61,8 @@ import torch.nn.functional as F
 
 Params = Dict[str, Any]
 
-__all__ = ["P", "Params", "init_params", "map_specs", "padded_vocab",
+__all__ = ["P", "Params", "init_params", "map_specs", "abstract_params",
+           "logical_axes", "padded_vocab",
            "rms_norm", "rope", "attention_specs", "gqa_attention",
            "mlp_specs", "mlp", "softmax_xent", "causal_additive_mask",
            "mm", "einsum", "layer_slice", "layer_list", "remat",
@@ -87,6 +90,17 @@ def map_specs(fn, tree, path: Tuple[str, ...] = ()):
     if isinstance(tree, P):
         return fn(path, tree)
     return {k: map_specs(fn, tree[k], path + (k,)) for k in sorted(tree)}
+
+
+def abstract_params(spec_tree) -> Params:
+    """``meta`` tensors of each spec's shape and dtype (no allocation)."""
+    return map_specs(lambda _path, p: torch.empty(
+        p.shape, dtype=p.dtype, device="meta"), spec_tree)
+
+
+def logical_axes(spec_tree):
+    """Tree of logical-axis tuples, same structure as the params."""
+    return map_specs(lambda _path, p: p.axes, spec_tree)
 
 
 def init_params(spec_tree, generator: torch.Generator,

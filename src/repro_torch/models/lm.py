@@ -10,8 +10,11 @@ layers in the same order).  ``forward`` is the training path: each
 layer body runs under ``cfg.remat`` (``base.remat``, the reference's
 ``REMAT_POLICIES`` at ``lm.py:32``) over ``base.layer_list``'s
 per-layer views, and ``loss_fn`` is differentiable by autograd.
-``constrain(tensor, logical_axes)`` is the reference's sharding hook,
-the identity here.
+``constrain(tensor, logical_axes)`` is the reference's sharding hook
+(``dist.partitioning.activation_constrainer``; the identity on a plain
+tensor).  With ``moe_impl="ep"`` and a constrainer that carries a mesh,
+the MoE layers run ``moe.moe_ep_shardmap`` over its "model" axis, as
+the reference's do.
 """
 
 from __future__ import annotations
@@ -91,14 +94,15 @@ def _layer_fwd(cfg, constrain, lp, x, positions, kv_cache=None,
     x = constrain(x + h, ("batch", None, "embed"))
     h2 = rms_norm(x, lp["ln_mlp"])
     if cfg.moe is not None:
-        if cfg.moe_impl == "ep" and getattr(constrain, "mesh", None):
-            # the reference's shard_map expert parallelism needs a mesh,
-            # which arrives with the partitioning item (ROADMAP A13d)
-            raise NotImplementedError(
-                "moe_impl='ep' over a mesh waits for ROADMAP A13d")
-        h2 = _moe.moe_gspmd(lp["moe"], h2, top_k=cfg.moe.top_k,
-                            capacity_factor=cfg.moe.capacity_factor,
-                            constrain=constrain)
+        mesh = getattr(constrain, "mesh", None)
+        if cfg.moe_impl == "ep" and mesh is not None:
+            h2 = _moe.moe_ep_shardmap(
+                lp["moe"], h2, top_k=cfg.moe.top_k, mesh=mesh,
+                capacity_factor=cfg.moe.capacity_factor)
+        else:
+            h2 = _moe.moe_gspmd(lp["moe"], h2, top_k=cfg.moe.top_k,
+                                capacity_factor=cfg.moe.capacity_factor,
+                                constrain=constrain)
     else:
         h2 = mlp(lp["mlp"], h2)
     return constrain(x + h2, ("batch", None, "embed")), new_kv
@@ -162,6 +166,11 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     return tuple({"k": torch.zeros(shape, dtype=dtype, device=dev),
                   "v": torch.zeros(shape, dtype=dtype, device=dev)}
                  for _ in range(cfg.n_layers))
+
+
+def kv_cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
+    """``init_kv_cache``'s layout as ``meta`` tensors (no allocation)."""
+    return init_kv_cache(cfg, batch, max_len, dtype, device="meta")
 
 
 def _cached_stack(params, cfg, constrain, x, positions, cache, cache_index):

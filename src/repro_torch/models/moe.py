@@ -1,10 +1,15 @@
 """Mixture-of-Experts FFN: top-k router + capacity-based dispatch.
 
-The counterpart of ``repro.models.moe``'s ``moe_specs``, ``_route``,
-``_capacity`` and ``moe_gspmd`` (index-scatter dispatch in plain
-tensor ops).  The reference's ``moe_ep_shardmap`` (expert parallelism
-over a mesh) waits for the partitioning item, ROADMAP A13d; the LM
-takes it only when its ``constrain`` hook carries a mesh.
+The counterpart of ``repro.models.moe``.  Two interchangeable
+implementations (same math, same params):
+
+* ``moe_gspmd`` — index-scatter dispatch in plain tensor ops;
+* ``moe_ep_shardmap`` — explicit expert parallelism over a
+  ``torch.distributed`` mesh: each rank of the "model" axis owns
+  ``E / ep`` experts and a slice of the sequence, and dispatch and
+  combine are one ``all_to_all_single`` pair over the "model" group, as
+  the reference's ``shard_map`` does.  The LM takes it when its
+  ``constrain`` hook carries a mesh and ``moe_impl="ep"``.
 
 Capacity: each expert accepts at most C = ceil(T*k/E * cf) tokens
 (padded to 8); overflow tokens are dropped (contribute zero) like
@@ -18,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from .base import P, einsum
+
+__all__ = ["moe_specs", "moe_gspmd", "moe_ep_shardmap"]
 
 
 def moe_specs(d_model: int, d_ff: int, n_experts: int):
@@ -92,3 +99,121 @@ def moe_gspmd(params, x, *, top_k: int, capacity_factor: float = 1.25,
                                        device=x.device))
     gathered = gathered.reshape(T, top_k, D) * weights[..., None]
     return gathered.sum(dim=1).reshape(B, S, D)
+
+
+def _exchange(t, group):
+    import torch.distributed as dist
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """Block p of dim 0 to rank p of ``group``; the blocks received,
+    stacked on dim 0 by source rank (the reference's
+    ``all_to_all(t, axis, 0, 0, tiled=False)``).  The exchange is its
+    own adjoint: the backward sends the grads back the same way."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _exchange(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The group's slices concatenated along dim 1 (rank order).  The
+    backward sums the group's output grads and keeps this rank's slice
+    (the adjoint of the gather)."""
+
+    @staticmethod
+    def forward(ctx, y, group, j):
+        import torch.distributed as dist
+        ctx.group, ctx.j, ctx.s = group, j, y.shape[1]
+        y = y.contiguous()
+        parts = [torch.empty_like(y)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, y, group=group)
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g[:, ctx.j * ctx.s:(ctx.j + 1) * ctx.s], None, None
+
+
+def moe_ep_shardmap(params, x, *, top_k: int, mesh, model_axis: str = "model",
+                    capacity_factor: float = 1.25):
+    """Explicit expert parallelism over ``mesh``'s ``model_axis``.
+
+    ``x`` (b_l, S, D) is this rank's rows of the batch, the batch as the
+    other mesh axes shard it (every rank of a "model" group holds the
+    same rows); the output is in that layout too.  Over a mesh whose
+    other axes have size 1 that is the whole batch, and the result is
+    ``moe_gspmd``'s where no token is dropped (the capacity counts each
+    rank's tokens, as in the reference).
+
+    Rank j of the "model" group (size ep) takes sequence slice j
+    (S / ep tokens a row), routes it, scatters it into ``(E, C, D)``
+    buffers (C from its own token count), sends expert block p to rank p
+    (one ``all_to_all_single``), runs its ``E / ep`` experts over the
+    rows of every source rank, sends the results back (the second
+    exchange) and combines; the group's slices are then gathered along
+    the sequence.  The exchanges and the gather are differentiable: the
+    gather's backward sums the group's output grads, so each rank's
+    grads are its share of the group's and a sum over the ranks gives
+    the whole (the trainer's convention, ``train.train_loop``).
+    """
+    names = tuple(mesh.mesh_dim_names)
+    ep = mesh.shape[names.index(model_axis)]
+    group = mesh.get_group(model_axis)
+    j = mesh.get_local_rank(model_axis)
+    E = params["router"].shape[1]
+    if E % ep:
+        raise ValueError(f"{E} experts do not split over {ep} ranks")
+    e_local = E // ep
+    b_l, S, D = x.shape
+    if S % ep:
+        raise ValueError(f"sequence {S} does not split over {ep} ranks")
+    s_l = S // ep
+    t_l = b_l * s_l
+    x2d = x[:, j * s_l:(j + 1) * s_l].reshape(t_l, D)
+    experts, weights, _ = _route(params, x2d, top_k)
+    C = _capacity(t_l, top_k, E, capacity_factor)
+
+    flat = F.one_hot(experts, E).reshape(t_l * top_k, E)
+    pos = torch.amax(torch.cumsum(flat, dim=0) * flat - 1, dim=-1)
+    e_flat = experts.reshape(t_l * top_k)
+    keep = pos < C
+    slot = torch.where(keep, pos, C)
+
+    buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
+    buf.index_put_((e_flat, slot),
+                   torch.repeat_interleave(x2d, top_k, dim=0),
+                   accumulate=True)
+    buf = buf[:, :C, :].reshape(ep, e_local, C, D)
+    # dispatch: each expert block to the rank that owns the expert
+    buf = _AllToAll.apply(buf, group)
+    # buf now (ep, e_local, C, D): rows from every source rank
+    mine = slice(j * e_local, (j + 1) * e_local)
+    w_gate, w_up, w_down = (params[k][mine]
+                            for k in ("w_gate", "w_up", "w_down"))
+    h = F.silu(einsum("pecd,edf->pecf", buf, w_gate))
+    h = h * einsum("pecd,edf->pecf", buf, w_up)
+    out = einsum("pecf,efd->pecd", h, w_down)
+    # combine: results back to the ranks that own the tokens
+    out = _AllToAll.apply(out, group).reshape(E, C, D)
+    out = torch.cat([out, out.new_zeros((E, 1, D))], dim=1)
+    gathered = out[e_flat, slot]
+    gathered = torch.where(keep[:, None], gathered,
+                           torch.zeros((), dtype=gathered.dtype,
+                                       device=x.device))
+    gathered = gathered.reshape(t_l, top_k, D) * weights[..., None]
+    y = gathered.sum(dim=1).reshape(b_l, s_l, D)
+    return _GatherSeq.apply(y, group, j)

@@ -59,3 +59,4 @@ def prefill(params, batch, cache, cfg, constrain=None):
 
 decode_step = _lm.decode_step          # text-only decode after prefill
 init_kv_cache = _lm.init_kv_cache
+kv_cache_specs = _lm.kv_cache_specs

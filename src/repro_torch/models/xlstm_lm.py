@@ -81,6 +81,11 @@ def decode_step(params, tokens, caches, cache_index, cfg, constrain=None):
     return logits, caches
 
 
+def cache_specs(cfg, batch: int, max_len: int = 0, dtype=None):
+    """Recurrent caches as ``meta`` tensors (max_len unused)."""
+    return init_caches(cfg, batch, max_len, dtype, device="meta")
+
+
 def init_caches(cfg, batch: int, max_len: int = 0, dtype=None, device=None):
     """Recurrent caches, O(1) in sequence length (``max_len`` and
     ``dtype`` unused: f32 always, as in the reference), zeros but the

@@ -165,6 +165,11 @@ def decode_step(params, tokens, caches, cache_index, cfg, constrain=None):
     return logits, caches
 
 
+def cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
+    """``init_caches``'s layout as ``meta`` tensors (no allocation)."""
+    return init_caches(cfg, batch, max_len, dtype, device="meta")
+
+
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                 device=None):
     """Zero caches on ``device`` (cuda unless ``"cpu"``): the stacked

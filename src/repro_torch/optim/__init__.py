@@ -16,6 +16,15 @@ OPTIMIZERS = {
     "adafactor": (adafactor_init, adafactor_update),
 }
 
+# The trees of each optimizer's state that mirror the params, and in a
+# param's entry of such a tree the slots shaped like the param (None:
+# the entry is itself that slot).  The rest of a state (the step count,
+# Adafactor's factored moments) has shapes of its own.
+PARAM_SLOTS = {
+    "adamw": {"m": None, "v": None},
+    "adafactor": {"slots": ("m", "v")},
+}
+
 __all__ = [
     "OPTIMIZERS",
     "adamw_init",

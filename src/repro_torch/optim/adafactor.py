@@ -49,10 +49,12 @@ def adafactor_init(params):
 
 @torch.no_grad()
 def adafactor_update(grads, state, params, *, lr, b1=0.9, decay=0.99,
-                     eps=1e-30, weight_decay=0.0, clip_norm=1.0):
-    """Returns ``(params, state, gnorm)``, updated in place."""
+                     eps=1e-30, weight_decay=0.0, clip_norm=1.0, gnorm=None):
+    """Returns ``(params, state, gnorm)``, updated in place; ``gnorm``
+    as in ``adamw_update``."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
     def upd(g, slot, p):

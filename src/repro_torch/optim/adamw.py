@@ -42,11 +42,15 @@ def global_norm(tree):
 
 @torch.no_grad()
 def adamw_update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.1, clip_norm=1.0):
+                 weight_decay=0.1, clip_norm=1.0, gnorm=None):
     """Returns ``(params, state, gnorm)``; ``params``, ``state["m"]`` and
-    ``state["v"]`` are updated in place (see the module doc)."""
+    ``state["v"]`` are updated in place (see the module doc).  ``gnorm``:
+    the clip's global norm when the caller has it (a step that updates
+    its leaves a few at a time passes the norm of all its grads);
+    ``global_norm(grads)`` when None."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     bc1 = 1 - b1 ** step
     bc2 = 1 - b2 ** step

@@ -35,7 +35,9 @@ page lookup a round through a ``MicroBatchQueue``.
 
 from ..core.results import Overloaded
 from .engine import MicroBatchQueue, Request, ServingEngine
-from .pipeline import EpochPipeline, IndexSnapshot, pin_index
+from .kv_cache import PagedKVCache
+from .pipeline import (EpochPipeline, IndexSnapshot, ShardedSnapshot,
+                       pin_index)
 from .wal import IngestWAL, WALRecord, recover_index, replay
 
 __all__ = [
@@ -44,8 +46,10 @@ __all__ = [
     "IngestWAL",
     "MicroBatchQueue",
     "Overloaded",
+    "PagedKVCache",
     "Request",
     "ServingEngine",
+    "ShardedSnapshot",
     "WALRecord",
     "pin_index",
     "recover_index",

@@ -4,8 +4,10 @@
 fsynced ``.npy`` per leaf + manifest, atomic publish; ``Index
 .save_snapshot`` / ``Index.restore`` use it too), ``StepWatchdog`` and
 ``FailureInjector`` are the reference's fault primitives (a verbatim
-copy), and ``Trainer`` / ``TrainConfig`` the fault-tolerant loop.
-``elastic.py`` waits for the partitioning item (ROADMAP A13d).
+copy), ``Trainer`` / ``TrainConfig`` the fault-tolerant loop (sharded
+over a ``torch.distributed`` mesh when its ``constrain`` hook carries
+one), and ``elastic.elastic_restore`` resumes a checkpoint on a mesh of
+another shape.
 """
 
 from .checkpoint import CheckpointManager

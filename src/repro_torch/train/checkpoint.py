@@ -31,6 +31,21 @@ A flat dict of arrays (the index snapshots) is the one-level case.
   names must be the template's) and puts each leaf on the device of the
   template's leaf; without a template it returns the flat dict of
   listed names to numpy arrays (bf16 leaves as bf16 tensors).
+
+Restore is mesh-agnostic, as the reference's: the files hold whole
+host-format leaves, and the target placement is derived, not stored.
+A state sharded over a ``torch.distributed`` mesh (DTensor leaves, one
+process a rank) is saved by gathering every DTensor leaf on every rank
+(a collective, so every rank calls ``save`` / ``save_async`` at the
+same step) and writing on global rank 0 alone; the other ranks wait at
+a barrier until the synchronous ``save`` has published.  On restore
+every rank reads the whole leaves and keeps its own shard: of the
+template's leaf where that is a DTensor (its mesh and placements), or
+of ``shardings`` (a tree of ``dist.partitioning.Sharding`` records
+shaped like the restored state), as ``elastic.elastic_restore`` does
+onto a mesh of another shape.  The bytes on disk are the same either
+way.  Every rank reads the directory rank 0 wrote, so under a mesh it
+must lie on a filesystem every rank can read.
 """
 
 from __future__ import annotations
@@ -44,7 +59,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..tree import leaf_paths, unflatten
+from ..tree import leaf_paths, leaves, tree_map, unflatten
 
 __all__ = ["CheckpointManager"]
 
@@ -55,9 +70,19 @@ def _leafname(path) -> str:
     return "__".join(str(k) for k in path) or "root"
 
 
+def _is_dtensor(leaf) -> bool:
+    if not torch.is_tensor(leaf):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
 def _host(leaf, copy: bool = False):
     """A leaf on the host: a CPU tensor or a numpy array (a copy when
-    ``copy``, else host data as it is)."""
+    ``copy``, else host data as it is).  A DTensor is gathered whole
+    first (a collective)."""
+    if _is_dtensor(leaf):
+        return leaf.detach().full_tensor().to("cpu")
     if torch.is_tensor(leaf):
         return leaf.detach().to("cpu", copy=copy)
     return np.array(leaf, copy=True) if copy else np.asarray(leaf)
@@ -75,6 +100,21 @@ def _write_leaf(f, leaf) -> str:
     arr = leaf.numpy() if torch.is_tensor(leaf) else np.asarray(leaf)
     np.save(f, arr)
     return str(arr.dtype)
+
+
+def _sharded_writer(state) -> Optional[bool]:
+    """None for a state without DTensor leaves; else whether this rank
+    writes it (global rank 0)."""
+    if not any(_is_dtensor(leaf) for leaf in leaves(state)):
+        return None
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
+def _placed(t, mesh, placements):
+    """``t`` (a whole leaf) as this rank's shard on ``mesh``."""
+    from ..dist.partitioning import place
+    return place(t.to(mesh.device_type), mesh, placements)
 
 
 def _read_leaf(path: str, dtype: Optional[str]):
@@ -98,8 +138,18 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
 
     def save(self, step: int, state: Any, extra: Optional[Dict] = None) -> str:
-        """Publish ``state`` as ``step_<step>``; returns its directory."""
+        """Publish ``state`` as ``step_<step>``; returns its directory.
+        A sharded state is gathered on every rank and written by rank 0
+        (see the module doc)."""
         final = os.path.join(self.directory, f"step_{step:08d}")
+        writer = _sharded_writer(state)
+        if writer is not None:
+            import torch.distributed as dist
+            host = unflatten(state, [_host(leaf) for leaf in leaves(state)])
+            if writer:
+                self.save(step, host, extra)
+            dist.barrier()
+            return final
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -135,9 +185,11 @@ class CheckpointManager:
         every leaf to the host now (the trainer updates its tensors in
         place), then writes in a daemon thread."""
         self.wait()
-        paths = leaf_paths(state)
+        writer = _sharded_writer(state)
         snapshot = unflatten(state, [_host(leaf, copy=True)
-                                     for _, leaf in paths])
+                                     for leaf in leaves(state)])
+        if writer is False:
+            return
         self._thread = threading.Thread(
             target=self.save, args=(step, snapshot, extra), daemon=True)
         self._thread.start()
@@ -157,12 +209,15 @@ class CheckpointManager:
                     continue
         return max(steps) if steps else None
 
-    def restore(self, step: Optional[int] = None, template: Any = None
-                ) -> Tuple[Any, Dict]:
+    def restore(self, step: Optional[int] = None, shardings: Any = None,
+                template: Any = None) -> Tuple[Any, Dict]:
         """``(state, extra)`` of ``step`` (the newest when None).  With a
         ``template``: a tree of its shape, each leaf a tensor of the
-        file's dtype on the device of the template's leaf.  Without: the
-        listed names mapped to their arrays."""
+        file's dtype on the device of the template's leaf (this rank's
+        shard where the template's leaf is a DTensor).  Without: the
+        listed names mapped to their arrays.  ``shardings``: a tree of
+        ``Sharding`` records shaped like the result; each leaf becomes
+        this rank's shard of it."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -173,8 +228,13 @@ class CheckpointManager:
         names = manifest["leaves"]
         dtypes = manifest.get("dtypes", [None] * len(names))
         if template is None:
-            return ({n: _read_leaf(os.path.join(d, n + ".npy"), dt)
-                     for n, dt in zip(names, dtypes)}, manifest["extra"])
+            state = {n: _read_leaf(os.path.join(d, n + ".npy"), dt)
+                     for n, dt in zip(names, dtypes)}
+            if shardings is not None:
+                state = tree_map(lambda a, s: _placed(
+                    a if torch.is_tensor(a) else torch.from_numpy(a),
+                    s.mesh, s.placements), state, shardings)
+            return state, manifest["extra"]
         tpaths = leaf_paths(template)
         want = [_leafname(p) for p, _ in tpaths]
         if want != names:
@@ -184,9 +244,16 @@ class CheckpointManager:
         for (_, tleaf), n, dt in zip(tpaths, names, dtypes):
             arr = _read_leaf(os.path.join(d, n + ".npy"), dt)
             t = arr if torch.is_tensor(arr) else torch.from_numpy(arr)
+            if _is_dtensor(tleaf):
+                out.append(_placed(t, tleaf.device_mesh, tleaf.placements))
+                continue
             dev = tleaf.device if torch.is_tensor(tleaf) else "cpu"
             out.append(t.to(dev))
-        return unflatten(template, out), manifest["extra"]
+        state = unflatten(template, out)
+        if shardings is not None:
+            state = tree_map(lambda a, s: _placed(a, s.mesh, s.placements),
+                             state, shardings)
+        return state, manifest["extra"]
 
     def _gc(self):
         steps = sorted(

@@ -12,16 +12,63 @@ compression runs before the optimizer and its residual advances even
 on a bad step; a step whose loss is not finite is a **bad step**: the
 params and every >= 1-d optimizer leaf keep their values, the 0-d
 leaves (the step count) advance (the reference's ``jnp.where(bad, o,
-n) if n.ndim else n``).  The optimizers update in place, so a bad step
-is recognised on the host (the loss is read back once a step) and its
->= 1-d leaves are restored from a copy taken before the update.
+n) if n.ndim else n``; no config has a 0-d param).  After the loss and
+grads, the compression and the optimizer run a leaf at a time, each on
+that leaf's grad and state, with the global norm of all the grads
+(``gnorm=``): the arithmetic of one call on the whole trees, leaf for
+leaf.  The optimizers update in place, so a bad step is recognised on
+the host (the loss is read back once a step) and runs the optimizer on
+no leaf: only its counters advance.  Which trees of an optimizer's
+state mirror the params is the optimizer's declaration
+(``optim.PARAM_SLOTS``).
 
 Restart semantics: ``Trainer.run`` restores the latest checkpoint (if
 any) against ``init_state``'s template, seeks the loader to the
 restored step, and continues — a crash at any point loses at most
-``ckpt_every`` steps and zero data order.  The checkpoints are the
-reference trainer's files (``train.checkpoint``), so either package
-resumes the other's.
+``ckpt_every`` steps and zero data order.  A crash that leaves ``run``
+as an exception first lets the write in flight publish.  The
+checkpoints are the reference trainer's files (``train.checkpoint``),
+so either package resumes the other's.
+
+Sharded training.  ``constrain`` is the reference's hook
+(``dist.partitioning.activation_constrainer``); when it carries a
+``torch.distributed`` mesh (``constrain.mesh``, covering the whole
+default process group, one process a rank), the trainer keeps its state
+sharded over that mesh:
+
+* ``init_state`` draws the whole params on every rank (one generator
+  seed, so every rank draws the same numbers) and keeps each rank's
+  shard: the params by ``param_shardings(model.logical_axes(), mesh,
+  fsdp=cfg.fsdp, abstract_tree=model.abstract_params())``, the
+  optimizer's param-shaped slots and the compression residual as their
+  param; the other leaves (the step, the factored second moments) are
+  whole on every rank.
+* A step gathers the params whole (``full_tensor``: ZeRO-3's gather at
+  use) for the loss and grads; the leaf-at-a-time compression and
+  optimizer run on that leaf's state gathered whole, and each rank
+  keeps its shard of what they write: the optimizer state is whole on a
+  rank one leaf at a time.  The loader gives each rank its rows of the
+  batch (``ShardedLoader(shard_id=, n_shards=)`` by
+  ``partitioning.batch_shard``); ranks that differ only on "model" hold
+  the same rows.
+* The loss that a rank differentiates is its share of the global mean:
+  its mean times its token count (the mask's sum) over the count summed
+  over every rank.  Summed over the ranks these shares are the mean
+  over every token once (a batch held by r ranks counts r times in the
+  sum of counts, and each holder takes 1/r of it).  The grads and the
+  loss are then summed over the group (``all_reduce``), so every rank
+  holds the one-process loss and grads of the whole batch; the global
+  norm, the clip and the NaN guard read those and agree on every rank.
+  A collective inside the model (the expert-parallel MoE) is
+  differentiable and adjoint, so the same sum is right through it.
+* An MoE layer's capacity counts the tokens it is given, here a rank's
+  rows, so each rank drops by its own rows (as the reference's
+  ``moe_ep_shardmap`` drops by each device's tokens, where its GSPMD
+  dispatch counts the whole batch); where no token is dropped the
+  result is one process's.
+* ``run`` resumes every rank from one step: global rank 0's newest
+  checkpoint, broadcast.  ``ckpt_dir`` must lie on a filesystem every
+  rank reads (rank 0 alone writes it).
 """
 
 from __future__ import annotations
@@ -36,15 +83,45 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..dist.partitioning import param_shardings, place
 from ..models.api import Model
-from ..optim import OPTIMIZERS
+from ..optim import OPTIMIZERS, PARAM_SLOTS
+from ..optim.adamw import global_norm
 from ..optim.compress import ef_compress_update, residual_init
 from ..optim.schedules import cosine_schedule, wsd_schedule
-from ..tree import leaves, tree_map, unflatten
+from ..tree import leaf_paths, leaves, tree_map, unflatten
 from .checkpoint import CheckpointManager
 from .fault import FailureInjector, StepWatchdog
 
 __all__ = ["TrainConfig", "Trainer"]
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _gathered(leaf):
+    """A state leaf whole (a DTensor is gathered: a collective)."""
+    return leaf.detach().full_tensor() if _is_dtensor(leaf) else leaf
+
+
+def _reshard(whole, like):
+    """``whole`` as this rank's shard of ``like``'s placements when
+    ``like`` is a DTensor, else as it is."""
+    if not _is_dtensor(like):
+        return whole
+    return place(whole.detach(), like.device_mesh, like.placements)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _put(tree, path, value):
+    _at(tree, path[:-1])[path[-1]] = value
 
 
 def _default_ckpt_dir() -> str:
@@ -81,12 +158,28 @@ class Trainer:
         self.loader = loader
         self.constrain = constrain
         self.device = resolve_device(device)
+        self.mesh = getattr(constrain, "mesh", None)
+        self._shardings = None
+        if self.mesh is not None:
+            import torch.distributed as dist
+            if self.mesh.size() != dist.get_world_size():
+                raise ValueError(
+                    f"the mesh holds {self.mesh.size()} ranks, the process "
+                    f"group {dist.get_world_size()}")
+            if self.mesh.device_type != self.device.type:
+                raise ValueError(f"a {self.mesh.device_type} mesh for a "
+                                 f"trainer on {self.device}")
+            abstract = model.abstract_params()
+            self._shardings = dict(leaf_paths(param_shardings(
+                model.logical_axes(), self.mesh, fsdp=model.cfg.fsdp,
+                abstract_tree=abstract)))
         self.injector = failure_injector or FailureInjector()
         self.ckpt = CheckpointManager(train_cfg.ckpt_dir,
                                       keep=train_cfg.keep_ckpts)
         self.watchdog = StepWatchdog(train_cfg.watchdog_timeout_s)
         self.metrics: List[Dict] = []
         self._opt_init, self._opt_update = OPTIMIZERS[model.cfg.optimizer]
+        self._slots = PARAM_SLOTS[model.cfg.optimizer]
 
     # ------------------------------------------------------------------
     def lr_at(self, step):
@@ -111,7 +204,36 @@ class Trainer:
         residual = (residual_init(params) if self.cfg.grad_compress
                     else tree_map(lambda p: torch.zeros(
                         (), dtype=torch.float32, device=p.device), params))
-        return {"params": params, "opt": opt_state, "residual": residual}
+        state = {"params": params, "opt": opt_state, "residual": residual}
+        return state if self.mesh is None else self.shard_state(state)
+
+    def shard_state(self, state):
+        """Each rank's shard of a whole state (see the module doc)."""
+        paths = [path for path, _ in leaf_paths(state["params"])]
+
+        def shard(path, leaf):
+            s = self._shardings[path]
+            return place(leaf, s.mesh, s.placements)
+
+        def mirror(tree, keys):
+            # a tree that mirrors the params, its param-shaped slots
+            # (``keys`` of each param's entry; None: the entry) sharded
+            def entry(path, e):
+                if keys is None:
+                    return shard(path, e)
+                return {n: shard(path, v) if n in keys else v
+                        for n, v in e.items()}
+            return unflatten(state["params"],
+                             [entry(p, _at(tree, p)) for p in paths])
+
+        opt = dict(state["opt"])
+        for k, keys in self._slots.items():
+            opt[k] = mirror(opt[k], keys)
+        residual = state["residual"]
+        if self.cfg.grad_compress:   # else 0-d placeholders
+            residual = mirror(residual, None)
+        return {"params": mirror(state["params"], None), "opt": opt,
+                "residual": residual}
 
     def device_batch(self, batch: Dict[str, np.ndarray]):
         """A loader batch on the device; integer ids as int64."""
@@ -130,43 +252,100 @@ class Trainer:
         for p in flat:
             p.requires_grad_(True)
         loss = self.model.loss_fn(params, batch, self.constrain)
+        if self.mesh is not None:
+            loss = loss * self._token_share(batch)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
         # a param the loss does not reach has a zero grad, as in JAX
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else g.contiguous()
                  for p, g in zip(flat, grads)]
-        return loss.detach(), unflatten(params, grads)
+        loss = loss.detach()
+        if self.mesh is not None:
+            import torch.distributed as dist
+            for t in grads + [loss]:
+                dist.all_reduce(t)
+        return loss, unflatten(params, grads)
+
+    def _token_share(self, batch):
+        """This rank's share of the global mean loss: its token count
+        over the count summed over every rank (see the module doc)."""
+        import torch.distributed as dist
+        mask = batch.get("mask")
+        count = (torch.clamp(torch.sum(mask.float()), min=1.0)
+                 if mask is not None else
+                 torch.tensor(float(batch["labels"].numel()),
+                              device=batch["labels"].device))
+        total = count.clone()
+        dist.all_reduce(total)
+        return count / total
 
     def train_step(self, state, batch) -> Dict[str, Any]:
         """One step on ``state`` (updated in place); returns the step's
-        metrics as tensors."""
-        loss, grads = self.loss_and_grads(state["params"], batch)
-        residual = state["residual"]
-        if self.cfg.grad_compress:
-            grads, residual = ef_compress_update(grads, residual)
-        lr = self.lr_at(state["opt"]["step"])
-        bad = not bool(torch.isfinite(loss))
-        if bad:  # the NaN guard (see the module doc)
-            held = [t for t in leaves(state["params"])
-                    + leaves(state["opt"]) if t.ndim]
-            kept = [t.detach().clone() for t in held]
-        params, opt, gnorm = self._opt_update(grads, state["opt"],
-                                              state["params"], lr=lr)
+        metrics as tensors.  The loss and grads are taken on the params
+        (gathered whole when sharded); the compression and the optimizer
+        then run a leaf at a time on that leaf's state (gathered whole
+        when sharded; each rank keeps its shard of what they write)
+        with the global norm of all the grads (see the module doc)."""
+        params = tree_map(_gathered, state["params"])
+        loss, grads = self.loss_and_grads(params, batch)
+        flat_g = leaves(grads)
         del grads
-        if bad:
-            with torch.no_grad():
-                for t, old in zip(held, kept):
-                    t.copy_(old)
-        state.update(params=params, opt=opt, residual=residual)
+        if self.cfg.grad_compress:
+            res = leaves(state["residual"])
+            for i, e in enumerate(res):
+                g, e_new = ef_compress_update({"x": flat_g[i]},
+                                              {"x": _gathered(e)})
+                flat_g[i], res[i] = g["x"], _reshard(e_new["x"], e)
+            state["residual"] = unflatten(state["residual"], res)
+        gnorm = global_norm(flat_g)
+        opt = state["opt"]
+        lr = self.lr_at(opt["step"])
+        bad = not bool(torch.isfinite(loss))
+        if bad:  # the NaN guard: no leaf moves; the counters advance
+            _, new, _ = self._opt_update(
+                {}, {k: {} if k in self._slots else v
+                     for k, v in opt.items()}, {}, lr=lr, gnorm=gnorm)
+        else:
+            new_params = []
+            for (path, p), g, old in zip(leaf_paths(params), flat_g,
+                                         leaves(state["params"])):
+                own = {k: _at(opt[k], path) for k in self._slots}
+                one = {k: {"x": tree_map(_gathered, own[k])}
+                       if k in own else v for k, v in opt.items()}
+                _, new, _ = self._opt_update({"x": g}, one, {"x": p}, lr=lr,
+                                             gnorm=gnorm)
+                new_params.append(_reshard(p, old))
+                for k in own:
+                    _put(opt[k], path,
+                         tree_map(_reshard, new[k]["x"], own[k]))
+            state["params"] = unflatten(state["params"], new_params)
+        for k, v in new.items():
+            if k not in self._slots:
+                opt[k] = v
         return {"loss": loss, "gnorm": gnorm, "lr": lr,
                 "bad_step": torch.tensor(float(bad))}
+
+    def _resume_step(self) -> Optional[int]:
+        """The newest checkpoint's step, None when there is none.  Under
+        a mesh every rank takes global rank 0's, which waits for its
+        own write in flight before it lists the directory; the
+        broadcast orders every rank's restore after that."""
+        self.ckpt.wait()
+        step = self.ckpt.latest_step()
+        if self.mesh is None:
+            return step
+        import torch.distributed as dist
+        t = torch.tensor(-1 if step is None else step, device=self.device)
+        dist.broadcast(t, src=0)
+        return None if int(t) < 0 else int(t)
 
     # ------------------------------------------------------------------
     def run(self, seed: int = 0, resume: bool = True) -> Dict[str, Any]:
         state = None
         start_step = 0
-        if resume and self.ckpt.latest_step() is not None:
+        latest = self._resume_step() if resume else None
+        if latest is not None:
             template = self.init_state(seed)
-            state, extra = self.ckpt.restore(template=template)
+            state, extra = self.ckpt.restore(step=latest, template=template)
             del template
             start_step = int(extra.get("step", 0))
             self.loader.seek(start_step)
@@ -176,26 +355,30 @@ class Trainer:
 
         step = start_step
         t_start = time.time()
-        while step < self.cfg.total_steps:
-            self.watchdog.arm(step)
-            self.injector.maybe_fail(step)
-            batch = self.device_batch(self.loader.next_batch())
-            m = self.train_step(state, batch)
-            self.watchdog.cancel()
-            step += 1
-            if step % self.cfg.log_every == 0 or step == self.cfg.total_steps:
-                m = {k: float(v) for k, v in m.items()}
-                m.update(step=step,
-                         stragglers=len(self.watchdog.events),
-                         elapsed_s=round(time.time() - t_start, 2))
-                self.metrics.append(m)
-                print(f"[train] step={step} loss={m['loss']:.4f} "
-                      f"lr={m['lr']:.2e} gnorm={m['gnorm']:.3f}")
-            if step % self.cfg.ckpt_every == 0:
-                self.ckpt.save_async(step, state,
-                                     extra={"step": step,
-                                            "loader_step": self.loader.step})
-        self.ckpt.wait()
+        try:
+            while step < self.cfg.total_steps:
+                self.watchdog.arm(step)
+                self.injector.maybe_fail(step)
+                batch = self.device_batch(self.loader.next_batch())
+                m = self.train_step(state, batch)
+                self.watchdog.cancel()
+                step += 1
+                if (step % self.cfg.log_every == 0
+                        or step == self.cfg.total_steps):
+                    m = {k: float(v) for k, v in m.items()}
+                    m.update(step=step,
+                             stragglers=len(self.watchdog.events),
+                             elapsed_s=round(time.time() - t_start, 2))
+                    self.metrics.append(m)
+                    print(f"[train] step={step} loss={m['loss']:.4f} "
+                          f"lr={m['lr']:.2e} gnorm={m['gnorm']:.3f}")
+                if step % self.cfg.ckpt_every == 0:
+                    self.ckpt.save_async(step, state, extra={
+                        "step": step, "loader_step": self.loader.step})
+        finally:
+            # a crash too lets the write in flight publish: a restart
+            # in this process then finds it
+            self.ckpt.wait()
         self.ckpt.save(step, state, extra={"step": step,
                                            "loader_step": self.loader.step})
         return {"state": state, "metrics": self.metrics,

@@ -19,7 +19,7 @@ from repro_torch.kernels import bounds, delta, freeze
 
 ROOT = Path(__file__).resolve().parents[1]
 COPIED = ("links", "mechanisms", "sampling", "gaps", "results", "mdl",
-          "tuning")
+          "tuning", "index")
 COPIED_OUTSIDE_CORE = ("robustness/__init__.py", "robustness/faults.py",
                        "serving/pipeline.py", "data/__init__.py",
                        "data/token_store.py", "data/pipeline.py",

@@ -31,6 +31,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.launch.serve, repro_torch.launch.train\n"
         "import repro_torch.optim, repro_torch.train.train_loop\n"
         "import repro_torch.train.fault, repro_torch.train.checkpoint\n"
+        "import repro_torch.dist, repro_torch.dist.partitioning\n"
+        "import repro_torch.launch.mesh, repro_torch.train.elastic\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(','.join(bad))\n")

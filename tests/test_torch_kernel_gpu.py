@@ -1014,3 +1014,108 @@ def test_reduced_trainer_on_the_card_checkpoints_and_restores(tmp_path):
     assert extra == {"step": 8, "loader_step": 8}
     for (_, a), (_, b) in zip(leaf_paths(got), leaf_paths(out["state"])):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.fixture
+def one_rank_nccl_group(tmp_path):
+    """One process in an ``nccl`` group of one (a file store under
+    ``tmp_path``), destroyed after the test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sharded_trainer_on_a_one_rank_mesh_is_bit_identical(
+        tmp_path, one_rank_nccl_group):
+    """``chip_smoke.py`` phase 16 at reduced size: two ``Trainer`` steps
+    of ``reduced(internlm2-1.8b)`` (bf16, ``remat="full"``) on the card,
+    plain and with the constrainer of ``make_mesh_for(1, 1)``, give
+    bit-identical losses, gnorms and state; the sharded state's
+    checkpoint restores through ``elastic_restore`` onto (1, 1) bit for
+    bit."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.dist import activation_constrainer
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.elastic import elastic_restore
+    from repro_torch.tree import leaf_paths
+    cfg = dataclasses.replace(reduced(ARCHS["internlm2-1.8b"]), remat="full")
+    model = build_model(cfg)
+    mesh = make_mesh_for(1, 1)
+    assert mesh.device_type == "cuda" and tuple(mesh.shape) == (1, 1)
+    g = torch.Generator().manual_seed(3)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (4, 32), generator=g),
+                "labels": torch.randint(0, cfg.vocab, (4, 32), generator=g),
+                "mask": (torch.rand((4, 32), generator=g) > 0.1).float()}
+               for _ in range(2)]
+    runs = {}
+    for label, hook in (("plain", None), ("mesh",
+                                          activation_constrainer(mesh))):
+        tr = Trainer(model, TrainConfig(total_steps=2, warmup_steps=1,
+                                        ckpt_dir=str(tmp_path / label)),
+                     None, constrain=hook, device="cuda")
+        state = tr.init_state(0)
+        ms = [tr.train_step(state, {k: v.cuda() for k, v in b.items()})
+              for b in batches]
+        runs[label] = (tr, state, [(float(m["loss"]), float(m["gnorm"]))
+                                   for m in ms])
+    (_, plain, m1), (tr, sharded, m2) = runs["plain"], runs["mesh"]
+    assert m1 == m2
+    assert isinstance(sharded["params"]["embed"], DTensor)
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+    for (path, a), (_, b) in zip(leaf_paths(plain), leaf_paths(sharded)):
+        assert torch.equal(a.detach(), whole(b).detach()), path
+    tr.ckpt.save(2, sharded, extra={"step": 2})
+    restored, rmesh, extra = elastic_restore(model, tr.cfg.ckpt_dir,
+                                             template=plain)
+    assert tuple(rmesh.shape) == (1, 1) and extra == {"step": 2}
+    for (path, a), (_, b) in zip(leaf_paths(restored), leaf_paths(plain)):
+        assert whole(a).device.type == "cuda"
+        assert torch.equal(whole(a).detach(), b.detach()), path
+
+
+@pytest.mark.gpu
+def test_expert_parallel_moe_on_a_one_rank_mesh_equals_gspmd(
+        one_rank_nccl_group):
+    """``reduced(granite-moe-1b-a400m)`` in f32 on the card (TF32 off):
+    the forward with ``moe_impl="ep"`` over ``make_mesh_for(1, 1)``
+    (``moe_ep_shardmap``'s exchanges over an ``nccl`` group of one)
+    within the reference's 2e-4 of ``moe_gspmd``."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.dist import activation_constrainer
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import build_model, lm
+    from repro_torch.tree import tree_map
+    cfg = reduced(ARCHS["granite-moe-1b-a400m"])
+    ep = dataclasses.replace(cfg, moe_impl="ep")
+    params = tree_map(lambda t: t.float().cuda(), build_model(cfg).init_params(
+        torch.Generator().manual_seed(0), "cpu"))
+    tokens = torch.randint(0, cfg.vocab, (2, 32),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    constrain = activation_constrainer(make_mesh_for(1, 1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = lm.forward(params, tokens, cfg)
+            got = lm.forward(params, tokens, ep, constrain)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert float((got - want).abs().max()) <= 2e-4

@@ -1,0 +1,483 @@
+"""Rank programs for tests/test_torch_dist.py: each runs in one process
+of a ``gloo`` group on the CPU, spawned by ``launch``.  The module
+imports only the port (no JAX), so a rank starts in seconds.
+
+    python tests/torch_dist_ranks.py moe_ep 8 TMPDIR
+
+With ``TORCH_DIST_DEVICE=cuda`` the ranks run on one card each over
+``nccl`` (TF32 off), against one-process values on their own card:
+
+    TORCH_DIST_DEVICE=cuda python tests/torch_dist_ranks.py \
+        sharded_training 4 TMPDIR
+
+Each rank asserts its own checks; rank 0 prints one JSON line of
+numbers.  A failing rank makes ``launch`` raise, and the process exits
+nonzero.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+ROOT = Path(__file__).resolve().parents[1]
+DEVICE = os.environ.get("TORCH_DIST_DEVICE", "cpu")
+RTOL = 1e-4          # the grad tests' bound (test_torch_grad.py)
+EP_ATOL = 2e-4       # the reference's own bound (tests/test_moe_ep.py)
+ADAFACTOR_UPDATE_RTOL = 1e-2
+
+
+def launch(name: str, world: int, tmp: str) -> None:
+    import torch.multiprocessing as mp
+    mp.start_processes(_rank, args=(name, world, tmp), nprocs=world,
+                       start_method="spawn")
+
+
+def _rank(rank: int, name: str, world: int, tmp: str) -> None:
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    torch.set_num_threads(1)
+    if DEVICE == "cuda":
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/store_{name}",
+                            rank=rank, world_size=world)
+    try:
+        out = RANKS[name](rank, world, Path(tmp))
+        if rank == 0:
+            print(json.dumps(out), flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def rel_max(got, want) -> float:
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def _max_over_ranks(x: float) -> float:
+    t = torch.tensor(x, dtype=torch.float64, device=DEVICE)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t)
+
+
+def _mesh(shape):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(DEVICE, shape, mesh_dim_names=("data", "model"))
+
+
+def _draw(model, seed):
+    """The CPU's f32 draw of ``model``'s params, on ``DEVICE``."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.float().to(DEVICE), model.init_params(
+        torch.Generator().manual_seed(seed), "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism against moe_gspmd
+# ---------------------------------------------------------------------------
+
+
+def moe_ep(rank, world, tmp):
+    """The reference's test_moe_ep case on a (2, 4) mesh: E = 8, D = 16,
+    F = 32, top-2, capacity factor 8.0 (no token dropped), x (4, 8, D).
+    Forward within 2e-4 of ``moe_gspmd`` on the whole batch; the grads
+    of sum(out * w) (each rank's share 1/4, summed over the ranks)
+    within 1e-4 of the whole batch's."""
+    from repro_torch.models import moe
+    from repro_torch.models.base import init_params
+    from repro_torch.tree import leaf_paths, tree_map
+    mesh = _mesh((2, 4))
+    E, D, F, K = 8, 16, 32, 2
+    params = tree_map(lambda t: t.float().to(DEVICE), init_params(
+        moe.moe_specs(D, F, E), torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(1)
+    x, w = (torch.from_numpy(rng.standard_normal((4, 8, D)).astype(
+        np.float32)).to(DEVICE) for _ in range(2))
+
+    def grads(fn, p, share):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+        out = fn(p)
+        loss = (out * share[1]).sum() * share[0]
+        flat = [t for _, t in leaf_paths(p)]
+        return out.detach(), torch.autograd.grad(loss, flat)
+
+    ref, ref_g = grads(lambda p: moe.moe_gspmd(p, x, top_k=K,
+                                               capacity_factor=8.0),
+                       params, (1.0, w))
+    d = mesh.get_local_rank("data")
+    rows = slice(2 * d, 2 * d + 2)
+    ep = mesh.shape[1]
+    out, g = grads(lambda p: moe.moe_ep_shardmap(
+        p, x[rows], top_k=K, mesh=mesh, capacity_factor=8.0),
+        params, (1.0 / ep, w[rows]))
+    err = float((out - ref[rows]).abs().max())
+    g = [t.contiguous() for t in g]
+    for t in g:
+        dist.all_reduce(t)
+    g_err = max(rel_max(a, b) for a, b in zip(g, ref_g))
+    err, g_err = _max_over_ranks(err), _max_over_ranks(g_err)
+    assert err < EP_ATOL, f"EP vs GSPMD mismatch: {err}"
+    assert g_err <= RTOL, f"EP vs GSPMD grads: {g_err}"
+    return {"max_abs_err": err, "grad_max_rel_err": g_err}
+
+
+# ---------------------------------------------------------------------------
+# sharded training against one process; checkpoints and elastic restore
+# ---------------------------------------------------------------------------
+
+
+def _reduced(arch, **kw):
+    from repro_torch.configs import ARCHS, reduced
+    return dataclasses.replace(reduced(ARCHS[arch]), **kw)
+
+
+def _batch(rng, cfg, rows, seq):
+    """tokens, labels and a mask with about a fifth of its tokens off,
+    unevenly over the rows (so ranks count different tokens)."""
+    mask = (rng.random((rows, seq)) > 0.2 * (1 + np.arange(rows)[:, None]
+                                            / rows)).astype(np.float32)
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (rows, seq))
+                                       ).to(DEVICE),
+            "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (rows, seq))
+                                       ).to(DEVICE),
+            "mask": torch.from_numpy(mask).to(DEVICE)}
+
+
+def _rows(batch, shard_id, n_shards):
+    return {k: v[shard_id::n_shards] for k, v in batch.items()}
+
+
+def _whole(tree):
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+def _f32_state(model, params, compress=False):
+    from repro_torch.optim import OPTIMIZERS
+    from repro_torch.optim.compress import residual_init
+    from repro_torch.tree import tree_map
+    opt_init = OPTIMIZERS[model.cfg.optimizer][0]
+    residual = (residual_init(params) if compress else tree_map(
+        lambda p: torch.zeros((), dtype=torch.float32, device=p.device),
+        params))
+    return {"params": params, "opt": opt_init(params), "residual": residual}
+
+
+def sharded_training(rank, world, tmp):
+    """Reduced internlm2 (fsdp) on a (2, 2) mesh, ``conditioned`` f32
+    params: loss and grads of a masked batch (unequal token counts over
+    the ranks) within 1e-4 of one process on the whole batch; three
+    ``Trainer`` steps with EF-int8 compression (lr at its peak from the
+    first, so each later loss reads an update): losses, gnorms and each
+    param's change within 1e-4; the state's
+    placements; a checkpoint written by rank 0 alone, byte for byte the
+    one-process save of the same state, restored through
+    ``elastic_restore`` onto (4, 1) with equal leaves and through
+    ``restore(shardings=)`` onto (2, 2); the constrainer on a DTensor;
+    reduced kimi-k2 with Adafactor (``_adafactor_step``); then a
+    crash-and-resume ``Trainer.run`` over the mesh."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from chip_smoke import conditioned
+    from repro_torch.dist import activation_constrainer, param_shardings
+    from repro_torch.dist.partitioning import batch_shard, place
+    from repro_torch.models import build_model
+    from repro_torch.train import CheckpointManager, TrainConfig, Trainer
+    from repro_torch.train.elastic import elastic_restore
+    from repro_torch.tree import leaf_paths, tree_map
+    cfg = _reduced("internlm2-1.8b", fsdp=True)
+    model = build_model(cfg)
+    mesh = _mesh((2, 2))
+    constrain = activation_constrainer(mesh, fsdp=True)
+    params = conditioned(_draw(model, 0))
+    rng = np.random.default_rng(5)
+    batches = [_batch(rng, cfg, 8, 16) for _ in range(4)]
+    sid, n_shards = batch_shard(mesh)
+    assert (sid, n_shards) == (mesh.get_local_rank("data"), 2)
+
+    def tcfg(name):
+        return TrainConfig(total_steps=3, warmup_steps=0, grad_compress=True,
+                           ckpt_dir=str(tmp / name), log_every=1)
+
+    one = Trainer(model, tcfg(f"one{rank}"), None, device=DEVICE)
+    sh = Trainer(model, tcfg("sharded"), None, constrain=constrain,
+                 device=DEVICE)
+    clone = lambda tr: tree_map(lambda t: t.detach().clone(), tr)  # noqa
+    l1, g1 = one.loss_and_grads(clone(params), batches[0])
+    l2, g2 = sh.loss_and_grads(clone(params),
+                               _rows(batches[0], sid, n_shards))
+    loss_err = abs(float(l2) - float(l1)) / abs(float(l1))
+    grad_err = max(rel_max(b, a) for (_, a), (_, b) in
+                   zip(leaf_paths(g1), leaf_paths(g2)))
+
+    s1 = _f32_state(model, clone(params), compress=True)
+    s2 = sh.shard_state(_f32_state(model, clone(params), compress=True))
+    assert isinstance(s2["residual"]["layers"]["attn"]["wq"], DTensor)
+    emb = s2["params"]["embed"]
+    assert isinstance(emb, DTensor)
+    # ("vocab", "embed") under fsdp: vocab over "model", embed over "data"
+    assert tuple(emb.placements) == (Shard(1), Shard(0))
+    assert tuple(s2["opt"]["m"]["embed"].placements) == (Shard(1), Shard(0))
+    assert not isinstance(s2["opt"]["step"], DTensor)
+    norm = s2["params"]["ln_f"]    # ("embed",) -> "data"
+    assert tuple(norm.placements) == (Shard(0), Replicate())
+    losses = []
+    for b in batches[1:]:
+        m1 = one.train_step(s1, b)
+        m2 = sh.train_step(s2, _rows(b, sid, n_shards))
+        losses.append((float(m1["loss"]), float(m2["loss"]),
+                       float(m1["gnorm"]), float(m2["gnorm"])))
+    step_err = max(abs(b - a) / abs(a) for a, b, _, _ in losses)
+    gnorm_err = max(abs(d - c) / abs(c) for _, _, c, d in losses)
+    whole = _whole(s2)
+    # each leaf's change over the three steps (a step that skipped the
+    # update would miss it by all of it), at the grads' bound
+    upd = {path: rel_max(b - p0, a - p0) for (path, a), (_, b), (_, p0)
+           in zip(leaf_paths(s1["params"]), leaf_paths(whole["params"]),
+                  leaf_paths(params))}
+    upd_err = max(upd.values())
+    assert upd_err <= RTOL, upd
+    assert int(whole["opt"]["step"]) == 3
+
+    # the checkpoint: gathered on every rank, written by rank 0 alone
+    ck = tmp / "ck"
+    CheckpointManager(str(ck)).save(3, s2, extra={"step": 3})
+    if rank == 0:
+        plain = tmp / "ck_plain"
+        CheckpointManager(str(plain)).save(3, whole, extra={"step": 3})
+        for f in sorted((plain / "step_00000003").iterdir()):
+            assert f.read_bytes() == (ck / "step_00000003" / f.name
+                                      ).read_bytes(), f.name
+    template = _f32_state(model, _draw(model, 1), compress=True)
+    restored, rmesh, extra = elastic_restore(model, str(ck), template=template,
+                                             device=DEVICE)
+    assert tuple(rmesh.shape) == (4, 1) and extra == {"step": 3}
+    got = _whole(restored)
+    for (path, a), (_, b) in zip(leaf_paths(whole), leaf_paths(got)):
+        assert torch.equal(a, b), path
+    rp = restored["params"]["embed"]
+    assert isinstance(rp, DTensor) and tuple(rp.placements) == (
+        Shard(1), Shard(0))
+    assert rp.to_local().shape[1] == cfg.d_model // 4
+    # restore(shardings=): a params checkpoint onto the (2, 2) placements
+    ckp = tmp / "ck_params"
+    CheckpointManager(str(ckp)).save(3, s2["params"])
+    pshard = param_shardings(model.logical_axes(), mesh, fsdp=True,
+                             abstract_tree=model.abstract_params())
+    back, _ = CheckpointManager(str(ckp)).restore(
+        template=template["params"], shardings=pshard)
+    for (path, a), (_, b) in zip(leaf_paths(back), leaf_paths(s2["params"])):
+        assert tuple(a.placements) == tuple(b.placements), path
+        assert torch.equal(a.to_local(), b.to_local()), path
+    # the constrainer redistributes a DTensor to the spec of its shape
+    x = place(torch.arange(4 * 8 * 16.0, device=DEVICE).reshape(4, 8, 16),
+              mesh, (Replicate(), Replicate()))
+    y = constrain(x, ("batch", None, "embed"))
+    assert tuple(y.placements) == (Shard(0), Replicate())
+    assert torch.equal(y.full_tensor(), x.full_tensor())
+    assert constrain(x.full_tensor(), ("batch", None, "embed")).shape == \
+        (4, 8, 16)
+    ada = _adafactor_step(mesh, tmp, rank)
+    run = _run_with_crash(model, constrain, mesh, tmp, rank)
+    if rank == 0:   # elastic_one's reference: every leaf, whole
+        torch.save(tree_map(lambda t: t.cpu(), whole), tmp / "whole.pt")
+    l1 = _max_over_ranks(loss_err)
+    return {"loss_rel_err": l1, "grad_max_rel_err": _max_over_ranks(grad_err),
+            "step_loss_rel_err": _max_over_ranks(step_err),
+            "gnorm_rel_err": _max_over_ranks(gnorm_err),
+            "update_max_rel_err": _max_over_ranks(upd_err),
+            "adafactor": {k: _max_over_ranks(v) for k, v in ada.items()},
+            "losses": losses, "run": run}
+
+
+def _adafactor_step(mesh, tmp, rank):
+    """Reduced kimi-k2 (MoE, ``fsdp``, Adafactor): two sharded steps
+    against one process.  Adafactor's factored moments read whole rows
+    and columns, which the trainer's gathered step gives them."""
+    from torch.distributed.tensor import DTensor
+    from chip_smoke import conditioned
+    from repro_torch.dist import activation_constrainer
+    from repro_torch.dist.partitioning import batch_shard
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaf_paths, tree_map
+    base = _reduced("kimi-k2-1t-a32b")
+    assert base.fsdp and base.optimizer == "adafactor"
+    # capacity counts each rank's tokens (see test_torch_dist.py): a
+    # factor that drops no token keeps one process's answer
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=8.0))
+    model = build_model(cfg)
+    params = conditioned(_draw(model, 2))
+    tc = TrainConfig(total_steps=3, warmup_steps=0,
+                     ckpt_dir=str(tmp / f"ada{rank}"))
+    one = Trainer(model, tc, None, device=DEVICE)
+    sh = Trainer(model, tc, None, device=DEVICE,
+                 constrain=activation_constrainer(mesh, fsdp=True))
+    clone = lambda tr: tree_map(lambda t: t.detach().clone(), tr)  # noqa
+    s1 = _f32_state(model, clone(params))
+    s2 = sh.shard_state(_f32_state(model, clone(params)))
+    slots = s2["opt"]["slots"]["layers"]["attn"]["wq"]
+    assert isinstance(slots["m"], DTensor)
+    assert not isinstance(slots["vr"], DTensor)
+    sid, n = batch_shard(mesh)
+    rng = np.random.default_rng(11)
+    errs = []
+    for _ in range(3):
+        b = _batch(rng, cfg, 4, 16)
+        m1 = one.train_step(s1, b)
+        m2 = sh.train_step(s2, _rows(b, sid, n))
+        errs.append(abs(float(m2["loss"]) - float(m1["loss"]))
+                    / abs(float(m1["loss"])))
+    # a bad step (a loss that is not finite): no leaf moves, the step
+    # count advances, on every rank
+    before = _whole(s2)
+    good = sh.loss_and_grads
+    sh.loss_and_grads = lambda p, b: (
+        torch.tensor(float("nan"), device=DEVICE), good(p, b)[1])
+    m = sh.train_step(s2, _rows(_batch(rng, cfg, 4, 16), sid, n))
+    sh.loss_and_grads = good
+    after = _whole(s2)
+    assert float(m["bad_step"]) == 1.0
+    assert int(after["opt"]["step"]) == int(before["opt"]["step"]) + 1
+    for (path, a), (_, b) in zip(leaf_paths(before), leaf_paths(after)):
+        if a.ndim:
+            assert torch.equal(a, b), path
+    whole = _whole(s2)
+    upd = max(rel_max(b.detach() - p0, a.detach() - p0)
+              for (_, a), (_, b), (_, p0) in zip(
+                  leaf_paths(s1["params"]), leaf_paths(whole["params"]),
+                  leaf_paths(params)))
+    assert max(errs) <= RTOL, errs
+    # each leaf's update, in max norm: Adafactor divides by the factored
+    # second moments, so on rows of experts few tokens reach it grows
+    # the grads' ~1e-6 differences (about 1e-3 measured)
+    assert upd <= ADAFACTOR_UPDATE_RTOL, upd
+    return {"loss_rel_err": max(errs), "update_max_rel_err": upd}
+
+
+def _run_with_crash(model, constrain, mesh, tmp, rank):
+    """``Trainer.run`` over the mesh from ``launch/train.py``'s data path
+    (each rank its rows by ``batch_shard``): a crash at step 3 with a
+    checkpoint every 2, then a fresh trainer resumes at 2 and ends at
+    4; the replayed step 3 equals the crashed run's, and the final
+    checkpoint restores every rank's shards bit for bit."""
+    from repro_torch.data import (IndexedTokenDataset, PackedTokenStore,
+                                  ShardedLoader)
+    from repro_torch.dist.partitioning import batch_shard
+    from repro_torch.train import (CheckpointManager, FailureInjector,
+                                   TrainConfig, Trainer)
+    from repro_torch.tree import leaf_paths
+    store = PackedTokenStore.synthetic(64, mean_len=17, vocab=model.cfg.vocab,
+                                       seed=0)
+    sid, n = batch_shard(mesh)
+
+    def loader():
+        ds = IndexedTokenDataset.build(store, method="pgm", sample_rate=0.5,
+                                       gap_rho=0.15, device=DEVICE)
+        return ShardedLoader(ds, global_batch=4, seq_len=16, seed=0,
+                             shard_id=sid, n_shards=n)
+
+    cfg = TrainConfig(total_steps=4, warmup_steps=1, ckpt_every=2,
+                      ckpt_dir=str(tmp / "run"), log_every=1)
+    t1 = Trainer(model, cfg, loader(), constrain=constrain,
+                 failure_injector=FailureInjector({3: "crash"}),
+                 device=DEVICE)
+    try:
+        t1.run(seed=0)
+        raise AssertionError("run 1 did not crash")
+    except RuntimeError as e:
+        assert "injected crash at step 3" in str(e), e
+    t1.watchdog.close()
+    t2 = Trainer(model, cfg, loader(), constrain=constrain, device=DEVICE)
+    out = t2.run(seed=0)
+    t2.watchdog.close()
+    run1 = [m["loss"] for m in t1.metrics]
+    run2 = [m["loss"] for m in out["metrics"]]
+    assert [m["step"] for m in out["metrics"]] == [3, 4]
+    assert run2[0] == run1[2], (run1, run2)
+    restored, extra = CheckpointManager(cfg.ckpt_dir).restore(
+        template=out["state"])
+    for (path, a), (_, b) in zip(leaf_paths(out["state"]),
+                                 leaf_paths(restored)):
+        la = a.to_local() if hasattr(a, "to_local") else a
+        lb = b.to_local() if hasattr(b, "to_local") else b
+        assert torch.equal(la, lb), path
+    assert extra == {"step": 4, "loader_step": 4}
+    return {"run1": run1, "run2": run2}
+
+
+def elastic_one(rank, world, tmp):
+    """The (2, 2) run's checkpoint restored onto a (1, 1) mesh in a
+    group of one: every leaf equal to the whole state the (2, 2) run
+    gathered (its ``whole.pt``)."""
+    from repro_torch.models import build_model
+    from repro_torch.train.elastic import elastic_restore
+    from repro_torch.tree import leaf_paths
+    cfg = _reduced("internlm2-1.8b", fsdp=True)
+    model = build_model(cfg)
+    template = _f32_state(model, _draw(model, 1), compress=True)
+    restored, mesh, extra = elastic_restore(model, str(tmp / "ck"),
+                                            template=template, device=DEVICE)
+    assert tuple(mesh.shape) == (1, 1) and extra == {"step": 3}
+    got = leaf_paths(_whole(restored))
+    want = leaf_paths(torch.load(tmp / "whole.pt"))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, a), (_, b) in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), path
+    return {"leaves": len(got)}
+
+
+def moe_ep_training(rank, world, tmp):
+    """Reduced granite-moe with ``moe_impl="ep"`` and capacity factor 8
+    (no token dropped) on a (2, 2) mesh: loss and grads within 1e-4 of
+    one process running ``moe_gspmd`` on the whole batch."""
+    from chip_smoke import conditioned
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.dist import activation_constrainer
+    from repro_torch.dist.partitioning import batch_shard
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaf_paths, tree_map
+    base = _reduced("granite-moe-1b-a400m")
+    moe = dataclasses.replace(base.moe, capacity_factor=8.0)
+    assert isinstance(moe, MoEConfig)
+    gs = build_model(dataclasses.replace(base, moe=moe))
+    ep = build_model(dataclasses.replace(base, moe=moe, moe_impl="ep"))
+    mesh = _mesh((2, 2))
+    params = conditioned(_draw(gs, 0))
+    batch = _batch(np.random.default_rng(9), base, 4, 16)
+    tc = TrainConfig(ckpt_dir=str(tmp / f"moe{rank}"))
+    one = Trainer(gs, tc, None, device=DEVICE)
+    sh = Trainer(ep, tc, None, constrain=activation_constrainer(mesh),
+                 device=DEVICE)
+    clone = lambda tr: tree_map(lambda t: t.detach().clone(), tr)  # noqa
+    l1, g1 = one.loss_and_grads(clone(params), batch)
+    sid, n = batch_shard(mesh)
+    l2, g2 = sh.loss_and_grads(clone(params), _rows(batch, sid, n))
+    loss_err = abs(float(l2) - float(l1)) / abs(float(l1))
+    grad_err = max(rel_max(b, a) for (_, a), (_, b) in
+                   zip(leaf_paths(g1), leaf_paths(g2)))
+    loss_err, grad_err = _max_over_ranks(loss_err), _max_over_ranks(grad_err)
+    assert loss_err <= RTOL and grad_err <= RTOL, (loss_err, grad_err)
+    return {"loss_rel_err": loss_err, "grad_max_rel_err": grad_err}
+
+
+RANKS = {"moe_ep": moe_ep, "sharded_training": sharded_training,
+         "elastic_one": elastic_one, "moe_ep_training": moe_ep_training}
+
+
+if __name__ == "__main__":   # python tests/torch_dist_ranks.py NAME WORLD TMP
+    launch(sys.argv[1], int(sys.argv[2]), sys.argv[3])
+    os._exit(0)
