@@ -13,7 +13,7 @@ Mamba-2 hybrid, an xLSTM), training over the learned-index data path
 and training sharded over a ``torch.distributed`` mesh — on the card,
 and holds each hand-written CUDA kernel against its plain torch
 version.  Prints one JSON line per phase (they run in the
-order 1-9, 11, 10, 12, 13, 14, 15, 16: phase 11 reuses the read
+order 1-9, 11, 10, 12, 13, 14, 15, 16, 17: phase 11 reuses the read
 phase's keys and index):
 
 1. environment and kernel build (one nvcc per source, in parallel, into
@@ -236,7 +236,25 @@ phase's keys and index):
    bit; granite-moe-1b-a400m at full width and 2 layers in f32 with
    ``moe_impl="ep"`` over the mesh against ``moe_gspmd``, the hidden
    states within the reference's 2e-4 and loss and grads within 1e-3
-   (``partition``, with the phase's seconds).
+   (``partition``, with the phase's seconds);
+17. the dry run against the card (``phase_dryrun``, after phase 16's
+   group is gone): three cells of ``launch/dryrun.py``, each one rank's
+   share on pod16x16 at full width, run at 2 and 4 layers through the
+   plain step a rank runs (``dryrun.build_step`` without a mesh:
+   ``Trainer.train_step``, or ``decode_fn`` over ``init_caches``):
+   internlm2-1.8b x train_4k (4 x 4,096 tokens), granite-moe-1b-a400m
+   x train_4k (8 x 4,096) and internlm2-1.8b x decode_32k (8 rows over
+   a 32,768-token cache).  Each run's ``FlopCounterMode`` total on the
+   card equals ``dryrun.count_step`` on the same step over ``meta``
+   tensors, exactly; ``torch.cuda.max_memory_allocated`` over the timed
+   steps is within 25% of the count's ``peak_bytes``; the step's ms
+   (CUDA events, p50 of 3 after 1 warm) at both depths, extrapolated to
+   full depth by ``extrapolate.at_depth`` with the peak, beside the
+   full-depth count's roofline terms (a measured roofline fraction);
+   then ``dryrun.run_cell`` of whisper-base x decode_32k on pod16x16 in
+   a ``fake`` group of 256 and ``roofline.HBM_BYTES`` against the
+   card's ``total_memory`` (``dryrun``, with the phase's seconds and
+   the kernels' launch counts, all 0).
 
 Scale: SOSD's key sets (Marcus et al., Benchmarking Learned Indexes,
 VLDB 2020) hold 200M keys; the read phase cuts that to 32M so the host
@@ -261,7 +279,12 @@ and 14 serve their configs at full width and depth; their traffic (64 x
 64 tokens through 32 slots, 128 rounds) is sized to keep each near a
 minute or two.  Nothing was cut for phase 14.  Phase 15 trains at
 full width and depth on launch/train.py's batch; only the step count
-(12) is cut, by the time limit.
+(12) is cut, by the time limit.  Phase 17 runs its cells at 2 and 4
+layers (the time limit; the depth law carries them to full depth) and
+cuts the train_4k rows of a rank's 16: internlm2-1.8b to 4 (counted
+peaks at 4 layers: 131 GB at 16 rows, 69 at 8, 38 at 4; at 8 rows its
+2-layer step ran out of memory on the card, 11.7 GiB reserved but
+unallocated), granite-moe-1b-a400m to 8 (70 GB at 16 rows, 37 at 8).
 
 Every kernel timing reports ``ms`` (CUDA events around 20 back-to-back
 wrapper calls, over the count: host and device together),
@@ -4285,6 +4308,134 @@ def phase_partition(seed, smi, tmp) -> dict:
     return out
 
 
+# phase 17: the dry run's counts against the card.  (arch, shape, rows
+# of one rank's share on pod16x16): the train rows cut (the module doc)
+DRY_CELLS = (("internlm2-1.8b", "train_4k", 4),
+             ("granite-moe-1b-a400m", "train_4k", 8),
+             ("internlm2-1.8b", "decode_32k", 8))
+DRY_DEPTHS = (2, 4)
+DRY_PEAK_RTOL = 0.25
+DRY_TIMED = 3
+
+
+def dry_depth(model, shape, seed) -> dict:
+    """One depth of a cell: the count on ``meta``, then the same plain
+    step on the card (its first run under ``FlopCounterMode``, the
+    warm-up), then ``DRY_TIMED`` steps timed with CUDA events, the
+    peak over them from ``max_memory_allocated``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+    step, args = dryrun.build_step(model, shape, None)
+    counted = dryrun.count_step(step, args)
+    del step, args
+    step, args = dryrun.build_step(model, shape, None, device=CARD,
+                                   seed=seed)
+    with FlopCounterMode(display=False) as flops:
+        step(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(DRY_TIMED):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(*args)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated()
+    del step, args
+    torch.cuda.empty_cache()
+    return {"layers": model.cfg.n_layers,
+            "card_flops": float(flops.get_total_flops()),
+            "counted_flops": counted["flops_per_device"],
+            "flops_equal": float(flops.get_total_flops())
+            == counted["flops_per_device"],
+            "card_peak_bytes": peak, "peak_bytes": counted["peak_bytes"],
+            "peak_rel_err": (peak - counted["peak_bytes"])
+            / counted["peak_bytes"],
+            "argument_bytes": counted["argument_size_in_bytes"],
+            "bytes_per_device": counted["bytes_per_device"],
+            "step_ms": statistics.median(times), "step_ms_runs": times,
+            "count_s": counted["count_s"]}
+
+
+def dry_cell(arch, shape_name, rows, seed) -> dict:
+    """A cell at ``DRY_DEPTHS``, the depth law to full depth, and the
+    full-depth count's roofline terms at the H100's constants."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun, extrapolate, roofline
+    from repro_torch.models import build_model
+    base = ARCHS[arch]
+    shape = dataclasses.replace(SHAPES[shape_name], global_batch=rows)
+    runs = [dry_depth(build_model(dataclasses.replace(base, n_layers=n)),
+                      shape, seed) for n in DRY_DEPTHS]
+    (a, ra), (b, rb) = [(r["layers"], r) for r in runs]
+    full = extrapolate.at_depth(ra, rb, a, b, base.n_layers, fields=(
+        "step_ms", "card_peak_bytes", "peak_bytes", "card_flops"))
+    model = build_model(base)
+    step, args = dryrun.build_step(model, shape, None)
+    counted = dryrun.count_step(step, args)
+    del step, args
+    terms = {"compute_ms": 1e3 * counted["flops_per_device"]
+             / roofline.PEAK_FLOPS,
+             "memory_ms": 1e3 * counted["bytes_per_device"]
+             / roofline.HBM_BW}
+    bound = max(terms.values())
+    return {"arch": arch, "shape": shape_name, "rows": rows,
+            "tokens": rows * (shape.seq_len if shape.kind != "decode"
+                              else 1),
+            "depths": runs, "full_layers": base.n_layers,
+            "extrapolated": full,
+            "full_count": {k: counted[k] for k in (
+                "flops_per_device", "bytes_per_device", "peak_bytes",
+                "argument_size_in_bytes", "fits", "count_s")},
+            "roofline_ms": terms,
+            "dominant": max(terms, key=terms.get)[:-3],
+            "measured_roofline_fraction": bound / full["step_ms"]}
+
+
+def phase_dryrun(seed, smi) -> dict:
+    """Phase 17 (see the module doc); emits ``dryrun``.  Every check is
+    asserted after the line is printed, so a miss shows its numbers."""
+    from repro_torch.kernels.gap_place import ingest_place
+    from repro_torch.kernels.lookup import fused_lookup
+    from repro_torch.launch import dryrun, roofline
+    t0 = time.perf_counter()
+    fused_lookup.launches = 0
+    ingest_place.launches = 0
+    cells = [dry_cell(a, s, rows, seed) for a, s, rows in DRY_CELLS]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        rec = dryrun.run_cell("whisper-base", "decode_32k", False, tmp)
+    total = (torch.cuda.get_device_properties(0).total_memory
+             if CARD == "cuda" else roofline.HBM_BYTES)
+    out = {"cells": cells,
+           "whisper_cell": {k: rec.get(k) for k in (
+               "status", "n_devices", "flops_per_device", "bytes_per_device",
+               "collective_bytes_per_device", "collectives", "peak_bytes",
+               "fits", "count_s", "error")},
+           "hbm_bytes": roofline.HBM_BYTES, "total_memory": total,
+           "launches": {"fused_lookup": fused_lookup.launches,
+                        "ingest_place": ingest_place.launches},
+           "phase_seconds": time.perf_counter() - t0}
+    emit("dryrun", card=smi, **out)
+    runs = [r for c in cells for r in c["depths"]]
+    if not all(r["flops_equal"] for r in runs):
+        raise AssertionError("the card's FLOPs differ from the count")
+    if not all(abs(r["peak_rel_err"]) <= DRY_PEAK_RTOL for r in runs):
+        raise AssertionError("a measured peak is off the count by more "
+                             f"than {DRY_PEAK_RTOL:.0%}")
+    if rec["status"] != "ok" or rec["n_devices"] != 256:
+        raise AssertionError(f"the whisper-base cell: {rec}")
+    if total != roofline.HBM_BYTES:
+        raise AssertionError(f"roofline.HBM_BYTES {roofline.HBM_BYTES} is "
+                             f"not the card's {total}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-keys", type=int, default=32_000_000)
@@ -4369,6 +4520,7 @@ def main() -> int:
         train = phase_train(rng, args.seed, smi, tmp, args.profile)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_part_") as tmp:
         part = phase_partition(args.seed, smi, tmp)
+    dry = phase_dryrun(args.seed, smi)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported during the run")
 
@@ -4403,7 +4555,8 @@ def main() -> int:
                      + decode["launches"]["fused_lookup"]
                      + recurrent["launches"]["fused_lookup"]
                      + train["launches"]["fused_lookup"]
-                     + part["launches"]["fused_lookup"]),
+                     + part["launches"]["fused_lookup"]
+                     + dry["launches"]["fused_lookup"]),
         "max_abs_err": max([b["max_abs_err"]
                             for b in main_res["per_batch"].values()]
                            + [r["fused_lookup_max_abs_err"]
@@ -4423,7 +4576,8 @@ def main() -> int:
                      + decode["launches"]["ingest_place"]
                      + recurrent["launches"]["ingest_place"]
                      + train["launches"]["ingest_place"]
-                     + part["launches"]["ingest_place"]),
+                     + part["launches"]["ingest_place"]
+                     + dry["launches"]["ingest_place"]),
         "max_abs_err": max([place_timing["max_abs_err"]]
                            + [r["ingest_place_max_abs_err"]
                               for r in later_vs_plain]),
@@ -4512,7 +4666,17 @@ def main() -> int:
                         "elastic_restore_bit_for_bit"],
                     "moe_ep_hidden_max_abs_err": part["moe"][
                         "hidden_max_abs_err"],
-                    "launches": part["launches"]})
+                    "launches": part["launches"]},
+         dryrun={"phase_seconds": dry["phase_seconds"],
+                 "flops_equal": all(r["flops_equal"] for c in dry["cells"]
+                                    for r in c["depths"]),
+                 "peak_rel_err": {f"{c['arch']}/{c['shape']}/L{r['layers']}":
+                                  r["peak_rel_err"] for c in dry["cells"]
+                                  for r in c["depths"]},
+                 "full_depth_step_ms": {f"{c['arch']}/{c['shape']}":
+                                        c["extrapolated"]["step_ms"]
+                                        for c in dry["cells"]},
+                 "launches": dry["launches"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,15 @@ def _route(params, x2d, top_k: int):
     return experts, weights.to(x2d.dtype), logits
 
 
+def _one_hot(ids, n: int):
+    """``F.one_hot(ids, n)`` as the card computes it, zeros and then a
+    scatter, on every device: on ``meta`` tensors ``F.one_hot`` runs
+    other ops, and on the CPU it first reads the ids back to check them,
+    so the dry run's count of a step would not be the card's."""
+    out = torch.zeros((*ids.shape, n), dtype=torch.long, device=ids.device)
+    return out.scatter_(-1, ids.unsqueeze(-1), 1)
+
+
 def _capacity(n_tokens: int, top_k: int, n_experts: int, cf: float) -> int:
     c = int(np.ceil(n_tokens * top_k / n_experts * cf))
     return max(8, ((c + 7) // 8) * 8)  # the reference's padding to 8
@@ -71,7 +80,7 @@ def moe_gspmd(params, x, *, top_k: int, capacity_factor: float = 1.25,
 
     C = _capacity(T, top_k, E, capacity_factor)
     # position of each (token, k) within its expert, by arrival order
-    flat = F.one_hot(experts, E).reshape(T * top_k, E)  # (T*k, E)
+    flat = _one_hot(experts, E).reshape(T * top_k, E)  # (T*k, E)
     pos_in_e = torch.cumsum(flat, dim=0) * flat - 1
     pos = torch.amax(pos_in_e, dim=-1)                  # (T*k,)
     e_flat = experts.reshape(T * top_k)
@@ -187,7 +196,7 @@ def moe_ep_shardmap(params, x, *, top_k: int, mesh, model_axis: str = "model",
     experts, weights, _ = _route(params, x2d, top_k)
     C = _capacity(t_l, top_k, E, capacity_factor)
 
-    flat = F.one_hot(experts, E).reshape(t_l * top_k, E)
+    flat = _one_hot(experts, E).reshape(t_l * top_k, E)
     pos = torch.amax(torch.cumsum(flat, dim=0) * flat - 1, dim=-1)
     e_flat = experts.reshape(t_l * top_k)
     keep = pos < C

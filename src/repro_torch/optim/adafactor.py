@@ -9,6 +9,7 @@ kimi-k2-1t-a32b training state fit the 2-pod mesh:
 
 As ``adamw_update``, the update runs in place under ``torch.no_grad()``:
 each param and slot is overwritten with the reference's value.
+``abstract=True`` init returns ``meta`` tensors for the dry run.
 """
 
 from __future__ import annotations
@@ -25,10 +26,11 @@ def _factored(shape) -> bool:
     return len(shape) >= 2
 
 
-def adafactor_init(params):
+def adafactor_init(params, abstract: bool = False):
     def mk(p):
         def a(shape, dtype):
-            return torch.zeros(tuple(shape), dtype=dtype, device=p.device)
+            return torch.zeros(tuple(shape), dtype=dtype,
+                               device="meta" if abstract else p.device)
 
         shape = tuple(p.shape)
         if _factored(shape):
@@ -43,7 +45,8 @@ def adafactor_init(params):
     # each param leaf becomes a slot dict (the reference's tree.map)
     return {
         "slots": unflatten(params, [mk(p) for p in flat]),
-        "step": torch.zeros((), dtype=torch.int32, device=flat[0].device),
+        "step": torch.zeros((), dtype=torch.int32,
+                            device="meta" if abstract else flat[0].device),
     }
 
 

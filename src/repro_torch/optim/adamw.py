@@ -12,6 +12,8 @@ trainer cannot hold a second copy of the params and moments): ``p``,
 ``m`` and ``v`` are overwritten leaf by leaf with the reference's
 values, and the returned trees hold the same tensors.  ``m`` and ``v``
 are updated by ``mul_`` then ``add_``, the reference's two roundings.
+``abstract=True`` init returns ``meta`` tensors (shapes and dtypes, no
+allocation) for the dry run, as the reference's ``ShapeDtypeStruct``s.
 """
 
 from __future__ import annotations
@@ -23,11 +25,13 @@ from ..tree import leaves, tree_map
 __all__ = ["adamw_init", "adamw_update", "global_norm"]
 
 
-def adamw_init(params):
-    def mk(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+def adamw_init(params, abstract: bool = False):
+    dev = torch.device("meta") if abstract else leaves(params)[0].device
 
-    dev = leaves(params)[0].device
+    def mk(p):
+        return torch.zeros(p.shape, dtype=torch.float32,
+                           device=dev if abstract else p.device)
+
     return {
         "m": tree_map(mk, params),
         "v": tree_map(mk, params),

@@ -43,6 +43,9 @@ def ef_compress_update(grads, residual):
             unflatten(grads, [o[1] for o in outs]))
 
 
-def residual_init(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+def residual_init(params, abstract: bool = False):
+    """f32 zeros shaped like the params; ``meta`` tensors (the dry
+    run's) with ``abstract=True``."""
+    return tree_map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32,
+        device="meta" if abstract else p.device), params)

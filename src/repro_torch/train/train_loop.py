@@ -166,7 +166,8 @@ class Trainer:
                 raise ValueError(
                     f"the mesh holds {self.mesh.size()} ranks, the process "
                     f"group {dist.get_world_size()}")
-            if self.mesh.device_type != self.device.type:
+            # a meta trainer (the dry run's count) runs over any mesh
+            if self.device.type not in (self.mesh.device_type, "meta"):
                 raise ValueError(f"a {self.mesh.device_type} mesh for a "
                                  f"trainer on {self.device}")
             abstract = model.abstract_params()
@@ -299,7 +300,9 @@ class Trainer:
         gnorm = global_norm(flat_g)
         opt = state["opt"]
         lr = self.lr_at(opt["step"])
-        bad = not bool(torch.isfinite(loss))
+        finite = torch.isfinite(loss)
+        # a meta loss (the dry run's count) has no value: finite
+        bad = not finite.is_meta and not bool(finite)
         if bad:  # the NaN guard: no leaf moves; the counters advance
             _, new, _ = self._opt_update(
                 {}, {k: {} if k in self._slots else v

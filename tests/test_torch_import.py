@@ -33,6 +33,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.train.fault, repro_torch.train.checkpoint\n"
         "import repro_torch.dist, repro_torch.dist.partitioning\n"
         "import repro_torch.launch.mesh, repro_torch.train.elastic\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.extrapolate\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(','.join(bad))\n")
@@ -114,3 +116,20 @@ def test_cuda_tensor_never_reaches_the_new_plain_versions(monkeypatch,
     with pytest.raises(RuntimeError, match="no nvcc"):
         fn(*([torch.zeros(1)] * n_args))
     assert called == [wrapper] and fn.launches == launches
+
+
+def test_dry_run_imports_the_fake_backend_only_inside_functions():
+    """``launch/dryrun.py`` starts its ``fake`` group in its CLI and
+    ``run_cell``: no module-level import reaches ``torch.testing``."""
+    path = ROOT / "src" / "repro_torch" / "launch" / "dryrun.py"
+    tree = ast.parse(path.read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    names = [a.name for n in top if isinstance(n, ast.Import)
+             for a in n.names] + [n.module or "" for n in top
+                                  if isinstance(n, ast.ImportFrom)]
+    assert not [m for m in names if m.startswith("torch.testing")
+                or m.startswith("torch.distributed")]
+    inner = [n.module for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom) and n not in top]
+    assert "torch.testing._internal.distributed.fake_pg" in inner

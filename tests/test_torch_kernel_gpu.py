@@ -1119,3 +1119,35 @@ def test_expert_parallel_moe_on_a_one_rank_mesh_equals_gspmd(
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert float((got - want).abs().max()) <= 2e-4
+
+
+@pytest.mark.gpu
+def test_dry_run_flops_equal_the_cards():
+    """``chip_smoke.py`` phase 17 (a) at a small cut: internlm2-1.8b at
+    full width and 2 layers, train_4k's sequence at 2 rows, through the
+    plain step ``launch.dryrun.build_step`` builds: ``FlopCounterMode``
+    on the card equals ``count_step`` over ``meta`` tensors exactly, and
+    the card's peak is within 25% of the count's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    model = build_model(dataclasses.replace(ARCHS["internlm2-1.8b"],
+                                            n_layers=2))
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=2)
+    step, args = dryrun.build_step(model, shape, None)
+    counted = dryrun.count_step(step, args)
+    step, args = dryrun.build_step(model, shape, None, device="cuda")
+    with FlopCounterMode(display=False) as flops:
+        step(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(*args)
+    peak = torch.cuda.max_memory_allocated()
+    assert float(flops.get_total_flops()) == counted["flops_per_device"]
+    assert abs(peak - counted["peak_bytes"]) <= 0.25 * counted["peak_bytes"]

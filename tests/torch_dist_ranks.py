@@ -474,8 +474,44 @@ def moe_ep_training(rank, world, tmp):
     return {"loss_rel_err": loss_err, "grad_max_rel_err": grad_err}
 
 
+DRYRUN_CELLS = {"dense": ("internlm2-1.8b", {"fsdp": True}),
+                "ep": ("granite-moe-1b-a400m", {"moe_impl": "ep"})}
+
+
+def dryrun_counts(mesh, device, cell):
+    """``launch.dryrun``'s count of one train step of a reduced config
+    as this rank of ``mesh`` (4 x 16 tokens), on ``device`` (``meta``,
+    or a drawn state), under ``CommDebugMode`` too: what both sides of
+    ``test_torch_dryrun``'s collective check compare."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    arch, kw = DRYRUN_CELLS[cell]
+    model = build_model(_reduced(arch, remat="full", **kw))
+    shape = ShapeConfig("train_small", 16, 4, "train")
+    step, args = dryrun.build_step(model, shape, mesh, device=device)
+    with CommDebugMode() as comm:
+        out = dryrun.count_step(step, args)
+    return {"comm_counts": {str(k): v for k, v in
+                            comm.get_comm_counts().items()},
+            **{k: out[k] for k in ("collectives", "collective_ops",
+                                   "collective_bytes_per_device",
+                                   "flops_per_device", "bytes_per_device",
+                                   "argument_size_in_bytes")}}
+
+
+def dryrun_dense(rank, world, tmp):
+    return dryrun_counts(_mesh((2, 2)), DEVICE, "dense")
+
+
+def dryrun_ep(rank, world, tmp):
+    return dryrun_counts(_mesh((2, 2)), DEVICE, "ep")
+
+
 RANKS = {"moe_ep": moe_ep, "sharded_training": sharded_training,
-         "elastic_one": elastic_one, "moe_ep_training": moe_ep_training}
+         "elastic_one": elastic_one, "moe_ep_training": moe_ep_training,
+         "dryrun_dense": dryrun_dense, "dryrun_ep": dryrun_ep}
 
 
 if __name__ == "__main__":   # python tests/torch_dist_ranks.py NAME WORLD TMP
