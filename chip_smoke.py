@@ -230,8 +230,10 @@ phase's keys and index):
    destroyed at its end) and the mesh of ``make_mesh_for(1, 1)``.  Two
    ``Trainer`` steps of internlm2-1.8b at full width and 2 layers on
    ``launch/train.py``'s data path, once plain and once with the mesh's
-   ``activation_constrainer`` (the state sharded over the mesh): losses,
-   gnorms and every state leaf bit for bit; the sharded state's
+   ``activation_constrainer`` (the state sharded over the mesh, the step
+   the tensor-parallel design on the rank's shards, every collective a
+   copy over a group of one): losses, gnorms and every state leaf bit
+   for bit; the sharded state's
    checkpoint restored through ``elastic_restore`` onto (1, 1) bit for
    bit; granite-moe-1b-a400m at full width and 2 layers in f32 with
    ``moe_impl="ep"`` over the mesh against ``moe_gspmd``, the hidden
@@ -251,6 +253,11 @@ phase's keys and index):
    (CUDA events, p50 of 3 after 1 warm) at both depths, extrapolated to
    full depth by ``extrapolate.at_depth`` with the peak, beside the
    full-depth count's roofline terms (a measured roofline fraction);
+   then the tensor-parallel rank share of internlm2-1.8b x train_4k
+   (``dry_tp_cell``: rank 255 of a ``fake`` group of 256 over the
+   pod16x16 mesh on the card, its own 16 rows of 4,096 tokens at its
+   shard shapes, 2 and 4 layers, the collectives moving nothing as in
+   the count) held the same way: FLOPs exactly, the peak within 25%;
    then ``dryrun.run_cell`` of whisper-base x decode_32k on pod16x16 in
    a ``fake`` group of 256 and ``roofline.HBM_BYTES`` against the
    card's ``total_memory`` (``dryrun``, with the phase's seconds and
@@ -4135,9 +4142,11 @@ def partition_train(seed, tmp, mesh, store) -> dict:
     ``remat="full"``): ``PART_STEPS`` ``Trainer`` steps on
     ``launch/train.py``'s data path, once without a constrainer and
     once with ``activation_constrainer(mesh)`` (the state sharded over
-    the mesh); losses, gnorms and every state leaf bit for bit.  Then
-    the sharded state's checkpoint, restored through ``elastic_restore``
-    onto a (1, 1) mesh, bit for bit."""
+    the mesh, the step the tensor-parallel design: the model on the
+    rank's shards, every collective over a group of one); losses,
+    gnorms and every state leaf bit for bit.  Then the sharded state's
+    checkpoint, restored through ``elastic_restore`` onto a (1, 1) mesh,
+    bit for bit."""
     from repro_torch.data import IndexedTokenDataset, ShardedLoader
     from repro_torch.dist import activation_constrainer
     from repro_torch.dist.partitioning import batch_shard
@@ -4173,6 +4182,9 @@ def partition_train(seed, tmp, mesh, store) -> dict:
                        "losses": [float(m["loss"]) for m in metrics],
                        "gnorms": [float(m["gnorm"]) for m in metrics]}
     plain, sharded = runs["plain"], runs["mesh"]
+    design = sharded["trainer"].design
+    if design != "tensor-parallel":
+        raise AssertionError(f"the mesh trainer ran {design}")
     bits = (plain["losses"] == sharded["losses"]
             and plain["gnorms"] == sharded["gnorms"]
             and same_tree(plain["state"], sharded["state"]))
@@ -4196,7 +4208,7 @@ def partition_train(seed, tmp, mesh, store) -> dict:
         raise AssertionError("elastic_restore onto (1, 1) differs from the "
                              "saved state")
     out = {"arch": cfg.name, "layers": cfg.n_layers, "steps": PART_STEPS,
-           "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
+           "design": design, "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
            "losses": sharded["losses"], "gnorms": sharded["gnorms"],
            "bit_identical_with_and_without_mesh": bits,
            "plain_step_s": plain["step_s"],
@@ -4316,20 +4328,24 @@ DRY_CELLS = (("internlm2-1.8b", "train_4k", 4),
 DRY_DEPTHS = (2, 4)
 DRY_PEAK_RTOL = 0.25
 DRY_TIMED = 3
+# the tensor-parallel rank share: (arch, shape), a pod16x16 rank's own
+# 16 rows at its local shard shapes
+DRY_TP_CELL = ("internlm2-1.8b", "train_4k")
 
 
-def dry_depth(model, shape, seed) -> dict:
-    """One depth of a cell: the count on ``meta``, then the same plain
-    step on the card (its first run under ``FlopCounterMode``, the
-    warm-up), then ``DRY_TIMED`` steps timed with CUDA events, the
-    peak over them from ``max_memory_allocated``."""
+def dry_depth(model, shape, seed, mesh=None) -> dict:
+    """One depth of a cell: the count on ``meta``, then the same step
+    on the card (its first run under ``FlopCounterMode``, the warm-up),
+    then ``DRY_TIMED`` steps timed with CUDA events, the peak over them
+    from ``max_memory_allocated``.  ``mesh``: the step of one rank of
+    it (in the ``fake`` group the caller holds), else the plain one."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.launch import dryrun
-    step, args = dryrun.build_step(model, shape, None)
+    step, args = dryrun.build_step(model, shape, mesh)
     counted = dryrun.count_step(step, args)
     del step, args
-    step, args = dryrun.build_step(model, shape, None, device=CARD,
+    step, args = dryrun.build_step(model, shape, mesh, device=CARD,
                                    seed=seed)
     with FlopCounterMode(display=False) as flops:
         step(*args)
@@ -4345,9 +4361,10 @@ def dry_depth(model, shape, seed) -> dict:
         b.synchronize()
         times.append(a.elapsed_time(b))
     peak = torch.cuda.max_memory_allocated()
+    design = step.design
     del step, args
     torch.cuda.empty_cache()
-    return {"layers": model.cfg.n_layers,
+    return {"layers": model.cfg.n_layers, "design": design,
             "card_flops": float(flops.get_total_flops()),
             "counted_flops": counted["flops_per_device"],
             "flops_equal": float(flops.get_total_flops())
@@ -4398,6 +4415,51 @@ def dry_cell(arch, shape_name, rows, seed) -> dict:
             "measured_roofline_fraction": bound / full["step_ms"]}
 
 
+def dry_tp_cell(seed) -> dict:
+    """``DRY_TP_CELL``'s tensor-parallel rank share on the card: rank
+    255 of a ``fake`` group of 256 over the pod16x16 mesh, its own 16
+    rows and its shards at full width, at ``DRY_DEPTHS``.  The ``fake``
+    group's collectives move nothing (an all-gather copies the local
+    shard), as in the count; FLOPs and peak against ``count_step`` of
+    the same step on ``meta`` (``dry_depth``), the depth law to full
+    depth beside the full-depth count's roofline terms."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun, extrapolate, roofline
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    arch, shape_name = DRY_TP_CELL
+    base, shape = ARCHS[arch], SHAPES[shape_name]
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device=CARD)
+        runs = [dry_depth(build_model(dataclasses.replace(base, n_layers=n)),
+                          shape, seed, mesh) for n in DRY_DEPTHS]
+        step, args = dryrun.build_step(build_model(base), shape, mesh)
+        counted = dryrun.count_step(step, args)
+        del step, args
+    (a, ra), (b, rb) = [(r["layers"], r) for r in runs]
+    full = extrapolate.at_depth(ra, rb, a, b, base.n_layers, fields=(
+        "step_ms", "card_peak_bytes", "peak_bytes", "card_flops"))
+    terms = {"compute_ms": 1e3 * counted["flops_per_device"]
+             / roofline.PEAK_FLOPS,
+             "memory_ms": 1e3 * counted["bytes_per_device"]
+             / roofline.HBM_BW}
+    bound = max(terms.values())
+    return {"arch": arch, "shape": shape_name, "mesh": "pod16x16",
+            "rows": shape.global_batch // 16,
+            "tokens": shape.global_batch // 16 * shape.seq_len,
+            "depths": runs, "full_layers": base.n_layers,
+            "extrapolated": full,
+            "full_count": {k: counted[k] for k in (
+                "flops_per_device", "bytes_per_device", "peak_bytes",
+                "argument_size_in_bytes", "collective_bytes_per_device",
+                "collectives", "fits", "count_s")},
+            "roofline_ms": terms,
+            "dominant": max(terms, key=terms.get)[:-3],
+            "measured_roofline_fraction": bound / full["step_ms"]}
+
+
 def phase_dryrun(seed, smi) -> dict:
     """Phase 17 (see the module doc); emits ``dryrun``.  Every check is
     asserted after the line is printed, so a miss shows its numbers."""
@@ -4408,11 +4470,12 @@ def phase_dryrun(seed, smi) -> dict:
     fused_lookup.launches = 0
     ingest_place.launches = 0
     cells = [dry_cell(a, s, rows, seed) for a, s, rows in DRY_CELLS]
+    tp_cell = dry_tp_cell(seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
         rec = dryrun.run_cell("whisper-base", "decode_32k", False, tmp)
     total = (torch.cuda.get_device_properties(0).total_memory
              if CARD == "cuda" else roofline.HBM_BYTES)
-    out = {"cells": cells,
+    out = {"cells": cells, "tp_cell": tp_cell,
            "whisper_cell": {k: rec.get(k) for k in (
                "status", "n_devices", "flops_per_device", "bytes_per_device",
                "collective_bytes_per_device", "collectives", "peak_bytes",
@@ -4422,7 +4485,9 @@ def phase_dryrun(seed, smi) -> dict:
                         "ingest_place": ingest_place.launches},
            "phase_seconds": time.perf_counter() - t0}
     emit("dryrun", card=smi, **out)
-    runs = [r for c in cells for r in c["depths"]]
+    runs = [r for c in cells + [tp_cell] for r in c["depths"]]
+    if {r["design"] for r in tp_cell["depths"]} != {"tensor-parallel"}:
+        raise AssertionError("the rank share ran another design")
     if not all(r["flops_equal"] for r in runs):
         raise AssertionError("the card's FLOPs differ from the count")
     if not all(abs(r["peak_rel_err"]) <= DRY_PEAK_RTOL for r in runs):
@@ -4660,6 +4725,7 @@ def main() -> int:
                  a: r["grad_max_rel_err"] for a, r in
                  train["numerics"]["card_vs_cpu_f32"].items()}},
          partition={"phase_seconds": part["phase_seconds"],
+                    "design": part["train"]["design"],
                     "bit_identical_with_and_without_mesh": part["train"][
                         "bit_identical_with_and_without_mesh"],
                     "elastic_restore_bit_for_bit": part["train"][
@@ -4676,6 +4742,15 @@ def main() -> int:
                  "full_depth_step_ms": {f"{c['arch']}/{c['shape']}":
                                         c["extrapolated"]["step_ms"]
                                         for c in dry["cells"]},
+                 "tp_rank_share": {
+                     "flops_equal": all(r["flops_equal"] for r in
+                                        dry["tp_cell"]["depths"]),
+                     "peak_rel_err": [r["peak_rel_err"] for r in
+                                      dry["tp_cell"]["depths"]],
+                     "step_ms": [r["step_ms"] for r in
+                                 dry["tp_cell"]["depths"]],
+                     "full_depth_step_ms": dry["tp_cell"]["extrapolated"][
+                         "step_ms"]},
                  "launches": dry["launches"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -36,6 +36,29 @@ a mesh and returns the ``constrain(x, axes)`` hook threaded through
 every model forward: a DTensor is redistributed to the spec of its
 shape, a plain tensor passes unchanged, and ``constrain.mesh`` is the
 mesh (the LM's expert-parallel MoE reads it).
+
+Tensor parallelism (``TensorParallel``): the step that computes on each
+rank's own shards, as GSPMD runs the reference's jitted step.  Params
+sharded over "model" stay sharded during compute (Megatron's column- and
+row-parallel products); a leaf sharded over "data" (FSDP's "embed") is
+gathered over "data" where it is used, one layer at a time.  Three
+``torch.autograd.Function``s carry the collectives, each the adjoint of
+the other's direction:
+
+* ``copy``: identity forward, the grad summed over "model" backward.
+  Whatever is replicated over "model" and enters a product that each
+  rank computes a part of (the norm's output before the column-parallel
+  products, a replicated weight used inside such a product) passes
+  through it, so its grad is the whole on every rank;
+* ``reduce``: the sum over "model" forward, identity backward: the
+  row-parallel product's partial output, summed *before* the residual
+  add (after it, the replicated ``x`` would be summed once a rank);
+* ``gather``: ``all_gather`` along a dim forward, ``reduce_scatter`` of
+  the grad backward: an FSDP leaf over "data", or a "model"-sharded
+  leaf a rank needs whole (the MoE router).
+
+An axis of size one splits nothing: every helper is then the identity
+and the layers take their plain paths.
 """
 
 from __future__ import annotations
@@ -53,6 +76,9 @@ __all__ = [
     "Sharding",
     "place",
     "batch_shard",
+    "TensorParallel",
+    "local_shard",
+    "layer_specs",
 ]
 
 # logical axis -> preferred mesh axes, in priority order
@@ -210,7 +236,15 @@ def place(t, mesh, placements):
     from torch.distributed.tensor import DTensor, Replicate
     full = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
-    return full.redistribute(mesh, tuple(placements))
+    out = full.redistribute(mesh, tuple(placements))
+    local = out._local_tensor
+    if local.numel() < t.numel():
+        # a chunk along dim 0 is a view that keeps all of ``t`` alive:
+        # the shard gets storage of its own
+        out = DTensor.from_local(local.clone(), mesh, out.placements,
+                                 run_check=False, shape=out.shape,
+                                 stride=out.stride())
+    return out
 
 
 def activation_constrainer(mesh, *, fsdp: bool = False,
@@ -248,3 +282,210 @@ def batch_shard(mesh) -> Tuple[int, int]:
             shard_id = shard_id * mesh.shape[d] + coord[d]
             n_shards *= mesh.shape[d]
     return shard_id, n_shards
+
+
+def local_shard(t):
+    """A DTensor's local shard (a plain tensor sharing its storage); any
+    other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: each rank computes on its own shards
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Axis:
+    """One mesh axis as a process group: its name, group, size and this
+    rank's coordinate on it."""
+
+    name: str
+    group: object
+    size: int
+    rank: int
+
+
+# The functional collectives: ``gloo``'s in-place ``reduce_scatter_tensor``
+# copies its result out of a buffer after the op, which a dispatch mode
+# would count as the step's own traffic (nccl's and the ``fake`` group's
+# do not); the functional ops look alike on all three.
+
+
+def _all_gather(x, group, size, dim):
+    import torch
+    c10d = torch.ops._c10d_functional
+    out = c10d.wait_tensor(c10d.all_gather_into_tensor(
+        x.movedim(dim, 0).contiguous(), size, group.group_name))
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(g, group, size, dim):
+    import torch
+    c10d = torch.ops._c10d_functional
+    out = c10d.wait_tensor(c10d.reduce_scatter_tensor(
+        g.movedim(dim, 0).contiguous(), "sum", size, group.group_name))
+    return out.movedim(0, dim)
+
+
+def _functions():
+    """The three autograd Functions (built on first use: importing this
+    module imports no torch)."""
+    global _FUNCTIONS
+    if _FUNCTIONS is not None:
+        return _FUNCTIONS
+    import torch
+    import torch.distributed as dist
+
+    class Copy(torch.autograd.Function):
+        """Identity forward; the grad summed over the axis backward."""
+
+        @staticmethod
+        def forward(ctx, x, axis):
+            ctx.axis = axis
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            g = g.contiguous().clone()
+            dist.all_reduce(g, group=ctx.axis.group)
+            return g, None
+
+    class Reduce(torch.autograd.Function):
+        """The sum over the axis forward; identity backward."""
+
+        @staticmethod
+        def forward(ctx, x, axis):
+            y = x.contiguous().clone()
+            dist.all_reduce(y, group=axis.group)
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    class Gather(torch.autograd.Function):
+        """``all_gather`` along ``dim`` forward; the grad
+        ``reduce_scatter``ed back onto the shard backward."""
+
+        @staticmethod
+        def forward(ctx, x, axis, dim):
+            ctx.axis, ctx.dim = axis, dim
+            return _all_gather(x, axis.group, axis.size, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            a = ctx.axis
+            return _reduce_scatter(g, a.group, a.size, ctx.dim), None, None
+
+    _FUNCTIONS = (Copy, Reduce, Gather)
+    return _FUNCTIONS
+
+
+_FUNCTIONS = None
+
+
+def _mesh_axis(mesh, name: str) -> Optional[_Axis]:
+    names = _mesh_names(mesh)
+    if name not in names:
+        return None
+    return _Axis(name, mesh.get_group(name), mesh.shape[names.index(name)],
+                 mesh.get_local_rank(name))
+
+
+def _spec_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+class TensorParallel:
+    """The ``constrain`` hook of a step that computes on each rank's own
+    shards (see the module doc).  The model receives the params as
+    local shards (``local_shard``) and ``specs``, the ``PS`` tree of
+    ``param_pspecs`` for them, names the dims each is split on.
+
+    As a hook it returns an activation unchanged (each rank holds its
+    own activations); ``mesh`` is the mesh and ``tp`` the object itself
+    (what a model's layers look for).  ``model`` and ``data`` are the
+    two axes as ``_Axis`` records; ``batch`` the axes the batch rows are
+    split over, ("pod", "data"), that have more than one rank."""
+
+    def __init__(self, mesh, specs):
+        self.mesh = mesh
+        self.specs = specs
+        self.tp = self
+        self.model = _mesh_axis(mesh, "model")
+        self.data = _mesh_axis(mesh, "data")
+        self.axes = {n: _mesh_axis(mesh, n) for n in _mesh_names(mesh)}
+        self.batch = tuple(self.axes[n] for n in _RULES["batch"]
+                           if n in self.axes and self.axes[n].size > 1)
+
+    def __call__(self, x, axes):
+        return x
+
+    def splits(self, spec, dim: int, axis: str = "model") -> bool:
+        """Whether ``spec`` splits ``dim`` over ``axis`` across more
+        than one rank."""
+        a = self.axes.get(axis)
+        return (a is not None and a.size > 1
+                and axis in _spec_axes(spec[dim]))
+
+    def split_axes(self, spec, dim: int) -> Tuple[_Axis, ...]:
+        """The axes of more than one rank that ``spec`` splits ``dim``
+        over."""
+        return tuple(self.axes[n] for n in _spec_axes(spec[dim])
+                     if self.axes[n].size > 1)
+
+    # -- the collectives ------------------------------------------------
+    def copy(self, x):
+        """Identity forward, grad summed over "model" backward."""
+        if self.model is None or self.model.size == 1:
+            return x
+        return _functions()[0].apply(x, self.model)
+
+    def reduce(self, x):
+        """Sum over "model" forward, identity backward."""
+        if self.model is None or self.model.size == 1:
+            return x
+        return _functions()[1].apply(x, self.model)
+
+    def gather(self, x, axis: _Axis, dim: int):
+        """``x`` whole along ``dim`` from its shards over ``axis``."""
+        if axis.size == 1:
+            return x
+        return _functions()[2].apply(x, axis, dim)
+
+    def reduce_max(self, x):
+        """The max over "model" (no grad)."""
+        if self.model is None or self.model.size == 1:
+            return x
+        import torch.distributed as dist
+        x = x.detach().contiguous().clone()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.model.group)
+        return x
+
+    def offset(self, spec, dim: int, local_size: int) -> int:
+        """The global index of this rank's first entry along ``dim``
+        (0 when ``dim`` is not split over "model")."""
+        return (self.model.rank * local_size
+                if self.splits(spec, dim) else 0)
+
+    def gather_fsdp(self, tree, specs):
+        """Every leaf of ``tree`` that ``specs`` splits over "data"
+        gathered whole along that dim (FSDP's gather at use)."""
+        if isinstance(tree, dict):
+            return {k: self.gather_fsdp(v, specs[k]) for k, v in tree.items()}
+        for d in range(len(specs)):
+            if self.splits(specs, d, "data"):
+                return self.gather(tree, self.data, d)
+        return tree
+
+
+def layer_specs(specs):
+    """The ``PS`` tree of one layer of a stacked ``(L, ...)`` tree: each
+    spec without its first ("layers") entry."""
+    if isinstance(specs, dict):
+        return {k: layer_specs(v) for k, v in specs.items()}
+    return PS(*specs[1:])

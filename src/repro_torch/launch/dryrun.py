@@ -11,23 +11,39 @@ step on ``meta`` tensors (shapes and dtypes, no data) as one rank of a
 and counts what that step does.  The group is symmetric, so rank
 ``world - 1`` stands for every rank: each count is per device.
 
-The step is the one the port runs, gather-at-use (the record's
-``"design"``):
+The step is the one the port runs, in one of two designs (the
+record's ``"design"``, ``step.design``):
 
-* **train**: ``Trainer.train_step`` itself, on a state built from
-  ``abstract_params()``, the optimizer's ``abstract=True`` init (and
-  ``residual_init(abstract=True)`` with ``grad_compress``) and placed by
-  ``Trainer.shard_state``, with the rank's rows of ``input_specs(shape)``
-  under ``input_shardings``;
-* **prefill / decode**: the params gathered whole, the rank's rows of
-  the batch, its shard of the caches under ``_cache_shardings``
-  gathered whole along every dim but the batch, then ``prefill_fn`` /
-  ``decode_fn`` (``loss_fn`` with ``labels = tokens`` where
-  ``prefill_fn`` is None, as the reference does).
+* **"tensor-parallel"** (a model with ``tensor_parallel``, the LM
+  family, and heads-sharded caches): the rank computes on its own
+  shards, as GSPMD runs the reference's jitted step.  Params split over
+  "model" stay split, FSDP leaves are gathered over "data" a layer at a
+  time, and the collectives are the "model" all-reduces and the "data"
+  all-gathers and reduce-scatters (``dist.partitioning.TensorParallel``);
+* **"gather-at-use"** (the other families): the params are gathered
+  whole for the step (``full_tensor``).
+
+* **train**: ``Trainer.train_step`` itself (the trainer picks the
+  design), on a state built from ``abstract_params()``, the optimizer's
+  ``abstract=True`` init (and ``residual_init(abstract=True)`` with
+  ``grad_compress``) and placed by ``Trainer.shard_state``, with the
+  rank's rows of ``input_specs(shape)`` under ``input_shardings``;
+* **prefill / decode**: the rank's rows of the batch, then
+  ``prefill_fn`` / ``decode_fn`` (``loss_fn`` with ``labels = tokens``
+  where ``prefill_fn`` is None, as the reference does): under
+  tensor parallelism on the rank's param shards and its cache shards
+  under ``_cache_shardings``; under gather-at-use on the params gathered
+  whole and the cache shards gathered whole along every dim but the
+  batch.
 
 ``build_step`` with ``mesh=None`` is the same step on one process (no
 gather, every row), on ``meta`` or, with real data, on a device: the
 program ``chip_smoke.py`` runs on the card to hold these counts to it.
+With a mesh and a device, the rank's share of the step runs on that
+device with real data; in the ``fake`` group its collectives move
+nothing (an all-gather copies the local shard into every slot), which
+is how ``chip_smoke.py`` runs a tensor-parallel rank's share on the
+card.
 
 What each field counts (``count_step``):
 
@@ -92,8 +108,10 @@ from ..configs import ARCHS, SHAPES
 from ..dist.partitioning import (
     PS,
     Sharding,
+    TensorParallel,
     activation_constrainer,
     input_shardings,
+    local_shard,
     param_shardings,
     place,
 )
@@ -106,8 +124,6 @@ from .mesh import make_production_mesh
 
 __all__ = ["applicable", "build_step", "collective_bytes", "count_step",
            "fake_group", "run_cell", "main"]
-
-DESIGN = "gather-at-use"
 
 
 # cells that are N/A by design (documented in DESIGN.md §4):
@@ -176,12 +192,6 @@ def collective_bytes(collectives):
     return sum(per_kind.values()), per_kind, count
 
 
-def _local(t):
-    """A DTensor's local shard; any other tensor as it is."""
-    from torch.distributed.tensor import DTensor
-    return t._local_tensor if isinstance(t, DTensor) else t
-
-
 def _tensors(tree):
     """Every tensor of a nested tree of containers (c10d lists too)."""
     if isinstance(tree, torch.Tensor):
@@ -195,7 +205,7 @@ def _tensors(tree):
 
 def _nbytes(tree) -> int:
     """At-rest bytes of a tree's tensors: a DTensor's local shard."""
-    return sum(_local(t).numel() * t.element_size() for t in _tensors(tree))
+    return sum(local_shard(t).numel() * t.element_size() for t in _tensors(tree))
 
 
 def _card_workspace(func, args) -> int:
@@ -266,9 +276,9 @@ def count_step(step, args) -> dict:
     donate = getattr(step, "donate_argnums", ())
     fresh = getattr(step, "fresh", lambda out: out)
     flat = _tensors(list(args))
-    dev = _local(flat[0]).device if flat else torch.device("meta")
+    dev = local_shard(flat[0]).device if flat else torch.device("meta")
     tracker = MemTracker()
-    tracker.track_external(*[_local(t) for t in flat])
+    tracker.track_external(*[local_shard(t) for t in flat])
     counter = _Counter()
     t0 = time.perf_counter()
     with FlopCounterMode(display=False) as flops, tracker, counter:
@@ -395,8 +405,10 @@ def build_step(model, shape, mesh, seq_axis=None, kv_shard="heads", *,
                device="meta", seed: int = 0):
     """Returns ``(step_fn, args)``: ``step_fn(*args)`` runs one step of
     ``shape`` as one rank of ``mesh`` (see the module doc).
-    ``step_fn.donate_argnums`` names the arguments it writes in place
-    and ``step_fn.fresh(out)`` its new results.
+    ``step_fn.donate_argnums`` names the arguments it writes in place,
+    ``step_fn.fresh(out)`` its new results and ``step_fn.design`` the
+    design it runs ("tensor-parallel" or "gather-at-use"; None without a
+    mesh).
 
     ``mesh=None``: the one-process step over every row of ``shape``.
     ``device``: ``meta`` (the abstract state) or a device, where the
@@ -439,6 +451,7 @@ def build_step(model, shape, mesh, seq_axis=None, kv_shard="heads", *,
 
         train_step.donate_argnums = (0,)
         train_step.fresh = lambda out: out
+        train_step.design = tr.design
         return train_step, (state, batch)
 
     cache_len = _cache_len(cfg, shape)
@@ -450,13 +463,30 @@ def build_step(model, shape, mesh, seq_axis=None, kv_shard="heads", *,
             torch.Generator(device=dev).manual_seed(seed), dev)
         cache = model.init_caches(shape.global_batch, cache_len, device=dev)
 
+    design = None
     if mesh is None:
         def whole(tree):
             return tree
 
         def use(tree):
             return tree
+    elif model.tensor_parallel and kv_shard == "heads":
+        design = "tensor-parallel"
+        pshard = param_shardings(model.logical_axes(), mesh, fsdp=cfg.fsdp,
+                                 abstract_tree=params)
+        constrain = TensorParallel(mesh, tree_map(lambda s: s.spec, pshard))
+        params = tree_map(lambda t, s: place(t, mesh, s.placements),
+                          params, pshard)
+        cshard = _cache_shardings(cache, mesh, cfg, shape, kv_shard)
+        cache = tree_map(lambda t, s: place(t, mesh, s.placements),
+                         cache, cshard)
+
+        def whole(tree):   # the rank's own shards
+            return tree_map(local_shard, tree)
+
+        use = whole
     else:
+        design = "gather-at-use"
         pshard = param_shardings(model.logical_axes(), mesh, fsdp=cfg.fsdp,
                                  abstract_tree=params)
         params = tree_map(lambda t, s: place(t, mesh, s.placements),
@@ -490,6 +520,7 @@ def build_step(model, shape, mesh, seq_axis=None, kv_shard="heads", *,
                 return model.loss_fn(whole(params), batch, constrain), cache
         prefill_step.donate_argnums = (2,)
         prefill_step.fresh = lambda out: out[0]
+        prefill_step.design = design
         return prefill_step, (params, batch, cache)
 
     # decode: one new token against a cache_len KV cache, at its last
@@ -500,6 +531,7 @@ def build_step(model, shape, mesh, seq_axis=None, kv_shard="heads", *,
 
     serve_step.donate_argnums = (2,)
     serve_step.fresh = lambda out: out[0]
+    serve_step.design = design
     return serve_step, (params, batch, cache, cache_len - 1)
 
 
@@ -566,7 +598,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             counts = count_step(step, args)
             rec.update(
                 status="ok",
-                design=DESIGN,
+                design=step.design,
                 n_devices=int(mesh.size()),
                 params=model.param_count(),
                 active_params=model.active_param_count(),

@@ -13,6 +13,8 @@ a :class:`Model` exposing:
                                               -> the reference's layouts
   input_specs(shape)  -> the batch's shapes and dtypes, no allocation
   input_sample(shape, generator, device)      -> a real batch
+  tensor_parallel     -> the forward takes a rank's shards under
+                         ``dist.partitioning.TensorParallel``
 
 for the ``lm``, ``vlm``, ``encdec``, ``zamba`` (Mamba-2 + shared
 attention) and ``xlstm`` families.  The reference's ``ShapeDtypeStruct``
@@ -48,6 +50,9 @@ class Model:
     prefill_fn: Optional[Callable] = None
     cache_specs: Optional[Callable] = None
     init_caches: Optional[Callable] = None
+    # the forward computes on each rank's shards under a
+    # ``dist.partitioning.TensorParallel`` hook (the LM family)
+    tensor_parallel: bool = False
 
     def param_specs(self):
         return self._specs
@@ -153,6 +158,7 @@ def build_model(cfg: ModelConfig) -> Model:
                 cfg, batch, max_len),
             init_caches=lambda batch, max_len, device=None: _lm.init_kv_cache(
                 cfg, batch, max_len, device=device),
+            tensor_parallel=True,
         )
     if cfg.arch == "vlm":
         return Model(

@@ -64,7 +64,8 @@ Params = Dict[str, Any]
 __all__ = ["P", "Params", "init_params", "map_specs", "abstract_params",
            "logical_axes", "padded_vocab",
            "rms_norm", "rope", "attention_specs", "gqa_attention",
-           "mlp_specs", "mlp", "softmax_xent", "causal_additive_mask",
+           "mlp_specs", "mlp", "softmax_xent", "vocab_parallel_xent",
+           "causal_additive_mask",
            "mm", "einsum", "layer_slice", "layer_list", "remat",
            "REMAT_POLICIES"]
 
@@ -272,6 +273,8 @@ def gqa_attention(
     cache_index: Optional[int] = None,  # #valid cache entries
     kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     attn_mask: Optional[torch.Tensor] = None,  # additive (B, S, T)
+    tp=None,
+    kv_split: bool = False,
 ):
     """Grouped-query attention with optional KV cache / cross-attention.
 
@@ -281,8 +284,33 @@ def gqa_attention(
     returns an updated copy; every caller here replaces its cache by
     the returned one, so the values are the same).  This is plain torch:
     the reference computes attention in XLA, outside any Pallas kernel.
+
+    ``tp`` (a ``dist.partitioning.TensorParallel``): the params are this
+    rank's heads of "model" (``wq`` / ``wo`` / ``bq``), the output its
+    partial sum, reduced over "model".  With ``kv_split`` the KV
+    projections (and the cache) are this rank's KV heads too; without,
+    the divisibility guard left them whole: with a cache they run whole
+    (the cache is whole on every rank) and each query head takes its
+    own KV head from them; without one, only the KV heads this rank's
+    query heads use are projected.
     """
     B, S, D = x.shape
+    picked = False
+    if tp is not None:
+        x = tp.copy(x)
+        if not kv_split:   # whole weights inside the split product
+            params = {k: tp.copy(v) if k in ("wk", "wv", "bk", "bv") else v
+                      for k, v in params.items()}
+            n_q = params["wq"].shape[1]
+            heads = (tp.model.rank * n_q, n_q,
+                     n_q * tp.model.size // params["wk"].shape[1])
+            picked = kv_cache is None and kv_override is None
+            if picked:   # project only the KV heads these heads use
+                params["wk"], params["wv"] = _kv_of_heads(
+                    params["wk"], params["wv"], *heads)
+                if "bk" in params:
+                    params["bk"], params["bv"] = _kv_of_heads(
+                        params["bk"], params["bv"], *heads, dim=0)
     q = einsum("bsd,dhk->bshk", x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
@@ -309,6 +337,8 @@ def gqa_attention(
     q = rope(q, positions, rope_theta)
 
     n_heads = q.shape[2]
+    if tp is not None and not kv_split and not picked:
+        k, v = _kv_of_heads(k, v, *heads)
     n_kv = k.shape[1]
     group = n_heads // n_kv
     T = k.shape[2]
@@ -344,7 +374,26 @@ def gqa_attention(
     out = einsum("bngst,bntk->bsngk", probs, v)
     out = out.reshape(B, S, n_heads, -1)
     out = einsum("bshk,hkd->bsd", out, params["wo"])
+    if tp is not None:
+        out = tp.reduce(out)
     return out, new_kv
+
+
+def _kv_of_heads(k, v, lo: int, n: int, group: int, dim: int = 1):
+    """The KV heads (dim ``dim`` of ``k`` / ``v``, all of them: the
+    projections' weights or their outputs) that query heads ``lo .. lo
+    + n - 1`` attend with (head i uses KV head ``i // group``), laid out
+    for the grouping of ``gqa_attention``: whole groups as a slice, a
+    part of one group as its one KV head, else one KV head a query
+    head."""
+    if n % group == 0 and lo % group == 0:
+        a, b = lo // group, (lo + n) // group
+    elif group % n == 0 and lo % n == 0:
+        a, b = lo // group, lo // group + 1
+    else:
+        idx = torch.arange(lo, lo + n, device=k.device) // group
+        return k.index_select(dim, idx), v.index_select(dim, idx)
+    return k.narrow(dim, a, b - a), v.narrow(dim, a, b - a)
 
 
 def mlp_specs(d_model, d_ff, gated=True):
@@ -360,14 +409,19 @@ def mlp_specs(d_model, d_ff, gated=True):
     }
 
 
-def mlp(params, x):
+def mlp(params, x, tp=None):
     """SwiGLU when gated, else GELU — ``jax.nn.gelu``'s default is the
-    tanh approximation, so ``approximate="tanh"``."""
+    tanh approximation, so ``approximate="tanh"``.  ``tp``: the params
+    are this rank's "ffn" columns / rows (column- then row-parallel);
+    the output's partial sum is reduced over "model"."""
+    if tp is not None:
+        x = tp.copy(x)
     if "w_gate" in params:
         h = F.silu(mm(x, params["w_gate"])) * mm(x, params["w_up"])
     else:
         h = F.gelu(mm(x, params["w_up"]), approximate="tanh")
-    return mm(h, params["w_down"])
+    out = mm(h, params["w_down"])
+    return out if tp is None else tp.reduce(out)
 
 
 def softmax_xent(logits, labels, mask=None):
@@ -376,6 +430,29 @@ def softmax_xent(logits, labels, mask=None):
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels[..., None].long(),
                                 dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def vocab_parallel_xent(logits, labels, mask, tp, lo: int):
+    """``softmax_xent`` over logits split on the vocab over "model":
+    ``logits`` (..., V_l) are this rank's columns ``lo .. lo + V_l - 1``.
+    The max, the sum of exponentials and the label's logit are each
+    reduced over "model" (Megatron's vocab-parallel cross-entropy); the
+    result is the whole loss on every rank."""
+    logits = logits.float()
+    m = tp.reduce_max(torch.amax(logits.detach(), dim=-1))
+    s = tp.reduce(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    logz = torch.log(s) + m
+    local = labels.long() - lo
+    inside = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.take_along_dim(
+        logits, local.clamp(0, logits.shape[-1] - 1)[..., None],
+        dim=-1)[..., 0]
+    gold = tp.reduce(torch.where(inside, gold, torch.zeros_like(gold)))
     nll = logz - gold
     if mask is None:
         return torch.mean(nll)

@@ -15,15 +15,32 @@ per-layer views, and ``loss_fn`` is differentiable by autograd.
 tensor).  With ``moe_impl="ep"`` and a constrainer that carries a mesh,
 the MoE layers run ``moe.moe_ep_shardmap`` over its "model" axis, as
 the reference's do.
+
+Under a ``dist.partitioning.TensorParallel`` hook (``constrain.tp``)
+the params are each rank's shards and every function computes on them,
+as GSPMD runs the reference's step (``lm.py:84,98,109,142``): the
+embedding is a masked lookup of the rank's vocab rows summed over
+"model"; a layer gathers its FSDP leaves over "data" (inside the remat
+body, so the recompute gathers again and the whole layer is freed after
+it), runs attention on its heads and the MLP on its "ffn" columns, each
+reduced over "model" before the residual add; the logits are the
+rank's vocab columns and the loss the vocab-parallel cross-entropy.
+Where the divisibility guard left a dim whole, its product runs whole
+on every rank (``base.gqa_attention``'s ``kv_split``).  Prefill and
+decode write each rank's KV heads into its cache shard (the whole cache
+where the guard keeps the KV heads whole) and return the rank's vocab
+columns of the logits.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 
 from ..device import resolve_device
+from ..dist.partitioning import layer_specs as _layer_spec_tree
 from . import moe as _moe
 from .base import (
     P,
@@ -40,6 +57,7 @@ from .base import (
     remat,
     rms_norm,
     softmax_xent,
+    vocab_parallel_xent,
 )
 
 
@@ -108,6 +126,64 @@ def _layer_fwd(cfg, constrain, lp, x, positions, kv_cache=None,
     return constrain(x + h2, ("batch", None, "embed")), new_kv
 
 
+def _layer_fwd_tp(cfg, tp, spec, lp, x, positions, kv_cache=None,
+                  cache_index=None, attn_mask=None):
+    """``_layer_fwd`` on this rank's shards (``lp``; ``spec`` their
+    ``PS`` tree, see the module doc).  Returns (x, new_kv)."""
+    lp = tp.gather_fsdp(lp, spec)
+    a = spec["attn"]
+    h, new_kv = gqa_attention(
+        lp["attn"], rms_norm(x, lp["ln_attn"]), positions,
+        causal=True, rope_theta=cfg.rope_theta,
+        kv_cache=kv_cache, cache_index=cache_index, attn_mask=attn_mask,
+        tp=tp if tp.splits(a["wq"], 1) else None,
+        kv_split=tp.splits(a["wk"], 1),
+    )
+    x = x + h
+    h2 = rms_norm(x, lp["ln_mlp"])
+    if cfg.moe is not None:
+        h2 = _moe.moe_tp(lp["moe"], h2, spec["moe"], tp, top_k=cfg.moe.top_k,
+                         capacity_factor=cfg.moe.capacity_factor,
+                         ep=cfg.moe_impl == "ep")
+    else:
+        h2 = mlp(lp["mlp"], h2,
+                 tp=tp if tp.splits(spec["mlp"]["w_up"], 1) else None)
+    return x + h2, new_kv
+
+
+def _embed(params, tokens, tp):
+    """The token embeddings: a lookup, or under ``tp`` the masked lookup
+    of this rank's vocab rows summed over "model"."""
+    if tp is None:
+        return params["embed"][tokens]
+    spec = tp.specs["embed"]
+    emb = tp.gather_fsdp(params["embed"], spec)
+    if not tp.splits(spec, 0):
+        return emb[tokens]
+    n = emb.shape[0]
+    local = tokens - tp.model.rank * n
+    inside = (local >= 0) & (local < n)
+    x = emb[local.clamp(0, n - 1)]
+    return tp.reduce(torch.where(inside[..., None], x,
+                                 torch.zeros((), dtype=x.dtype,
+                                             device=x.device)))
+
+
+def _head(params, cfg, tp):
+    """``(head (D, V_l), lo)``: the output projection this rank holds
+    and the global id of its first vocab column."""
+    if tp is None:
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return head, 0
+    if cfg.tie_embeddings:
+        spec = tp.specs["embed"]
+        head = tp.gather_fsdp(params["embed"], spec).T
+        return head, tp.offset(spec, 0, head.shape[1])
+    spec = tp.specs["lm_head"]
+    head = tp.gather_fsdp(params["lm_head"], spec)
+    return head, tp.offset(spec, 1, head.shape[1])
+
+
 def _positions(B: int, S: int, device):
     return torch.arange(S, device=device)[None, :].expand(B, S)
 
@@ -115,29 +191,48 @@ def _positions(B: int, S: int, device):
 def forward(params, tokens, cfg, constrain=None, *, embedded=None):
     """Training/prefill-style forward (no cache).  Returns hidden (B,S,D)."""
     constrain = constrain or _identity
-    x = params["embed"][tokens] if embedded is None else embedded
+    tp = getattr(constrain, "tp", None)
+    x = _embed(params, tokens, tp) if embedded is None else embedded
     x = constrain(x, ("batch", None, "embed"))
     B, S = x.shape[0], x.shape[1]
     positions = _positions(B, S, x.device)
     attn_mask = causal_additive_mask(positions)  # hoisted out of layers
 
-    def body(lp, h):
-        return _layer_fwd(cfg, constrain, lp, h, positions,
-                          attn_mask=attn_mask)[0]
+    if tp is None:
+        def body(lp, h):
+            return _layer_fwd(cfg, constrain, lp, h, positions,
+                              attn_mask=attn_mask)[0]
+    else:
+        spec = _layer_spec_tree(tp.specs["layers"])
+
+        def body(lp, h):
+            return _layer_fwd_tp(cfg, tp, spec, lp, h, positions,
+                                 attn_mask=attn_mask)[0]
 
     body = remat(body, cfg.remat)
     for lp in layer_list(params["layers"], cfg.n_layers):
         x = body(lp, x)
-    return rms_norm(x, params["ln_f"])
+    return rms_norm(x, _ln_f(params, tp))
+
+
+def _ln_f(params, tp):
+    if tp is None:
+        return params["ln_f"]
+    return tp.gather_fsdp(params["ln_f"], tp.specs["ln_f"])
 
 
 def logits_fn(params, hidden, cfg, constrain=None):
+    """The logits; under ``constrain.tp`` this rank's vocab columns."""
     constrain = constrain or _identity
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    tp = getattr(constrain, "tp", None)
+    head, lo = _head(params, cfg, tp)
+    vl = head.shape[-1]
+    vp = padded_vocab(cfg.vocab)
+    if tp is not None and vl != vp:   # split columns: a partial product
+        hidden = tp.copy(hidden)
     logits = einsum("bsd,dv->bsv", hidden, head)
-    vp = head.shape[-1]
     if vp != cfg.vocab:  # mask padded vocab columns out of the softmax
-        cols = torch.arange(vp, device=logits.device)
+        cols = torch.arange(lo, lo + vl, device=logits.device)
         pad_mask = torch.where(cols < cfg.vocab, 0.0, -1e30)
         logits = logits + pad_mask.to(logits.dtype)
     return constrain(logits, ("batch", None, "vocab"))
@@ -148,6 +243,11 @@ def loss_fn(params, batch, cfg, constrain=None):
     mask}."""
     hidden = forward(params, batch["tokens"], cfg, constrain)
     logits = logits_fn(params, hidden, cfg, constrain)
+    tp = getattr(constrain, "tp", None)
+    vl = logits.shape[-1]
+    if tp is not None and vl != padded_vocab(cfg.vocab):   # split columns
+        return vocab_parallel_xent(logits, batch["labels"],
+                                   batch.get("mask"), tp, tp.model.rank * vl)
     return softmax_xent(logits, batch["labels"], batch.get("mask"))
 
 
@@ -176,13 +276,18 @@ def kv_cache_specs(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
 def _cached_stack(params, cfg, constrain, x, positions, cache, cache_index):
     """The layer stack threading the per-layer KV caches (tuple of
     dicts), each layer writing its keys and values into its cache."""
+    tp = getattr(constrain, "tp", None)
+    if tp is None:
+        layer = functools.partial(_layer_fwd, cfg, constrain)
+    else:
+        layer = functools.partial(_layer_fwd_tp, cfg, tp,
+                                  _layer_spec_tree(tp.specs["layers"]))
     out = []
     for i in range(cfg.n_layers):
         c = cache[i]
-        x, (nk, nv) = _layer_fwd(cfg, constrain,
-                                 layer_slice(params["layers"], i), x,
-                                 positions, kv_cache=(c["k"], c["v"]),
-                                 cache_index=cache_index)
+        x, (nk, nv) = layer(layer_slice(params["layers"], i), x, positions,
+                            kv_cache=(c["k"], c["v"]),
+                            cache_index=cache_index)
         out.append({"k": nk, "v": nv})
     return x, tuple(out)
 
@@ -191,12 +296,13 @@ def prefill(params, tokens, cache, cfg, constrain=None, *, embedded=None):
     """Prefill: runs the full prompt, fills cache.  Returns (logits_last,
     cache).  tokens: (B, S)."""
     constrain = constrain or _identity
-    x = params["embed"][tokens] if embedded is None else embedded
+    tp = getattr(constrain, "tp", None)
+    x = _embed(params, tokens, tp) if embedded is None else embedded
     x = constrain(x, ("batch", None, "embed"))
     B, S = x.shape[0], x.shape[1]
     positions = _positions(B, S, x.device)
     x, cache = _cached_stack(params, cfg, constrain, x, positions, cache, 0)
-    hidden = rms_norm(x[:, -1:], params["ln_f"])
+    hidden = rms_norm(x[:, -1:], _ln_f(params, tp))
     return logits_fn(params, hidden, cfg, constrain)[:, 0], cache
 
 
@@ -204,12 +310,12 @@ def decode_step(params, tokens, cache, cache_index, cfg, constrain=None):
     """One decode step.  tokens: (B, 1); cache_index: int (#valid).
     Returns (logits (B, V), cache)."""
     constrain = constrain or _identity
-    x = params["embed"][tokens]
-    x = constrain(x, ("batch", None, "embed"))
+    tp = getattr(constrain, "tp", None)
+    x = constrain(_embed(params, tokens, tp), ("batch", None, "embed"))
     B = x.shape[0]
     positions = torch.full((B, 1), int(cache_index), dtype=torch.long,
                            device=x.device)
     x, cache = _cached_stack(params, cfg, constrain, x, positions, cache,
                              cache_index)
-    hidden = rms_norm(x, params["ln_f"])
+    hidden = rms_norm(x, _ln_f(params, tp))
     return logits_fn(params, hidden, cfg, constrain)[:, 0], cache

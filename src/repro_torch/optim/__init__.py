@@ -25,8 +25,22 @@ PARAM_SLOTS = {
     "adafactor": {"slots": ("m", "v")},
 }
 
+# In a param's entry of a tree of ``PARAM_SLOTS``, the factored slots:
+# each is the param with one dim averaged away, the dim named here
+# (Adafactor's row moment ``vr`` drops the last, its column moment
+# ``vc`` the second-to-last).  A sharded state places such a slot by its
+# param's spec less that dim, as the reference's dry run does; its
+# update takes the mean over that dim on every rank of the axes the
+# dim is split over (``adafactor_update``'s ``mean``).
+FACTORED_SLOTS = {
+    "adamw": {},
+    "adafactor": {"vr": -1, "vc": -2},
+}
+
 __all__ = [
     "OPTIMIZERS",
+    "PARAM_SLOTS",
+    "FACTORED_SLOTS",
     "adamw_init",
     "adamw_update",
     "adafactor_init",

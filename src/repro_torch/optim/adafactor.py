@@ -50,26 +50,36 @@ def adafactor_init(params, abstract: bool = False):
     }
 
 
+def _mean(t, dim, pdim, keepdim=False):
+    return torch.mean(t, dim=dim, keepdim=keepdim)
+
+
 @torch.no_grad()
 def adafactor_update(grads, state, params, *, lr, b1=0.9, decay=0.99,
-                     eps=1e-30, weight_decay=0.0, clip_norm=1.0, gnorm=None):
+                     eps=1e-30, weight_decay=0.0, clip_norm=1.0, gnorm=None,
+                     mean=None):
     """Returns ``(params, state, gnorm)``, updated in place; ``gnorm``
-    as in ``adamw_update``."""
+    as in ``adamw_update``.  ``mean(t, dim, pdim, keepdim=False)``
+    takes the factored moments' means: over ``dim`` of ``t``, which is
+    the param's dim ``pdim``; ``torch.mean`` when None (a sharded step
+    passes one that also averages over the ranks ``pdim`` is split
+    over)."""
     step = state["step"] + 1
     if gnorm is None:
         gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    mean = mean or _mean
 
     def upd(g, slot, p):
         g = g.float() * scale
         g2 = g * g + eps
         if "vr" in slot:
             vr, vc = slot["vr"], slot["vc"]
-            vr.mul_(decay).add_((1 - decay) * torch.mean(g2, dim=-1))
-            vc.mul_(decay).add_((1 - decay) * torch.mean(g2, dim=-2))
+            vr.mul_(decay).add_((1 - decay) * mean(g2, -1, -1))
+            vc.mul_(decay).add_((1 - decay) * mean(g2, -2, -2))
             denom = torch.sqrt(
                 vr[..., :, None] * vc[..., None, :]
-                / torch.clamp(torch.mean(vr, dim=-1, keepdim=True)[..., None],
+                / torch.clamp(mean(vr, -1, -2, keepdim=True)[..., None],
                               min=eps))
             u = g / torch.clamp(denom, min=eps)
         else:

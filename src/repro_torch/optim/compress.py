@@ -22,20 +22,26 @@ from ..tree import leaves, tree_map, unflatten
 __all__ = ["compress_decompress", "ef_compress_update", "residual_init"]
 
 
-def compress_decompress(x):
-    """Symmetric per-tensor int8 quantize->dequantize (round-to-nearest)."""
+def compress_decompress(x, amax=None):
+    """Symmetric per-tensor int8 quantize->dequantize (round-to-nearest).
+    ``amax``: applied to the local max of ``|x|`` (a sharded tensor's
+    max over its ranks); None: the max as it is."""
     xf = x.float()
-    scale = torch.clamp(torch.max(torch.abs(xf)), min=1e-12) / 127.0
+    m = torch.max(torch.abs(xf))
+    if amax is not None:
+        m = amax(m)
+    scale = torch.clamp(m, min=1e-12) / 127.0
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q.float() * scale, q, scale
 
 
 @torch.no_grad()
-def ef_compress_update(grads, residual):
-    """Returns (compressed grads to reduce, new residual)."""
+def ef_compress_update(grads, residual, amax=None):
+    """Returns (compressed grads to reduce, new residual); ``amax`` as
+    ``compress_decompress``'s."""
     def one(g, e):
         corrected = g.float() + e
-        deq, _, _ = compress_decompress(corrected)
+        deq, _, _ = compress_decompress(corrected, amax)
         return deq, corrected - deq
 
     outs = [one(g, e) for g, e in zip(leaves(grads), leaves(residual))]

@@ -34,32 +34,49 @@ Sharded training.  ``constrain`` is the reference's hook
 (``dist.partitioning.activation_constrainer``); when it carries a
 ``torch.distributed`` mesh (``constrain.mesh``, covering the whole
 default process group, one process a rank), the trainer keeps its state
-sharded over that mesh:
+sharded over that mesh, and runs one of two designs (``design``):
 
 * ``init_state`` draws the whole params on every rank (one generator
   seed, so every rank draws the same numbers) and keeps each rank's
-  shard: the params by ``param_shardings(model.logical_axes(), mesh,
-  fsdp=cfg.fsdp, abstract_tree=model.abstract_params())``, the
-  optimizer's param-shaped slots and the compression residual as their
-  param; the other leaves (the step, the factored second moments) are
-  whole on every rank.
-* A step gathers the params whole (``full_tensor``: ZeRO-3's gather at
-  use) for the loss and grads; the leaf-at-a-time compression and
-  optimizer run on that leaf's state gathered whole, and each rank
-  keeps its shard of what they write: the optimizer state is whole on a
-  rank one leaf at a time.  The loader gives each rank its rows of the
-  batch (``ShardedLoader(shard_id=, n_shards=)`` by
-  ``partitioning.batch_shard``); ranks that differ only on "model" hold
-  the same rows.
+  shard (``shard_state``): the params by ``param_shardings(
+  model.logical_axes(), mesh, fsdp=cfg.fsdp, abstract_tree=
+  model.abstract_params())``, the optimizer's param-shaped slots and the
+  compression residual as their param, a factored slot
+  (``optim.FACTORED_SLOTS``: Adafactor's ``vr`` / ``vc``) by its param's
+  spec less the dim it drops, as the reference's dry run places them;
+  the step count is whole on every rank.
+* **"tensor-parallel"** (a model with ``tensor_parallel``, the LM
+  family): the model runs on each rank's shards under a
+  ``dist.partitioning.TensorParallel`` hook, as GSPMD runs the
+  reference's step.  No param is gathered whole: "model"-sharded leaves
+  stay sharded, FSDP leaves are gathered over "data" a layer at a time
+  inside the forward and their grads reduce-scattered back.  Each rank's
+  grads are then whole over "model" (the hook's ``copy`` / ``reduce``
+  pair) and summed over the batch axes ("pod", "data") a leaf is not
+  split over (the reduce-scatter has summed the rest).  The compression
+  and the optimizer run leaf by leaf on the local shards, in place; a
+  per-tensor max (EF-int8's scale) and Adafactor's row and column means
+  are reduced over the ranks the leaf (or the averaged dim) is split
+  over, and the global norm sums each leaf's squares once: over the
+  axes it is split over, and not over those it is replicated on.
+* **"gather-at-use"** (the other families): a step gathers the params
+  whole (``full_tensor``: ZeRO-3's gather at use) for the loss and
+  grads; the leaf-at-a-time compression and optimizer run on that
+  leaf's state gathered whole, and each rank keeps its shard of what
+  they write.  The grads and the loss are summed over the whole group.
+* The loader gives each rank its rows of the batch (``ShardedLoader(
+  shard_id=, n_shards=)`` by ``partitioning.batch_shard``); ranks that
+  differ only on "model" hold the same rows.
 * The loss that a rank differentiates is its share of the global mean:
   its mean times its token count (the mask's sum) over the count summed
-  over every rank.  Summed over the ranks these shares are the mean
-  over every token once (a batch held by r ranks counts r times in the
-  sum of counts, and each holder takes 1/r of it).  The grads and the
-  loss are then summed over the group (``all_reduce``), so every rank
-  holds the one-process loss and grads of the whole batch; the global
-  norm, the clip and the NaN guard read those and agree on every rank.
-  A collective inside the model (the expert-parallel MoE) is
+  over the ranks the loss is summed over.  Summed, these shares are the
+  mean over every token once (under gather-at-use a batch held by r
+  ranks counts r times in the sum of counts, and each holder takes 1/r
+  of it; under tensor parallelism the counts and the loss are summed
+  over the batch axes only).  So every rank holds the one-process loss
+  and grads of the whole batch (its shard of them); the global norm,
+  the clip and the NaN guard read those and agree on every rank.  A
+  collective inside the model (the expert-parallel MoE) is
   differentiable and adjoint, so the same sum is right through it.
 * An MoE layer's capacity counts the tokens it is given, here a rank's
   rows, so each rank drops by its own rows (as the reference's
@@ -83,10 +100,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..dist.partitioning import param_shardings, place
+from ..dist.partitioning import (PS, Sharding, TensorParallel, local_shard,
+                                 param_shardings, place)
 from ..models.api import Model
-from ..optim import OPTIMIZERS, PARAM_SLOTS
-from ..optim.adamw import global_norm
+from ..optim import FACTORED_SLOTS, OPTIMIZERS, PARAM_SLOTS
 from ..optim.compress import ef_compress_update, residual_init
 from ..optim.schedules import cosine_schedule, wsd_schedule
 from ..tree import leaf_paths, leaves, tree_map, unflatten
@@ -160,6 +177,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.mesh = getattr(constrain, "mesh", None)
         self._shardings = None
+        self.tp = None
+        self.design = None
         if self.mesh is not None:
             import torch.distributed as dist
             if self.mesh.size() != dist.get_world_size():
@@ -170,10 +189,15 @@ class Trainer:
             if self.device.type not in (self.mesh.device_type, "meta"):
                 raise ValueError(f"a {self.mesh.device_type} mesh for a "
                                  f"trainer on {self.device}")
-            abstract = model.abstract_params()
-            self._shardings = dict(leaf_paths(param_shardings(
+            shardings = param_shardings(
                 model.logical_axes(), self.mesh, fsdp=model.cfg.fsdp,
-                abstract_tree=abstract)))
+                abstract_tree=model.abstract_params())
+            self._shardings = dict(leaf_paths(shardings))
+            if model.tensor_parallel:
+                self.tp = TensorParallel(self.mesh, tree_map(
+                    lambda s: s.spec, shardings))
+            self.design = ("tensor-parallel" if self.tp is not None
+                           else "gather-at-use")
         self.injector = failure_injector or FailureInjector()
         self.ckpt = CheckpointManager(train_cfg.ckpt_dir,
                                       keep=train_cfg.keep_ckpts)
@@ -181,6 +205,7 @@ class Trainer:
         self.metrics: List[Dict] = []
         self._opt_init, self._opt_update = OPTIMIZERS[model.cfg.optimizer]
         self._slots = PARAM_SLOTS[model.cfg.optimizer]
+        self._factored = FACTORED_SLOTS[model.cfg.optimizer]
 
     # ------------------------------------------------------------------
     def lr_at(self, step):
@@ -212,17 +237,24 @@ class Trainer:
         """Each rank's shard of a whole state (see the module doc)."""
         paths = [path for path, _ in leaf_paths(state["params"])]
 
-        def shard(path, leaf):
+        def shard(path, leaf, drop=None):
             s = self._shardings[path]
+            if drop is not None:   # a factored slot: the spec less a dim
+                spec = list(s.spec)
+                del spec[drop]
+                s = Sharding(s.mesh, PS(*spec))
             return place(leaf, s.mesh, s.placements)
 
         def mirror(tree, keys):
             # a tree that mirrors the params, its param-shaped slots
-            # (``keys`` of each param's entry; None: the entry) sharded
+            # (``keys`` of each param's entry; None: the entry) and its
+            # factored slots sharded
             def entry(path, e):
                 if keys is None:
                     return shard(path, e)
-                return {n: shard(path, v) if n in keys else v
+                return {n: shard(path, v) if n in keys else
+                        shard(path, v, self._factored[n])
+                        if n in self._factored else v
                         for n, v in e.items()}
             return unflatten(state["params"],
                              [entry(p, _at(tree, p)) for p in paths])
@@ -248,11 +280,13 @@ class Trainer:
 
     def loss_and_grads(self, params, batch):
         """``(loss, grads)``: the model's loss and its gradient with
-        respect to every param leaf (a tree like ``params``)."""
+        respect to every param leaf (a tree like ``params``).  Under the
+        tensor-parallel design ``params`` are this rank's shards, and so
+        are the grads."""
         flat = leaves(params)
         for p in flat:
             p.requires_grad_(True)
-        loss = self.model.loss_fn(params, batch, self.constrain)
+        loss = self.model.loss_fn(params, batch, self.tp or self.constrain)
         if self.mesh is not None:
             loss = loss * self._token_share(batch)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
@@ -262,13 +296,23 @@ class Trainer:
         loss = loss.detach()
         if self.mesh is not None:
             import torch.distributed as dist
-            for t in grads + [loss]:
-                dist.all_reduce(t)
+            if self.tp is None:
+                for t in grads + [loss]:
+                    dist.all_reduce(t)
+            else:
+                for g, (path, _) in zip(grads, leaf_paths(params)):
+                    split = self._split_axes(path)
+                    for a in self.tp.batch:
+                        if a not in split:
+                            dist.all_reduce(g, group=a.group)
+                for a in self.tp.batch:
+                    dist.all_reduce(loss, group=a.group)
         return loss, unflatten(params, grads)
 
     def _token_share(self, batch):
         """This rank's share of the global mean loss: its token count
-        over the count summed over every rank (see the module doc)."""
+        over the count summed over the ranks the loss is summed over
+        (see the module doc)."""
         import torch.distributed as dist
         mask = batch.get("mask")
         count = (torch.clamp(torch.sum(mask.float()), min=1.0)
@@ -276,17 +320,89 @@ class Trainer:
                  torch.tensor(float(batch["labels"].numel()),
                               device=batch["labels"].device))
         total = count.clone()
-        dist.all_reduce(total)
+        if self.tp is None:
+            dist.all_reduce(total)
+        else:
+            for a in self.tp.batch:
+                dist.all_reduce(total, group=a.group)
         return count / total
+
+    # -- the tensor-parallel design's reductions, a leaf at a time --------
+    def _split_axes(self, path, dim=None):
+        """The axes of more than one rank that leaf ``path``'s spec
+        splits (dim ``dim``, or any dim)."""
+        spec = self._shardings[path].spec
+        dims = range(len(spec)) if dim is None else (dim,)
+        return tuple(a for d in dims for a in self.tp.split_axes(spec, d))
+
+    def _global_norm(self, paths, flat_g):
+        """``global_norm`` of the whole grads from this rank's shards:
+        each leaf's sum of squares summed over the axes the leaf is
+        split over, then added up as ``global_norm`` adds them."""
+        sq = [torch.sum(torch.square(g.float())) for g in flat_g]
+        if self.tp is not None:
+            import torch.distributed as dist
+            by_axes = {}
+            for i, path in enumerate(paths):
+                axes = self._split_axes(path)
+                if axes:
+                    by_axes.setdefault(axes, []).append(i)
+            for axes, idx in by_axes.items():
+                t = torch.stack([sq[i] for i in idx])
+                for a in axes:
+                    dist.all_reduce(t, group=a.group)
+                for i, v in zip(idx, t):
+                    sq[i] = v
+        return torch.sqrt(sum(sq))
+
+    def _leaf_max(self, path):
+        """EF-int8's per-tensor max of a leaf's shards, over its ranks
+        (None: the local max is the leaf's)."""
+        axes = () if self.tp is None else self._split_axes(path)
+        if not axes:
+            return None
+        import torch.distributed as dist
+
+        def amax(m):
+            m = m.clone()
+            for a in axes:
+                dist.all_reduce(m, op=dist.ReduceOp.MAX, group=a.group)
+            return m
+        return amax
+
+    def _leaf_mean(self, path):
+        """Adafactor's ``mean`` hook for a leaf: the mean over a dim,
+        averaged over the ranks the param's dim is split over."""
+        if self.tp is None:
+            return None
+        import torch.distributed as dist
+        spec = self._shardings[path].spec
+
+        def mean(t, dim, pdim, keepdim=False):
+            m = torch.mean(t, dim=dim, keepdim=keepdim)
+            axes = self.tp.split_axes(spec, pdim % len(spec))
+            for a in axes:
+                dist.all_reduce(m, group=a.group)
+            n = 1
+            for a in axes:
+                n *= a.size
+            return m / n if n > 1 else m
+        return mean
 
     def train_step(self, state, batch) -> Dict[str, Any]:
         """One step on ``state`` (updated in place); returns the step's
         metrics as tensors.  The loss and grads are taken on the params
-        (gathered whole when sharded); the compression and the optimizer
-        then run a leaf at a time on that leaf's state (gathered whole
-        when sharded; each rank keeps its shard of what they write)
-        with the global norm of all the grads (see the module doc)."""
-        params = tree_map(_gathered, state["params"])
+        (this rank's shards under the tensor-parallel design, gathered
+        whole under gather-at-use); the compression and the optimizer
+        then run a leaf at a time on that leaf's state (the local shards
+        in place, or gathered whole with each rank keeping its shard of
+        what they write) with the global norm of all the grads (see the
+        module doc)."""
+        tp = self.tp is not None
+        view = local_shard if tp else _gathered
+        paths = [path for path, _ in leaf_paths(state["params"])]
+        params = (tree_map(lambda t: local_shard(t).detach(), state["params"])
+                  if tp else tree_map(_gathered, state["params"]))
         loss, grads = self.loss_and_grads(params, batch)
         flat_g = leaves(grads)
         del grads
@@ -294,10 +410,15 @@ class Trainer:
             res = leaves(state["residual"])
             for i, e in enumerate(res):
                 g, e_new = ef_compress_update({"x": flat_g[i]},
-                                              {"x": _gathered(e)})
-                flat_g[i], res[i] = g["x"], _reshard(e_new["x"], e)
+                                              {"x": view(e)},
+                                              self._leaf_max(paths[i]))
+                flat_g[i] = g["x"]
+                if tp:
+                    local_shard(e).copy_(e_new["x"])
+                else:
+                    res[i] = _reshard(e_new["x"], e)
             state["residual"] = unflatten(state["residual"], res)
-        gnorm = global_norm(flat_g)
+        gnorm = self._global_norm(paths, flat_g)
         opt = state["opt"]
         lr = self.lr_at(opt["step"])
         finite = torch.isfinite(loss)
@@ -309,18 +430,22 @@ class Trainer:
                      for k, v in opt.items()}, {}, lr=lr, gnorm=gnorm)
         else:
             new_params = []
-            for (path, p), g, old in zip(leaf_paths(params), flat_g,
-                                         leaves(state["params"])):
+            for path, p, g, old in zip(paths, leaves(params), flat_g,
+                                       leaves(state["params"])):
                 own = {k: _at(opt[k], path) for k in self._slots}
-                one = {k: {"x": tree_map(_gathered, own[k])}
+                one = {k: {"x": tree_map(view, own[k])}
                        if k in own else v for k, v in opt.items()}
+                hooks = ({"mean": self._leaf_mean(path)} if self._factored
+                         else {})
                 _, new, _ = self._opt_update({"x": g}, one, {"x": p}, lr=lr,
-                                             gnorm=gnorm)
-                new_params.append(_reshard(p, old))
-                for k in own:
-                    _put(opt[k], path,
-                         tree_map(_reshard, new[k]["x"], own[k]))
-            state["params"] = unflatten(state["params"], new_params)
+                                             gnorm=gnorm, **hooks)
+                if not tp:   # the local shards were updated in place
+                    new_params.append(_reshard(p, old))
+                    for k in own:
+                        _put(opt[k], path,
+                             tree_map(_reshard, new[k]["x"], own[k]))
+            if not tp:
+                state["params"] = unflatten(state["params"], new_params)
         for k, v in new.items():
             if k not in self._slots:
                 opt[k] = v

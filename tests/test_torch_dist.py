@@ -11,11 +11,14 @@ time limit, so a hang fails one test.
   factor 8.0), and its grads, summed over the ranks, the whole batch's
   within 1e-4; a reduced granite-moe with ``moe_impl="ep"`` on (2, 2)
   trains to the one-process loss and grads within 1e-4.
-* Reduced internlm2 with ``fsdp`` on a (2, 2) mesh: loss and grads of
-  a masked batch within 1e-4 of one process on ``chip_smoke.conditioned``
-  params, three ``Trainer`` steps too (AdamW, EF-int8 compression:
-  losses, gnorms and each param's change), and three of reduced kimi-k2
-  (Adafactor); a checkpoint saved from (2, 2) (byte for byte the
+* Reduced internlm2 with ``fsdp`` on a (2, 2) mesh, under the
+  tensor-parallel design the trainer runs for the LM family (the loss
+  and grads of each rank's shards): loss and grads of a masked batch
+  within 1e-4 of one process on ``chip_smoke.conditioned`` params cut
+  by each leaf's spec, three ``Trainer`` steps too (AdamW, EF-int8
+  compression: losses, gnorms, each param on its scale and 99% of its
+  change), and three of reduced kimi-k2 (Adafactor, its factored
+  moments sharded); a checkpoint saved from (2, 2) (byte for byte the
   one-process file) restores through ``elastic_restore`` onto (4, 1)
   and (1, 1) with every leaf equal to the state saved; a
   crash-and-resume ``Trainer.run`` over the mesh replays its step

@@ -13,12 +13,11 @@ train_4k (Adafactor, FSDP), qwen1.5-32b x prefill_32k, zamba2-1.2b x
 long_500k (the long-context path: the cache's sequence over "data") and
 internvl2-2b x prefill_32k (the cache's length plus the frontend).
 
-Params, batch, caches, AdamW's ``m`` / ``v`` and Adafactor's ``m`` and
-1-d ``v`` are equal leaf for leaf.  The port keeps Adafactor's factored
-``vr`` / ``vc`` whole on every rank (``optim.PARAM_SLOTS``), where the
-reference shards them by their param's spec less the dropped dim; the
-test holds those leaves whole and prints the bytes of the difference
-(ROADMAP queue C).
+Params, batch, caches, AdamW's ``m`` / ``v`` and Adafactor's ``m``,
+1-d ``v`` and factored ``vr`` / ``vc`` are equal leaf for leaf: the
+factored moments are sharded by their param's spec less the dim each
+drops (``optim.FACTORED_SLOTS``), as the reference's dry run places
+them.
 """
 
 import json
@@ -113,6 +112,7 @@ print(json.dumps(out))
 PORT = r"""
 import json, sys
 from repro_torch.configs import ARCHS, SHAPES
+from repro_torch.dist.partitioning import local_shard
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import build_model
@@ -121,7 +121,7 @@ from repro_torch.tree import leaf_paths
 
 def local(tree):
     return [["/".join(map(str, p)), list(t.shape),
-             list(dryrun._local(t).shape), t.element_size()]
+             list(local_shard(t).shape), t.element_size()]
             for p, t in leaf_paths(tree)]
 
 
@@ -180,33 +180,35 @@ def test_argument_shards_equal_the_references(both, cell, multi):
         for (p, shape, local, _), (q, rshape, rlocal, _) in zip(
                 got[tree], want[tree]):
             assert shape == rshape, (tree, p, q)
-            if p.endswith("/vr") or p.endswith("/vc"):
-                # the port keeps the factored moments whole
-                assert local == shape, (tree, p)
-            else:
-                assert local == rlocal, (tree, p, q)
+            assert local == rlocal, (tree, p, q)
     sharded = sum(_bytes(local, n) for t in got.values()
                   for _, _, local, n in t)
     assert 0 < sharded
 
 
 def test_adafactor_factored_moments_kept_whole(both):
-    """The bytes a kimi-k2 rank holds beyond the reference's shards: the
-    factored moments kept whole (ROADMAP queue C records them)."""
+    """kimi-k2's factored moments on both meshes: every ``vr`` / ``vc``
+    shard equals the reference's, so a rank holds no byte of them beyond
+    the reference's shards (kept whole they were 3,351,524,640 bytes
+    more a rank), and each is split where its param is."""
     port, ref = both
     extra = {}
     for multi in (0, 1):
         key = f"kimi-k2-1t-a32b|train_4k|{multi}"
         got = dict((p, (local, n)) for p, _, local, n in port[key]["opt"])
-        diff = 0
-        for (p, _, local, n), (_, _, rlocal, _) in zip(port[key]["opt"],
-                                                        ref[key]["opt"]):
+        diff, factored, split = 0, 0, 0
+        for (p, shape, local, n), (_, _, rlocal, _) in zip(
+                port[key]["opt"], ref[key]["opt"]):
             if p.endswith("/vr") or p.endswith("/vc"):
+                assert local == rlocal, p
                 diff += _bytes(local, n) - _bytes(rlocal, n)
-        assert got
+                factored += 1
+                split += local != shape
+        assert got and factored > 0
+        assert diff == 0
+        # each of them split but the stacked norms' row moments
+        # (``ln_attn`` / ``ln_mlp`` are (layers, embed): ``vr`` drops
+        # the one split dim and is the whole (61,))
+        assert split == factored - 2
         extra[multi] = diff
-        opt = sum(_bytes(local, n) for local, n in got.values())
-        # O(rows + cols) a matrix, but a stacked expert param is L x E
-        # matrices: a large share of what a rank holds (queue C)
-        assert 0 < diff < opt
     print(json.dumps({"kimi_vr_vc_extra_bytes": extra}))

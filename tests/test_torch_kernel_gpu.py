@@ -1151,3 +1151,93 @@ def test_dry_run_flops_equal_the_cards():
     peak = torch.cuda.max_memory_allocated()
     assert float(flops.get_total_flops()) == counted["flops_per_device"]
     assert abs(peak - counted["peak_bytes"]) <= 0.25 * counted["peak_bytes"]
+
+
+@pytest.mark.gpu
+def test_adafactor_trainer_on_a_one_rank_mesh_is_bit_identical(
+        tmp_path, one_rank_nccl_group):
+    """``chip_smoke.py`` phase 16's check for the tensor-parallel design
+    with Adafactor: ``reduced(kimi-k2-1t-a32b)`` (MoE, FSDP, bf16) on
+    the card, two ``Trainer`` steps plain and over ``make_mesh_for(1,
+    1)``: the trainer runs "tensor-parallel", the factored moments are
+    placed as DTensors, and losses, gnorms and every state leaf are bit
+    for bit."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.dist import activation_constrainer
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaf_paths
+    cfg = dataclasses.replace(reduced(ARCHS["kimi-k2-1t-a32b"]), remat="full")
+    assert cfg.optimizer == "adafactor" and cfg.fsdp
+    model = build_model(cfg)
+    mesh = make_mesh_for(1, 1)
+    g = torch.Generator().manual_seed(5)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (4, 32), generator=g),
+                "labels": torch.randint(0, cfg.vocab, (4, 32), generator=g),
+                "mask": (torch.rand((4, 32), generator=g) > 0.1).float()}
+               for _ in range(2)]
+    runs = {}
+    for label, hook in (("plain", None), ("mesh",
+                                          activation_constrainer(mesh))):
+        tr = Trainer(model, TrainConfig(total_steps=2, warmup_steps=1,
+                                        ckpt_dir=str(tmp_path / label)),
+                     None, constrain=hook, device="cuda")
+        state = tr.init_state(0)
+        ms = [tr.train_step(state, {k: v.cuda() for k, v in b.items()})
+              for b in batches]
+        runs[label] = (tr, state, [(float(m["loss"]), float(m["gnorm"]))
+                                   for m in ms])
+    (_, plain, m1), (tr, sharded, m2) = runs["plain"], runs["mesh"]
+    assert tr.design == "tensor-parallel"
+    assert m1 == m2
+    slot = sharded["opt"]["slots"]["layers"]["attn"]["wq"]
+    assert isinstance(slot["vr"], DTensor) and isinstance(slot["vc"], DTensor)
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+    for (path, a), (_, b) in zip(leaf_paths(plain), leaf_paths(sharded)):
+        assert torch.equal(a.detach(), whole(b).detach()), path
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_rank_share_flops_equal_the_cards():
+    """``chip_smoke.py`` phase 17's rank share at a small cut:
+    internlm2-1.8b at full width and 2 layers, train_4k's sequence at 2
+    rows a rank, as rank 255 of a ``fake`` group of 256 over the
+    pod16x16 mesh on the card (the tensor-parallel step on its shards,
+    the collectives moving nothing): ``FlopCounterMode`` on the card
+    equals ``count_step`` over ``meta`` tensors exactly, and the card's
+    peak is within 25% of the count's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    model = build_model(dataclasses.replace(ARCHS["internlm2-1.8b"],
+                                            n_layers=2))
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=32)
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device="cuda")
+        step, args = dryrun.build_step(model, shape, mesh)
+        counted = dryrun.count_step(step, args)
+        step, args = dryrun.build_step(model, shape, mesh, device="cuda")
+        assert step.design == "tensor-parallel"
+        with FlopCounterMode(display=False) as flops:
+            step(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(*args)
+        peak = torch.cuda.max_memory_allocated()
+        del step, args
+    assert float(flops.get_total_flops()) == counted["flops_per_device"]
+    assert abs(peak - counted["peak_bytes"]) <= 0.25 * counted["peak_bytes"]

@@ -18,6 +18,7 @@ nonzero.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -48,7 +49,8 @@ def _rank(rank: int, name: str, world: int, tmp: str) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
-                            init_method=f"file://{tmp}/store_{name}",
+                            init_method=f"file://{tmp}/store_"
+                                        f"{name.replace(':', '_')}",
                             rank=rank, world_size=world)
     try:
         out = RANKS[name](rank, world, Path(tmp))
@@ -62,6 +64,12 @@ def _rank(rank: int, name: str, world: int, tmp: str) -> None:
 def rel_max(got, want) -> float:
     return float((got - want).abs().max()) / max(
         float(want.abs().max()), 1e-30)
+
+
+def _rel_quantile(got, want, q: float) -> float:
+    """The ``q`` quantile of ``|got - want|`` over ``max |want|``."""
+    d = (got - want).abs().flatten().double()
+    return float(torch.quantile(d, q)) / max(float(want.abs().max()), 1e-30)
 
 
 def _max_over_ranks(x: float) -> float:
@@ -180,8 +188,9 @@ def sharded_training(rank, world, tmp):
     params: loss and grads of a masked batch (unequal token counts over
     the ranks) within 1e-4 of one process on the whole batch; three
     ``Trainer`` steps with EF-int8 compression (lr at its peak from the
-    first, so each later loss reads an update): losses, gnorms and each
-    param's change within 1e-4; the state's
+    first, so each later loss reads an update): losses, gnorms, each
+    param on its scale and 99% of its change's components within 1e-4;
+    the state's
     placements; a checkpoint written by rank 0 alone, byte for byte the
     one-process save of the same state, restored through
     ``elastic_restore`` onto (4, 1) with equal leaves and through
@@ -215,10 +224,13 @@ def sharded_training(rank, world, tmp):
                  device=DEVICE)
     clone = lambda tr: tree_map(lambda t: t.detach().clone(), tr)  # noqa
     l1, g1 = one.loss_and_grads(clone(params), batches[0])
-    l2, g2 = sh.loss_and_grads(clone(params),
+    # the tensor-parallel design takes and gives each rank's shards
+    assert sh.design == "tensor-parallel"
+    l2, g2 = sh.loss_and_grads(_shards_of(sh, params),
                                _rows(batches[0], sid, n_shards))
     loss_err = abs(float(l2) - float(l1)) / abs(float(l1))
-    grad_err = max(rel_max(b, a) for (_, a), (_, b) in
+    grad_err = max(_shard_err(b, a, sh._shardings[path])
+                   for (path, a), (_, b) in
                    zip(leaf_paths(g1), leaf_paths(g2)))
 
     s1 = _f32_state(model, clone(params), compress=True)
@@ -242,8 +254,15 @@ def sharded_training(rank, world, tmp):
     gnorm_err = max(abs(d - c) / abs(c) for _, _, c, d in losses)
     whole = _whole(s2)
     # each leaf's change over the three steps (a step that skipped the
-    # update would miss it by all of it), at the grads' bound
-    upd = {path: rel_max(b - p0, a - p0) for (path, a), (_, b), (_, p0)
+    # update would miss it by all of it), at the grads' bound: every
+    # leaf on its own scale, and 99% of each leaf's components on its
+    # change's.  The tensor-parallel grads part from one process's by
+    # ~1e-6 of their scale, and two steps amplify a few components by
+    # far more: EF-int8 rounds a value at a quantum's edge (1/127 of the
+    # leaf's max) either way, and AdamW's first updates divide each
+    # component by its own size
+    upd = {path: max(rel_max(b, a), _rel_quantile(b - p0, a - p0, 0.99))
+           for (path, a), (_, b), (_, p0)
            in zip(leaf_paths(s1["params"]), leaf_paths(whole["params"]),
                   leaf_paths(params))}
     upd_err = max(upd.values())
@@ -303,9 +322,10 @@ def sharded_training(rank, world, tmp):
 
 def _adafactor_step(mesh, tmp, rank):
     """Reduced kimi-k2 (MoE, ``fsdp``, Adafactor): two sharded steps
-    against one process.  Adafactor's factored moments read whole rows
-    and columns, which the trainer's gathered step gives them."""
-    from torch.distributed.tensor import DTensor
+    against one process.  Adafactor's factored moments are sharded by
+    their param's spec less the dim each averages away; their means
+    over a split dim are reduced over its ranks."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     from chip_smoke import conditioned
     from repro_torch.dist import activation_constrainer
     from repro_torch.dist.partitioning import batch_shard
@@ -330,7 +350,10 @@ def _adafactor_step(mesh, tmp, rank):
     s2 = sh.shard_state(_f32_state(model, clone(params)))
     slots = s2["opt"]["slots"]["layers"]["attn"]["wq"]
     assert isinstance(slots["m"], DTensor)
-    assert not isinstance(slots["vr"], DTensor)
+    # the factored moments by wq's spec (None, "data", "model", None)
+    # less the dim each drops, as the reference's dry run places them
+    assert tuple(slots["vr"].placements) == (Shard(1), Shard(2))
+    assert tuple(slots["vc"].placements) == (Shard(1), Replicate())
     sid, n = batch_shard(mesh)
     rng = np.random.default_rng(11)
     errs = []
@@ -465,13 +488,307 @@ def moe_ep_training(rank, world, tmp):
     clone = lambda tr: tree_map(lambda t: t.detach().clone(), tr)  # noqa
     l1, g1 = one.loss_and_grads(clone(params), batch)
     sid, n = batch_shard(mesh)
-    l2, g2 = sh.loss_and_grads(clone(params), _rows(batch, sid, n))
+    # the tensor-parallel design takes and gives each rank's shards
+    assert sh.design == "tensor-parallel"
+    l2, g2 = sh.loss_and_grads(_shards_of(sh, params), _rows(batch, sid, n))
     loss_err = abs(float(l2) - float(l1)) / abs(float(l1))
-    grad_err = max(rel_max(b, a) for (_, a), (_, b) in
+    grad_err = max(_shard_err(b, a, sh._shardings[path])
+                   for (path, a), (_, b) in
                    zip(leaf_paths(g1), leaf_paths(g2)))
     loss_err, grad_err = _max_over_ranks(loss_err), _max_over_ranks(grad_err)
     assert loss_err <= RTOL and grad_err <= RTOL, (loss_err, grad_err)
     return {"loss_rel_err": loss_err, "grad_max_rel_err": grad_err}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (tests/test_torch_tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+# reduced LM-family configs: (arch, overrides).  "guard": qwen-style
+# (qkv bias, FSDP) with 6 heads, whole on a "model" axis of 4;
+# "kv_index": 12 query heads over 3 KV heads, a KV count no "model"
+# axis of 2 or 4 divides, with local query heads that are neither whole
+# groups nor a part of one (``base._kv_of_heads``'s index path)
+TP_CELLS = {
+    "internlm2": ("internlm2-1.8b", {}),
+    "granite_ep": ("granite-moe-1b-a400m", {"moe_impl": "ep"}),
+    "granite": ("granite-moe-1b-a400m", {}),
+    "yi_fsdp": ("yi-9b", {}),
+    "kimi": ("kimi-k2-1t-a32b", {}),
+    "guard": ("qwen1.5-32b", {"n_heads": 6, "n_kv": 6}),
+    "kv_index": ("internlm2-1.8b", {"n_heads": 12, "n_kv": 3,
+                                    "head_dim": 8}),
+}
+# full width at 2 layers, for four cards over ``nccl``
+TP_FULL_CELLS = {"internlm2_full2": "internlm2-1.8b", "yi_full2": "yi-9b"}
+TP_MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
+
+
+def tp_config(cell):
+    if cell in TP_FULL_CELLS:
+        from repro_torch.configs import ARCHS
+        return dataclasses.replace(ARCHS[TP_FULL_CELLS[cell]], n_layers=2,
+                                   remat="full")
+    arch, kw = TP_CELLS[cell]
+    cfg = _reduced(arch, remat="full", **kw)
+    if cfg.moe is not None:   # no token dropped (see test_torch_dist.py)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    return cfg
+
+
+def _cut(whole, like):
+    """This rank's shard of one process's ``whole`` leaf, by the
+    placements of ``like`` (a DTensor or a ``Sharding``)."""
+    from repro_torch.dist.partitioning import place
+    return place(whole.detach(), like.mesh if hasattr(like, "spec")
+                 else like.device_mesh, like.placements).to_local()
+
+
+def _shards_of(trainer, params):
+    """This rank's shards of one process's whole ``params`` by
+    ``trainer``'s param shardings (what a tensor-parallel step takes)."""
+    from repro_torch.tree import leaf_paths, unflatten
+    return unflatten(params, [_cut(t, trainer._shardings[path]).clone()
+                              for path, t in leaf_paths(params)])
+
+
+def _shard_err(local, whole, like):
+    """max |local - whole's shard| over max |whole|: a shard's error on
+    the whole leaf's scale."""
+    whole = whole.detach()
+    return float((local.detach() - _cut(whole, like)).abs().max()) / max(
+        float(whole.abs().max()), 1e-30)
+
+
+def tp_training(rank, world, tmp, cell, mesh_name):
+    """One reduced LM-family config on a ``TP_MESHES`` mesh in f32 on
+    ``conditioned`` params, under the tensor-parallel design: the loss
+    and every grad shard of a masked batch against one process; then
+    two ``Trainer`` steps from one state (lr at its peak from the
+    first): losses and gnorms, and every leaf of each rank's state
+    (its placements those of the leaf's spec) against one process's
+    state cut by them, on the leaf's scale; the step count exactly.
+    AdamW's first update divides each grad component by its own size,
+    so a component whose grad is below the grads' rounding differences
+    moves by a sign the differences decide: the params are held on
+    their own scale (a skipped update misses by 2 lr, over 1e-3 of it),
+    not on their change's.  Adafactor's bf16 momentum and the factored
+    moments it divides by are held at ``ADAFACTOR_UPDATE_RTOL`` (see
+    ``_adafactor_step``)."""
+    from torch.distributed.tensor import DTensor
+    from chip_smoke import conditioned
+    from repro_torch.dist import activation_constrainer
+    from repro_torch.dist.partitioning import batch_shard, local_shard
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaf_paths, tree_map
+    cfg = tp_config(cell)
+    model = build_model(cfg)
+    mesh = _mesh(TP_MESHES[mesh_name])
+    params = conditioned(_draw(model, 0))
+    rng = np.random.default_rng(7)
+    batches = [_batch(rng, cfg, 8, 16) for _ in range(3)]
+    sid, n_shards = batch_shard(mesh)
+    tc = TrainConfig(total_steps=2, warmup_steps=0,
+                     ckpt_dir=str(tmp / f"tp{rank}"))
+    one = Trainer(model, tc, None, device=DEVICE)
+    sh = Trainer(model, tc, None, device=DEVICE,
+                 constrain=activation_constrainer(mesh, fsdp=cfg.fsdp))
+    assert sh.design == "tensor-parallel"
+    clone = lambda tr: tree_map(lambda t: t.detach().clone(), tr)  # noqa
+    s1 = _f32_state(model, clone(params))
+    s2 = sh.shard_state(_f32_state(model, clone(params)))
+    l1, g1 = one.loss_and_grads(clone(params), batches[0])
+    local = tree_map(lambda t: local_shard(t).detach().clone(),
+                     s2["params"])
+    l2, g2 = sh.loss_and_grads(local, _rows(batches[0], sid, n_shards))
+    loss_err = abs(float(l2) - float(l1)) / abs(float(l1))
+    grad_err = max(_shard_err(b, a, sh._shardings[path])
+                   for (path, a), (_, b) in zip(leaf_paths(g1),
+                                                leaf_paths(g2)))
+    steps = []
+    for b in batches[1:]:
+        m1 = one.train_step(s1, b)
+        m2 = sh.train_step(s2, _rows(b, sid, n_shards))
+        steps.append((float(m1["loss"]), float(m2["loss"]),
+                      float(m1["gnorm"]), float(m2["gnorm"])))
+    step_err = max(abs(b - a) / abs(a) for a, b, _, _ in steps)
+    gnorm_err = max(abs(d - c) / abs(c) for _, _, c, d in steps)
+    state_err, loose_err = 0.0, 0.0
+    for (path, a), (_, b) in zip(leaf_paths(s1), leaf_paths(s2)):
+        if not isinstance(b, DTensor):   # the step count
+            assert torch.equal(a, b), path
+            continue
+        assert b.placements == _shard_like(sh, path).placements, path
+        err = _shard_err(b.to_local().float(), a.float(), b)
+        if cfg.optimizer == "adafactor" and path[0] == "opt" and \
+                path[-1] in ("m", "vr", "vc"):
+            loose_err = max(loose_err, err)
+        else:
+            state_err = max(state_err, err)
+    out = {"loss_rel_err": loss_err, "grad_max_rel_err": grad_err,
+           "step_loss_rel_err": step_err, "gnorm_rel_err": gnorm_err,
+           "state_max_rel_err": state_err, "adafactor_rel_err": loose_err}
+    return {k: _max_over_ranks(v) for k, v in out.items()}
+
+
+def _shard_like(trainer, path):
+    """The placements a state leaf at ``path`` must have: its param's,
+    a factored slot's by the spec less its dim."""
+    from repro_torch.dist.partitioning import PS, Sharding
+    kind = path[0]
+    if kind == "params":
+        return trainer._shardings[path[1:]]
+    tree, rest = path[1], path[2:]
+    if trainer.model.cfg.optimizer == "adafactor":
+        param, slot = rest[:-1], rest[-1]
+        s = trainer._shardings[param]
+        if slot in trainer._factored:
+            spec = list(s.spec)
+            del spec[trainer._factored[slot]]
+            return Sharding(s.mesh, PS(*spec))
+        return s
+    del tree
+    return trainer._shardings[rest]
+
+
+def tp_decode(rank, world, tmp, cell, mesh_name):
+    """Prefill of 32 x 16 tokens and two decode steps under the
+    tensor-parallel hook, on the rank's params, rows and cache shards
+    (``launch.dryrun._cache_shardings``): each rank's logits columns
+    and cache shards against one process's within 1e-4 of their
+    scale (32 rows: ``_cache_shardings`` splits a cache of fewer than
+    32 rows on its sequence, the reference's long-context rule)."""
+    from chip_smoke import conditioned
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.dist.partitioning import (TensorParallel, batch_shard,
+                                               input_shardings, param_shardings,
+                                               place)
+    from repro_torch.launch.dryrun import _cache_shardings
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, tree_map
+    cfg = tp_config(cell)
+    model = build_model(cfg)
+    mesh = _mesh(TP_MESHES[mesh_name])
+    params = conditioned(_draw(model, 0))
+    pshard = param_shardings(model.logical_axes(), mesh, fsdp=cfg.fsdp,
+                             abstract_tree=model.abstract_params())
+    tp = TensorParallel(mesh, tree_map(lambda s: s.spec, pshard))
+    local = tree_map(lambda t, s: place(t, mesh, s.placements).to_local(),
+                     params, pshard)
+    rng = np.random.default_rng(3)
+    B, S, T = 32, 16, 24
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(DEVICE)
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1))).to(DEVICE)
+             for _ in range(2)]
+    shape = ShapeConfig("decode_small", T, B, "decode")
+    whole = model.init_caches(B, T, device=DEVICE)
+    whole = tree_map(lambda t: t.float(), whole)
+    cshard = _cache_shardings(whole, mesh, cfg, shape)
+    mine = tree_map(lambda t, s: place(t.clone(), mesh, s.placements
+                                       ).to_local(), whole, cshard)
+    rows = input_shardings({"tokens": tokens}, mesh)["tokens"]
+
+    def my_rows(t):
+        return place(t, mesh, rows.placements).to_local()
+
+    err = 0.0
+    vl = local["embed"].shape[0] if tp.splits(tp.specs["embed"], 0) \
+        else None
+    with torch.no_grad():
+        outs = [model.prefill_fn(params, {"tokens": tokens}, whole)]
+        outs_tp = [model.prefill_fn(local, {"tokens": my_rows(tokens)},
+                                    mine, tp)]
+        for i, t in enumerate(steps):
+            outs.append(model.decode_fn(params, {"tokens": t}, outs[-1][1],
+                                        S + i))
+            outs_tp.append(model.decode_fn(local, {"tokens": my_rows(t)},
+                                           outs_tp[-1][1], S + i, tp))
+    sid, n = batch_shard(mesh)
+    for (lg, cache), (lg_tp, cache_tp) in zip(outs, outs_tp):
+        want = my_rows(lg)
+        if vl is not None:
+            lo = tp.model.rank * vl
+            want = want[:, lo:lo + vl]
+        err = max(err, float((lg_tp - want).abs().max())
+                  / float(lg.abs().max()))
+        for a, b, s in zip(leaves(cache), leaves(cache_tp), leaves(cshard)):
+            err = max(err, _shard_err(b, a, s))
+    return {"rel_err": _max_over_ranks(err)}
+
+
+def tp_one_rank(rank, world, tmp):
+    """The tensor-parallel design on a 1x1 mesh (a group of one, every
+    collective skipped) against the plain trainer: reduced internlm2
+    (AdamW, EF-int8 compression) and kimi-k2 (Adafactor, FSDP, MoE), two
+    steps from one seed, bf16 as drawn: losses, gnorms and every state
+    leaf bit for bit."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist import activation_constrainer
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaf_paths
+    mesh = _mesh((1, 1))
+    out = {}
+    for cell, compress in (("internlm2", True), ("kimi", False)):
+        cfg = tp_config(cell)
+        model = build_model(cfg)
+        rng = np.random.default_rng(4)
+        batches = [_batch(rng, cfg, 4, 16) for _ in range(2)]
+        runs = []
+        for hook in (None, activation_constrainer(mesh, fsdp=cfg.fsdp)):
+            tr = Trainer(model, TrainConfig(
+                total_steps=2, warmup_steps=0, grad_compress=compress,
+                ckpt_dir=str(tmp / f"one_{cell}_{hook is None}")), None,
+                constrain=hook, device=DEVICE)
+            state = tr.init_state(0)
+            ms = [tr.train_step(state, b) for b in batches]
+            runs.append((tr, state, [(float(m["loss"]), float(m["gnorm"]))
+                                     for m in ms]))
+        (_, plain, m1), (tr, sharded, m2) = runs
+        assert tr.design == "tensor-parallel"
+        assert m1 == m2, (cell, m1, m2)
+        whole = {p: t.full_tensor() if isinstance(t, DTensor) else t
+                 for p, t in leaf_paths(sharded)}
+        for path, a in leaf_paths(plain):
+            assert torch.equal(a.detach(), whole[path].detach()), (cell, path)
+        out[cell] = {"steps": m1, "leaves": len(whole)}
+    return out
+
+
+def tp_xent(rank, world, tmp):
+    """``base.vocab_parallel_xent`` over logits split on the vocab of a
+    (1, 4) mesh (padded columns masked, labels in every shard, a mask)
+    against ``softmax_xent`` of the whole logits: the loss and the
+    logits' grad shard."""
+    from repro_torch.dist.partitioning import PS, TensorParallel
+    from repro_torch.models.base import softmax_xent, vocab_parallel_xent
+    mesh = _mesh((1, 4))
+    tp = TensorParallel(mesh, {"x": PS(None, "model")})
+    rng = np.random.default_rng(2)
+    V, vl = 256, 64
+    logits = torch.from_numpy(rng.standard_normal((3, 5, V)).astype(
+        np.float32) * 4).to(DEVICE)
+    logits[..., 250:] = -1e30   # padded columns, as logits_fn masks them
+    labels = torch.from_numpy(rng.integers(0, 250, (3, 5))).to(DEVICE)
+    mask = torch.from_numpy((rng.random((3, 5)) > 0.3).astype(
+        np.float32)).to(DEVICE)
+    whole = logits.clone().requires_grad_(True)
+    want = softmax_xent(whole, labels, mask)
+    (gw,) = torch.autograd.grad(want, whole)
+    j = tp.model.rank
+    part = logits[..., j * vl:(j + 1) * vl].clone().requires_grad_(True)
+    got = vocab_parallel_xent(part, labels, mask, tp, j * vl)
+    (gp,) = torch.autograd.grad(got, part)
+    loss_err = abs(float(got) - float(want)) / abs(float(want))
+    grad_err = float((gp - gw[..., j * vl:(j + 1) * vl]).abs().max()) / \
+        float(gw.abs().max())
+    return {"loss_rel_err": _max_over_ranks(loss_err),
+            "grad_max_rel_err": _max_over_ranks(grad_err),
+            "labels_per_shard": [int(((labels >= k * vl)
+                                      & (labels < (k + 1) * vl)).sum())
+                                 for k in range(4)]}
 
 
 DRYRUN_CELLS = {"dense": ("internlm2-1.8b", {"fsdp": True}),
@@ -511,7 +828,14 @@ def dryrun_ep(rank, world, tmp):
 
 RANKS = {"moe_ep": moe_ep, "sharded_training": sharded_training,
          "elastic_one": elastic_one, "moe_ep_training": moe_ep_training,
-         "dryrun_dense": dryrun_dense, "dryrun_ep": dryrun_ep}
+         "dryrun_dense": dryrun_dense, "dryrun_ep": dryrun_ep,
+         "tp_xent": tp_xent, "tp_one_rank": tp_one_rank}
+for _cell in (*TP_CELLS, *TP_FULL_CELLS):
+    for _mesh_name in TP_MESHES:
+        RANKS[f"tp_training:{_cell}:{_mesh_name}"] = functools.partial(
+            tp_training, cell=_cell, mesh_name=_mesh_name)
+        RANKS[f"tp_decode:{_cell}:{_mesh_name}"] = functools.partial(
+            tp_decode, cell=_cell, mesh_name=_mesh_name)
 
 
 if __name__ == "__main__":   # python tests/torch_dist_ranks.py NAME WORLD TMP
