@@ -237,8 +237,12 @@ phase's keys and index):
    checkpoint restored through ``elastic_restore`` onto (1, 1) bit for
    bit; granite-moe-1b-a400m at full width and 2 layers in f32 with
    ``moe_impl="ep"`` over the mesh against ``moe_gspmd``, the hidden
-   states within the reference's 2e-4 and loss and grads within 1e-3
-   (``partition``, with the phase's seconds);
+   states within the reference's 2e-4 and loss and grads within 1e-3;
+   then the four other families at full width, each block kind once
+   (internvl2-2b at 2 layers, whisper-base at 2 + 2, zamba2-1.2b at 6:
+   one shared block, xlstm-125m at 8: one sLSTM), two ``Trainer`` steps
+   on drawn batches plain and on the mesh, the tensor-parallel design,
+   bit for bit (``partition``, with the phase's seconds);
 17. the dry run against the card (``phase_dryrun``, after phase 16's
    group is gone): three cells of ``launch/dryrun.py``, each one rank's
    share on pod16x16 at full width, run at 2 and 4 layers through the
@@ -257,11 +261,13 @@ phase's keys and index):
    (``dry_tp_cell``: rank 255 of a ``fake`` group of 256 over the
    pod16x16 mesh on the card, its own 16 rows of 4,096 tokens at its
    shard shapes, 2 and 4 layers, the collectives moving nothing as in
-   the count) held the same way: FLOPs exactly, the peak within 25%;
-   then ``dryrun.run_cell`` of whisper-base x decode_32k on pod16x16 in
-   a ``fake`` group of 256 and ``roofline.HBM_BYTES`` against the
-   card's ``total_memory`` (``dryrun``, with the phase's seconds and
-   the kernels' launch counts, all 0).
+   the count) and of zamba2-1.2b x train_4k (16 rows, 6 and 12 layers)
+   held the same way: FLOPs exactly, the peak within 25%; then
+   ``dryrun.run_cell`` of whisper-base x decode_32k on pod16x16 in a
+   ``fake`` group of 256 (the tensor-parallel design) and
+   ``roofline.HBM_BYTES`` against the card's ``total_memory``
+   (``dryrun``, with the phase's seconds and the kernels' launch
+   counts, all 0).
 
 Scale: SOSD's key sets (Marcus et al., Benchmarking Learned Indexes,
 VLDB 2020) hold 200M keys; the read phase cuts that to 32M so the host
@@ -4280,11 +4286,86 @@ def partition_moe(seed, mesh) -> dict:
     return out
 
 
+# the four other families at full width, each block kind once: (arch,
+# layers); the batch of drawn tokens (and frontend embeddings)
+PART_FAMILIES = (("internvl2-2b", 2), ("whisper-base", 2),
+                 ("zamba2-1.2b", 6), ("xlstm-125m", 8))
+PART_FAMILY_B, PART_FAMILY_S = 4, 128
+
+
+def partition_families(seed, tmp, mesh) -> dict:
+    """``PART_FAMILIES`` (bf16 as drawn, each config's remat and
+    optimizer; whisper's encoder cut like its decoder): ``PART_STEPS``
+    ``Trainer`` steps on ``PART_FAMILY_B`` x ``PART_FAMILY_S`` batches
+    from ``input_sample``, once without a constrainer and once with
+    ``activation_constrainer(mesh)`` (the tensor-parallel design on the
+    rank's shards, every collective over a group of one); losses,
+    gnorms and every state leaf bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.dist import activation_constrainer
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    out = {}
+    shape = ShapeConfig("part", PART_FAMILY_S, PART_FAMILY_B, "train")
+    for arch, layers in PART_FAMILIES:
+        base = ARCHS[arch]
+        kw = {"n_enc_layers": layers} if base.n_enc_layers else {}
+        cfg = dataclasses.replace(base, n_layers=layers, **kw)
+        model = build_model(cfg)
+        g = torch.Generator(device="cpu").manual_seed(seed + 31)
+        batches = [{k: v if v.is_floating_point() else v.long()
+                    for k, v in model.input_sample(shape, g, CARD).items()}
+                   for _ in range(PART_STEPS)]
+        runs = []
+        for label, hook in (("plain", None),
+                            ("mesh", activation_constrainer(
+                                mesh, fsdp=cfg.fsdp))):
+            tr = Trainer(model, TrainConfig(
+                total_steps=PART_STEPS, warmup_steps=1,
+                ckpt_dir=str(Path(tmp) / f"part_{arch}_{label}")), None,
+                constrain=hook, device=CARD)
+            state = tr.init_state(seed)
+            metrics, step_s = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics.append(tr.train_step(state, b))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            runs.append({"trainer": tr, "state": state, "step_s": step_s,
+                         "losses": [float(m["loss"]) for m in metrics],
+                         "gnorms": [float(m["gnorm"]) for m in metrics]})
+        plain, sharded = runs
+        design = sharded["trainer"].design
+        bits = (plain["losses"] == sharded["losses"]
+                and plain["gnorms"] == sharded["gnorms"]
+                and same_tree(plain["state"], sharded["state"]))
+        out[arch] = {"layers": layers, "design": design,
+                     "tokens_per_step": PART_FAMILY_B * PART_FAMILY_S,
+                     "losses": sharded["losses"],
+                     "gnorms": sharded["gnorms"],
+                     "bit_identical_with_and_without_mesh": bits,
+                     "plain_step_s": plain["step_s"],
+                     "mesh_step_s": sharded["step_s"]}
+        del runs, plain, sharded, batches
+        torch.cuda.empty_cache()
+        if design != "tensor-parallel":
+            raise AssertionError(f"the {arch} mesh trainer ran {design}")
+        if not bits or not all(math.isfinite(x)
+                               for x in out[arch]["losses"]):
+            raise AssertionError(f"the {arch} mesh trainer differs: "
+                                 f"{out[arch]}")
+    return out
+
+
 def phase_partition(seed, smi, tmp) -> dict:
     """Phase 16: one process in an ``nccl`` group of one (a file store
     under ``tmp``; ``gloo`` when ``CARD`` is the CPU), the mesh of
-    ``make_mesh_for(1, 1)``: ``partition_train`` and ``partition_moe``,
-    then the group destroyed.  Emits ``partition``."""
+    ``make_mesh_for(1, 1)``: ``partition_train``, ``partition_moe`` and
+    ``partition_families``, then the group destroyed.  Emits
+    ``partition``."""
     import torch.distributed as dist
 
     from repro_torch.data import PackedTokenStore
@@ -4309,10 +4390,11 @@ def phase_partition(seed, smi, tmp) -> dict:
         launches = {"fused_lookup": fused_lookup.launches,
                     "ingest_place": ingest_place.launches}
         moe = partition_moe(seed, mesh)
+        families = partition_families(seed, tmp, mesh)
         out = {"mesh": list(mesh.shape),
                "mesh_dims": list(mesh.mesh_dim_names),
                "backend": dist.get_backend(), "train": train, "moe": moe,
-               "launches": launches}
+               "families": families, "launches": launches}
     finally:
         dist.destroy_process_group()
     out["phase_seconds"] = time.perf_counter() - t0
@@ -4328,9 +4410,10 @@ DRY_CELLS = (("internlm2-1.8b", "train_4k", 4),
 DRY_DEPTHS = (2, 4)
 DRY_PEAK_RTOL = 0.25
 DRY_TIMED = 3
-# the tensor-parallel rank share: (arch, shape), a pod16x16 rank's own
-# 16 rows at its local shard shapes
-DRY_TP_CELL = ("internlm2-1.8b", "train_4k")
+# the tensor-parallel rank shares: (arch, shape, depths), a pod16x16
+# rank's own 16 rows at its local shard shapes
+DRY_TP_CELLS = (("internlm2-1.8b", "train_4k", DRY_DEPTHS),
+                ("zamba2-1.2b", "train_4k", (6, 12)))
 
 
 def dry_depth(model, shape, seed, mesh=None) -> dict:
@@ -4415,10 +4498,10 @@ def dry_cell(arch, shape_name, rows, seed) -> dict:
             "measured_roofline_fraction": bound / full["step_ms"]}
 
 
-def dry_tp_cell(seed) -> dict:
-    """``DRY_TP_CELL``'s tensor-parallel rank share on the card: rank
+def dry_tp_cell(seed, arch, shape_name, depths) -> dict:
+    """A tensor-parallel rank share (``DRY_TP_CELLS``) on the card: rank
     255 of a ``fake`` group of 256 over the pod16x16 mesh, its own 16
-    rows and its shards at full width, at ``DRY_DEPTHS``.  The ``fake``
+    rows and its shards at full width, at ``depths``.  The ``fake``
     group's collectives move nothing (an all-gather copies the local
     shard), as in the count; FLOPs and peak against ``count_step`` of
     the same step on ``meta`` (``dry_depth``), the depth law to full
@@ -4429,12 +4512,11 @@ def dry_tp_cell(seed) -> dict:
     from repro_torch.launch import dryrun, extrapolate, roofline
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import build_model
-    arch, shape_name = DRY_TP_CELL
     base, shape = ARCHS[arch], SHAPES[shape_name]
     with dryrun.fake_group(256):
         mesh = make_production_mesh(device=CARD)
         runs = [dry_depth(build_model(dataclasses.replace(base, n_layers=n)),
-                          shape, seed, mesh) for n in DRY_DEPTHS]
+                          shape, seed, mesh) for n in depths]
         step, args = dryrun.build_step(build_model(base), shape, mesh)
         counted = dryrun.count_step(step, args)
         del step, args
@@ -4470,30 +4552,32 @@ def phase_dryrun(seed, smi) -> dict:
     fused_lookup.launches = 0
     ingest_place.launches = 0
     cells = [dry_cell(a, s, rows, seed) for a, s, rows in DRY_CELLS]
-    tp_cell = dry_tp_cell(seed)
+    tp_cells = [dry_tp_cell(seed, *c) for c in DRY_TP_CELLS]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
         rec = dryrun.run_cell("whisper-base", "decode_32k", False, tmp)
     total = (torch.cuda.get_device_properties(0).total_memory
              if CARD == "cuda" else roofline.HBM_BYTES)
-    out = {"cells": cells, "tp_cell": tp_cell,
+    out = {"cells": cells, "tp_cells": tp_cells,
            "whisper_cell": {k: rec.get(k) for k in (
-               "status", "n_devices", "flops_per_device", "bytes_per_device",
-               "collective_bytes_per_device", "collectives", "peak_bytes",
-               "fits", "count_s", "error")},
+               "status", "design", "n_devices", "flops_per_device",
+               "bytes_per_device", "collective_bytes_per_device",
+               "collectives", "peak_bytes", "fits", "count_s", "error")},
            "hbm_bytes": roofline.HBM_BYTES, "total_memory": total,
            "launches": {"fused_lookup": fused_lookup.launches,
                         "ingest_place": ingest_place.launches},
            "phase_seconds": time.perf_counter() - t0}
     emit("dryrun", card=smi, **out)
-    runs = [r for c in cells + [tp_cell] for r in c["depths"]]
-    if {r["design"] for r in tp_cell["depths"]} != {"tensor-parallel"}:
-        raise AssertionError("the rank share ran another design")
+    runs = [r for c in cells + tp_cells for r in c["depths"]]
+    if {r["design"] for c in tp_cells for r in c["depths"]} != {
+            "tensor-parallel"}:
+        raise AssertionError("a rank share ran another design")
     if not all(r["flops_equal"] for r in runs):
         raise AssertionError("the card's FLOPs differ from the count")
     if not all(abs(r["peak_rel_err"]) <= DRY_PEAK_RTOL for r in runs):
         raise AssertionError("a measured peak is off the count by more "
                              f"than {DRY_PEAK_RTOL:.0%}")
-    if rec["status"] != "ok" or rec["n_devices"] != 256:
+    if (rec["status"] != "ok" or rec["n_devices"] != 256
+            or rec["design"] != "tensor-parallel"):
         raise AssertionError(f"the whisper-base cell: {rec}")
     if total != roofline.HBM_BYTES:
         raise AssertionError(f"roofline.HBM_BYTES {roofline.HBM_BYTES} is "
@@ -4732,6 +4816,9 @@ def main() -> int:
                         "elastic_restore_bit_for_bit"],
                     "moe_ep_hidden_max_abs_err": part["moe"][
                         "hidden_max_abs_err"],
+                    "families_bit_identical": {
+                        a: f["bit_identical_with_and_without_mesh"]
+                        for a, f in part["families"].items()},
                     "launches": part["launches"]},
          dryrun={"phase_seconds": dry["phase_seconds"],
                  "flops_equal": all(r["flops_equal"] for c in dry["cells"]
@@ -4742,15 +4829,14 @@ def main() -> int:
                  "full_depth_step_ms": {f"{c['arch']}/{c['shape']}":
                                         c["extrapolated"]["step_ms"]
                                         for c in dry["cells"]},
-                 "tp_rank_share": {
-                     "flops_equal": all(r["flops_equal"] for r in
-                                        dry["tp_cell"]["depths"]),
-                     "peak_rel_err": [r["peak_rel_err"] for r in
-                                      dry["tp_cell"]["depths"]],
-                     "step_ms": [r["step_ms"] for r in
-                                 dry["tp_cell"]["depths"]],
-                     "full_depth_step_ms": dry["tp_cell"]["extrapolated"][
-                         "step_ms"]},
+                 "tp_rank_share": {c["arch"]: {
+                     "flops_equal": all(r["flops_equal"]
+                                        for r in c["depths"]),
+                     "peak_rel_err": [r["peak_rel_err"]
+                                      for r in c["depths"]],
+                     "step_ms": [r["step_ms"] for r in c["depths"]],
+                     "full_depth_step_ms": c["extrapolated"]["step_ms"]}
+                     for c in dry["tp_cells"]},
                  "launches": dry["launches"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -41,9 +41,9 @@ Tensor parallelism (``TensorParallel``): the step that computes on each
 rank's own shards, as GSPMD runs the reference's jitted step.  Params
 sharded over "model" stay sharded during compute (Megatron's column- and
 row-parallel products); a leaf sharded over "data" (FSDP's "embed") is
-gathered over "data" where it is used, one layer at a time.  Three
-``torch.autograd.Function``s carry the collectives, each the adjoint of
-the other's direction:
+gathered over "data" where it is used, one layer at a time.  Every
+model family runs it.  ``torch.autograd.Function``s carry the
+collectives, each the adjoint of the other's direction:
 
 * ``copy``: identity forward, the grad summed over "model" backward.
   Whatever is replicated over "model" and enters a product that each
@@ -55,7 +55,20 @@ the other's direction:
   add (after it, the replicated ``x`` would be summed once a rank);
 * ``gather``: ``all_gather`` along a dim forward, ``reduce_scatter`` of
   the grad backward: an FSDP leaf over "data", or a "model"-sharded
-  leaf a rank needs whole (the MoE router).
+  leaf (or activation) whose whole each rank uses a part of (the MoE
+  router, the mLSTM's up-projection before its per-head cell).
+
+Two more carry an activation between a split product and compute that
+every rank runs alike on the whole (the xLSTM blocks whose heads the
+divisibility guard keeps whole):
+
+* ``whole``: ``all_gather`` along a dim forward, the rank's slice of
+  the grad backward.  Every rank computes the same thing on the whole,
+  so each holds the whole grad, and its shard's is a slice of it (a
+  ``reduce_scatter`` would count it ``model.size`` times);
+* ``split``: the rank's slice along a dim forward, ``all_gather`` of
+  the grad backward: a replicated activation that enters a row-parallel
+  product (each rank's rows of the weight take its slice).
 
 An axis of size one splits nothing: every helper is then the identity
 and the layers take their plain paths.
@@ -330,7 +343,7 @@ def _reduce_scatter(g, group, size, dim):
 
 
 def _functions():
-    """The three autograd Functions (built on first use: importing this
+    """The five autograd Functions (built on first use: importing this
     module imports no torch)."""
     global _FUNCTIONS
     if _FUNCTIONS is not None:
@@ -379,7 +392,38 @@ def _functions():
             a = ctx.axis
             return _reduce_scatter(g, a.group, a.size, ctx.dim), None, None
 
-    _FUNCTIONS = (Copy, Reduce, Gather)
+    class Whole(torch.autograd.Function):
+        """``all_gather`` along ``dim`` forward; the rank's slice of the
+        grad backward."""
+
+        @staticmethod
+        def forward(ctx, x, axis, dim):
+            ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+            return _all_gather(x, axis.group, axis.size, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            a = ctx.axis
+            return (g.narrow(ctx.dim, a.rank * ctx.n, ctx.n).contiguous(),
+                    None, None)
+
+    class Split(torch.autograd.Function):
+        """The rank's slice along ``dim`` forward; the grad
+        ``all_gather``ed backward."""
+
+        @staticmethod
+        def forward(ctx, x, axis, dim):
+            ctx.axis, ctx.dim = axis, dim
+            n = x.shape[dim] // axis.size
+            return x.narrow(dim, axis.rank * n, n).clone(
+                memory_format=torch.contiguous_format)
+
+        @staticmethod
+        def backward(ctx, g):
+            a = ctx.axis
+            return _all_gather(g, a.group, a.size, ctx.dim), None, None
+
+    _FUNCTIONS = (Copy, Reduce, Gather, Whole, Split)
     return _FUNCTIONS
 
 
@@ -410,9 +454,13 @@ class TensorParallel:
     own activations); ``mesh`` is the mesh and ``tp`` the object itself
     (what a model's layers look for).  ``model`` and ``data`` are the
     two axes as ``_Axis`` records; ``batch`` the axes the batch rows are
-    split over, ("pod", "data"), that have more than one rank."""
+    split over, ("pod", "data"), that have more than one rank.
+    ``kv_seq`` names the axes, major first, that the sequence dim of the
+    KV caches is split over (the long-context rule of the dry run's
+    ``_cache_shardings``); attention then runs on the rank's positions
+    and combines the softmax over them (``seq_offset``, ``seq_reduce``)."""
 
-    def __init__(self, mesh, specs):
+    def __init__(self, mesh, specs, kv_seq: Tuple[str, ...] = ()):
         self.mesh = mesh
         self.specs = specs
         self.tp = self
@@ -421,6 +469,8 @@ class TensorParallel:
         self.axes = {n: _mesh_axis(mesh, n) for n in _mesh_names(mesh)}
         self.batch = tuple(self.axes[n] for n in _RULES["batch"]
                            if n in self.axes and self.axes[n].size > 1)
+        self.kv_seq = tuple(self.axes[n] for n in kv_seq
+                            if self.axes[n].size > 1)
 
     def __call__(self, x, axes):
         return x
@@ -457,6 +507,21 @@ class TensorParallel:
             return x
         return _functions()[2].apply(x, axis, dim)
 
+    def whole(self, x, dim: int):
+        """``x`` whole along ``dim`` from its shards over "model", for
+        compute every rank runs alike on it (the grad: the rank's
+        slice)."""
+        if self.model is None or self.model.size == 1:
+            return x
+        return _functions()[3].apply(x, self.model, dim)
+
+    def split(self, x, dim: int):
+        """This rank's slice along ``dim`` of ``x``, replicated over
+        "model" (the grad: all-gathered)."""
+        if self.model is None or self.model.size == 1:
+            return x
+        return _functions()[4].apply(x, self.model, dim)
+
     def reduce_max(self, x):
         """The max over "model" (no grad)."""
         if self.model is None or self.model.size == 1:
@@ -464,6 +529,24 @@ class TensorParallel:
         import torch.distributed as dist
         x = x.detach().contiguous().clone()
         dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.model.group)
+        return x
+
+    def seq_offset(self, local_size: int) -> Tuple[int, int]:
+        """The global position of this rank's first KV cache entry and
+        the cache's whole length, its sequence split over ``kv_seq``."""
+        index, size = 0, 1
+        for a in self.kv_seq:
+            index, size = index * a.size + a.rank, size * a.size
+        return index * local_size, size * local_size
+
+    def seq_reduce(self, x, op: str):
+        """``x`` reduced (``"max"`` or ``"sum"``) over ``kv_seq`` (no
+        grad)."""
+        import torch.distributed as dist
+        x = x.detach().contiguous().clone()
+        for a in self.kv_seq:
+            dist.all_reduce(x, op=getattr(dist.ReduceOp, op.upper()),
+                            group=a.group)
         return x
 
     def offset(self, spec, dim: int, local_size: int) -> int:

@@ -14,14 +14,16 @@ and counts what that step does.  The group is symmetric, so rank
 The step is the one the port runs, in one of two designs (the
 record's ``"design"``, ``step.design``):
 
-* **"tensor-parallel"** (a model with ``tensor_parallel``, the LM
+* **"tensor-parallel"** (a model with ``tensor_parallel``, every
   family, and heads-sharded caches): the rank computes on its own
   shards, as GSPMD runs the reference's jitted step.  Params split over
   "model" stay split, FSDP leaves are gathered over "data" a layer at a
-  time, and the collectives are the "model" all-reduces and the "data"
-  all-gathers and reduce-scatters (``dist.partitioning.TensorParallel``);
-* **"gather-at-use"** (the other families): the params are gathered
-  whole for the step (``full_tensor``).
+  time, and the collectives are the "model" all-reduces and gathers and
+  the "data" all-gathers and reduce-scatters
+  (``dist.partitioning.TensorParallel``);
+* **"gather-at-use"** (a model whose ``tensor_parallel`` a caller has
+  turned off, or ``kv_shard="seq"``): the params are gathered whole for
+  the step (``full_tensor``).
 
 * **train**: ``Trainer.train_step`` itself (the trainer picks the
   design), on a state built from ``abstract_params()``, the optimizer's
@@ -32,9 +34,11 @@ record's ``"design"``, ``step.design``):
   ``prefill_fn`` / ``decode_fn`` (``loss_fn`` with ``labels = tokens``
   where ``prefill_fn`` is None, as the reference does): under
   tensor parallelism on the rank's param shards and its cache shards
-  under ``_cache_shardings``; under gather-at-use on the params gathered
-  whole and the cache shards gathered whole along every dim but the
-  batch.
+  under ``_cache_shardings`` (where the long-context rule splits a
+  cache's sequence over the batch axes, zamba2-1.2b's long_500k, the
+  rank attends over its own positions: the hook's ``kv_seq``); under
+  gather-at-use on the params gathered whole and the cache shards
+  gathered whole along every dim but the batch.
 
 ``build_step`` with ``mesh=None`` is the same step on one process (no
 gather, every row), on ``meta`` or, with real data, on a device: the
@@ -109,6 +113,7 @@ from ..dist.partitioning import (
     PS,
     Sharding,
     TensorParallel,
+    _spec_axes,
     activation_constrainer,
     input_shardings,
     local_shard,
@@ -374,6 +379,15 @@ def _cache_shardings(acache, mesh, cfg, shape, kv_shard: str = "heads"):
     return tree_map(one, acache)
 
 
+def _kv_seq(acache, cshard, mesh, shape):
+    """The batch axes that split a cache dim other than its batch dim
+    under ``cshard``: the long-context rule's KV sequence (the
+    ``kv_seq`` of ``TensorParallel``)."""
+    return tuple(a for a in _data_axes(mesh) if any(
+        a in _spec_axes(e) for t, s in zip(leaves(acache), leaves(cshard))
+        for d, e in enumerate(s.spec) if d != _batch_dim(t, mesh, shape)))
+
+
 def _rows(t, sharding):
     """The rank's rows of a whole batch tensor under its sharding."""
     return place(t, sharding.mesh, sharding.placements).to_local()
@@ -474,10 +488,11 @@ def build_step(model, shape, mesh, seq_axis=None, kv_shard="heads", *,
         design = "tensor-parallel"
         pshard = param_shardings(model.logical_axes(), mesh, fsdp=cfg.fsdp,
                                  abstract_tree=params)
-        constrain = TensorParallel(mesh, tree_map(lambda s: s.spec, pshard))
+        cshard = _cache_shardings(cache, mesh, cfg, shape, kv_shard)
+        constrain = TensorParallel(mesh, tree_map(lambda s: s.spec, pshard),
+                                   _kv_seq(cache, cshard, mesh, shape))
         params = tree_map(lambda t, s: place(t, mesh, s.placements),
                           params, pshard)
-        cshard = _cache_shardings(cache, mesh, cfg, shape, kv_shard)
         cache = tree_map(lambda t, s: place(t, mesh, s.placements),
                          cache, cshard)
 

@@ -51,8 +51,9 @@ class Model:
     cache_specs: Optional[Callable] = None
     init_caches: Optional[Callable] = None
     # the forward computes on each rank's shards under a
-    # ``dist.partitioning.TensorParallel`` hook (the LM family)
-    tensor_parallel: bool = False
+    # ``dist.partitioning.TensorParallel`` hook (every family; off, a
+    # trainer or the dry run gathers the params whole at use instead)
+    tensor_parallel: bool = True
 
     def param_specs(self):
         return self._specs
@@ -158,7 +159,6 @@ def build_model(cfg: ModelConfig) -> Model:
                 cfg, batch, max_len),
             init_caches=lambda batch, max_len, device=None: _lm.init_kv_cache(
                 cfg, batch, max_len, device=device),
-            tensor_parallel=True,
         )
     if cfg.arch == "vlm":
         return Model(

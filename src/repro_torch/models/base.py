@@ -63,7 +63,8 @@ Params = Dict[str, Any]
 
 __all__ = ["P", "Params", "init_params", "map_specs", "abstract_params",
            "logical_axes", "padded_vocab",
-           "rms_norm", "rope", "attention_specs", "gqa_attention",
+           "rms_norm", "rms_norm_split", "rope", "attention_specs",
+           "gqa_attention",
            "mlp_specs", "mlp", "softmax_xent", "vocab_parallel_xent",
            "causal_additive_mask",
            "mm", "einsum", "layer_slice", "layer_list", "remat",
@@ -231,6 +232,18 @@ def rms_norm(x, weight, eps: float = 1e-6):
     return (x * (1.0 + weight.float())).to(dtype)
 
 
+def rms_norm_split(x, weight, tp, n: int, eps: float = 1e-6):
+    """``rms_norm`` over a last dim of ``n`` entries split over "model":
+    ``x`` (..., n_l) and ``weight`` (n_l,) are the rank's.  The sum of
+    squares is summed over "model", and so is its grad (each rank's
+    entries are scaled by it)."""
+    dtype = x.dtype
+    x = x.float()
+    ss = tp.copy(tp.reduce(torch.sum(x * x, dim=-1, keepdim=True)))
+    x = x * torch.rsqrt(ss / n + eps)
+    return (x * (1.0 + weight.float())).to(dtype)
+
+
 def rope(x, positions, theta: float = 10_000.0):
     """Rotary embedding.  x: (..., S, H, Dh), positions: (..., S).  The
     frequencies are f32, ``theta ** (-arange(half) / half)``, as in the
@@ -275,6 +288,7 @@ def gqa_attention(
     attn_mask: Optional[torch.Tensor] = None,  # additive (B, S, T)
     tp=None,
     kv_split: bool = False,
+    seq_tp=None,
 ):
     """Grouped-query attention with optional KV cache / cross-attention.
 
@@ -293,9 +307,18 @@ def gqa_attention(
     (the cache is whole on every rank) and each query head takes its
     own KV head from them; without one, only the KV heads this rank's
     query heads use are projected.
+
+    ``seq_tp`` (a ``TensorParallel`` whose ``kv_seq`` splits the cache's
+    sequence over ranks, heads split or not): the rank writes the new
+    entries that fall in its positions and attends over those; the
+    softmax's max and sum and the values' product are reduced over
+    ``kv_seq`` (what GSPMD runs for the reference's attention on such a
+    cache).
     """
     B, S, D = x.shape
     picked = False
+    seq = kv_cache is not None and seq_tp is not None and bool(
+        seq_tp.kv_seq)
     if tp is not None:
         x = tp.copy(x)
         if not kv_split:   # whole weights inside the split product
@@ -328,10 +351,15 @@ def gqa_attention(
         v = v.transpose(1, 2)
         if kv_cache is not None:
             ck, cv = kv_cache
-            # dynamic_update_slice clamps its start so the update fits
-            start = max(0, min(int(cache_index), ck.shape[2] - S))
-            ck[:, :, start:start + S] = k  # copy_ casts to the cache dtype
-            cv[:, :, start:start + S] = v
+            n = ck.shape[2]
+            off, T_all = seq_tp.seq_offset(n) if seq else (0, n)
+            # dynamic_update_slice clamps its start so the update fits;
+            # a rank writes the part that falls in its positions
+            start = max(0, min(int(cache_index), T_all - S))
+            lo, hi = max(start, off), min(start + S, off + n)
+            if lo < hi:   # copy_ casts to the cache dtype
+                ck[:, :, lo - off:hi - off] = k[:, :, lo - start:hi - start]
+                cv[:, :, lo - off:hi - off] = v[:, :, lo - start:hi - start]
             k, v = ck, cv
         new_kv = (k, v)
     q = rope(q, positions, rope_theta)
@@ -356,6 +384,8 @@ def gqa_attention(
     else:
         # mask[b, s_query, t_key]; positions are ABSOLUTE (shared w/ RoPE)
         key_pos = torch.arange(T, device=x.device)
+        if seq:
+            key_pos = key_pos + off
         if kv_cache is not None:
             valid = key_pos[None, None, :] < (int(cache_index) + S)
             if causal:
@@ -370,8 +400,16 @@ def gqa_attention(
         if mask is not None:
             scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
     # f32 probabilities, cast back to x's dtype before the second product
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    if seq:
+        e = torch.exp(scores - seq_tp.seq_reduce(
+            scores.amax(-1, keepdim=True), "max"))
+        probs = (e / seq_tp.seq_reduce(e.sum(-1, keepdim=True), "sum")
+                 ).to(x.dtype)
+    else:
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = einsum("bngst,bntk->bsngk", probs, v)
+    if seq:
+        out = seq_tp.seq_reduce(out, "sum")
     out = out.reshape(B, S, n_heads, -1)
     out = einsum("bshk,hkd->bsd", out, params["wo"])
     if tp is not None:

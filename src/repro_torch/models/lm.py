@@ -126,19 +126,35 @@ def _layer_fwd(cfg, constrain, lp, x, positions, kv_cache=None,
     return constrain(x + h2, ("batch", None, "embed")), new_kv
 
 
+def tp_attention(p, x, positions, tp=None, spec=None, **kw):
+    """``gqa_attention`` of the params ``p``; under ``tp`` on the rank's
+    heads where ``spec`` (their ``PS`` tree) splits them, whole on every
+    rank where the divisibility guard kept them whole; a cache whose
+    sequence ``tp.kv_seq`` splits is attended on the rank's positions."""
+    if tp is None:
+        return gqa_attention(p, x, positions, **kw)
+    return gqa_attention(p, x, positions,
+                         tp=tp if tp.splits(spec["wq"], 1) else None,
+                         kv_split=tp.splits(spec["wk"], 1), seq_tp=tp, **kw)
+
+
+def tp_mlp(p, x, tp=None, spec=None):
+    """``mlp``; under ``tp`` on the rank's "ffn" columns where ``spec``
+    splits them."""
+    if tp is None:
+        return mlp(p, x)
+    return mlp(p, x, tp=tp if tp.splits(spec["w_up"], 1) else None)
+
+
 def _layer_fwd_tp(cfg, tp, spec, lp, x, positions, kv_cache=None,
                   cache_index=None, attn_mask=None):
     """``_layer_fwd`` on this rank's shards (``lp``; ``spec`` their
     ``PS`` tree, see the module doc).  Returns (x, new_kv)."""
     lp = tp.gather_fsdp(lp, spec)
-    a = spec["attn"]
-    h, new_kv = gqa_attention(
-        lp["attn"], rms_norm(x, lp["ln_attn"]), positions,
+    h, new_kv = tp_attention(
+        lp["attn"], rms_norm(x, lp["ln_attn"]), positions, tp, spec["attn"],
         causal=True, rope_theta=cfg.rope_theta,
-        kv_cache=kv_cache, cache_index=cache_index, attn_mask=attn_mask,
-        tp=tp if tp.splits(a["wq"], 1) else None,
-        kv_split=tp.splits(a["wk"], 1),
-    )
+        kv_cache=kv_cache, cache_index=cache_index, attn_mask=attn_mask)
     x = x + h
     h2 = rms_norm(x, lp["ln_mlp"])
     if cfg.moe is not None:
@@ -146,8 +162,7 @@ def _layer_fwd_tp(cfg, tp, spec, lp, x, positions, kv_cache=None,
                          capacity_factor=cfg.moe.capacity_factor,
                          ep=cfg.moe_impl == "ep")
     else:
-        h2 = mlp(lp["mlp"], h2,
-                 tp=tp if tp.splits(spec["mlp"]["w_up"], 1) else None)
+        h2 = tp_mlp(lp["mlp"], h2, tp, spec["mlp"])
     return x + h2, new_kv
 
 
@@ -212,13 +227,14 @@ def forward(params, tokens, cfg, constrain=None, *, embedded=None):
     body = remat(body, cfg.remat)
     for lp in layer_list(params["layers"], cfg.n_layers):
         x = body(lp, x)
-    return rms_norm(x, _ln_f(params, tp))
+    return rms_norm(x, leaf(params, "ln_f", tp))
 
 
-def _ln_f(params, tp):
+def leaf(params, name: str, tp):
+    """``params[name]``; under ``tp`` with its FSDP dims gathered."""
     if tp is None:
-        return params["ln_f"]
-    return tp.gather_fsdp(params["ln_f"], tp.specs["ln_f"])
+        return params[name]
+    return tp.gather_fsdp(params[name], tp.specs[name])
 
 
 def logits_fn(params, hidden, cfg, constrain=None):
@@ -242,7 +258,14 @@ def loss_fn(params, batch, cfg, constrain=None):
     """Next-token CE (the value).  batch: {tokens (B,S), labels (B,S),
     mask}."""
     hidden = forward(params, batch["tokens"], cfg, constrain)
-    logits = logits_fn(params, hidden, cfg, constrain)
+    return xent(logits_fn(params, hidden, cfg, constrain), batch, cfg,
+                constrain)
+
+
+def xent(logits, batch, cfg, constrain=None):
+    """The CE of ``logits_fn``'s logits against ``batch``'s labels and
+    mask: under ``constrain.tp`` with the rank's vocab columns, the
+    vocab-parallel cross-entropy."""
     tp = getattr(constrain, "tp", None)
     vl = logits.shape[-1]
     if tp is not None and vl != padded_vocab(cfg.vocab):   # split columns
@@ -302,7 +325,7 @@ def prefill(params, tokens, cache, cfg, constrain=None, *, embedded=None):
     B, S = x.shape[0], x.shape[1]
     positions = _positions(B, S, x.device)
     x, cache = _cached_stack(params, cfg, constrain, x, positions, cache, 0)
-    hidden = rms_norm(x[:, -1:], _ln_f(params, tp))
+    hidden = rms_norm(x[:, -1:], leaf(params, "ln_f", tp))
     return logits_fn(params, hidden, cfg, constrain)[:, 0], cache
 
 
@@ -317,5 +340,5 @@ def decode_step(params, tokens, cache, cache_index, cfg, constrain=None):
                            device=x.device)
     x, cache = _cached_stack(params, cfg, constrain, x, positions, cache,
                              cache_index)
-    hidden = rms_norm(x, _ln_f(params, tp))
+    hidden = rms_norm(x, leaf(params, "ln_f", tp))
     return logits_fn(params, hidden, cfg, constrain)[:, 0], cache

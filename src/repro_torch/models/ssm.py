@@ -14,6 +14,21 @@ raises).  A three-operand ``einsum`` is contracted pairwise by torch,
 in another order than XLA's: only f32 rounding moves.  This is plain
 torch; the reference computes the block in XLA, outside any Pallas
 kernel.
+
+Under tensor parallelism (``tp``, a ``dist.partitioning.TensorParallel``,
+given where the SSM heads are split over "model": ``A_log``, ``dt_bias``
+and ``D`` are the rank's heads) each rank computes its heads: the
+columns of the replicated ("heads_x") ``w_in`` that give its heads'
+``z``, ``x`` and ``dt`` and the whole ``B`` and ``C`` (one group, which
+every head reads), the short conv over its ``x`` channels and ``B``,
+``C`` (its channels of the replicated ``conv_w``), the SSD on its heads
+(in decode its own slice of the head-split state), the gated norm with
+the sum of squares over ``d_inner`` summed over "model", and its rows
+of ``w_out``; the partial output is reduced over "model".  The decode
+conv cache is whole on every rank, so the new window's ``x`` channels
+are all-gathered over "model" into it.  The replicated input and
+weights that each rank uses a part of pass ``copy``, so their grads are
+summed over "model".
 """
 
 from __future__ import annotations
@@ -25,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .base import P, einsum, mm, rms_norm
+from .base import P, einsum, mm, rms_norm, rms_norm_split
 
 __all__ = ["SSMCache", "mamba2_specs", "ssd_chunked", "mamba2_forward",
            "init_ssm_cache"]
@@ -80,6 +95,35 @@ def _causal_conv(xbc, conv_w, conv_state: Optional[torch.Tensor] = None):
         out = out + xp[:, i:i + S, :] * conv_w[i][None, None, :]
     new_state = xp[:, -(d_conv - 1):, :] if d_conv > 1 else pad
     return F.silu(out), new_state
+
+
+def _proj_conv_tp(params, x, conv_state, tp, head_dim, d_inner, d_state):
+    """The projection and the conv of this rank's heads (see the module
+    doc): ``(xbc, new conv window, z, dt)``, ``xbc`` its ``x`` channels
+    then ``B`` and ``C``, the window whole over the channels."""
+    n = params["A_log"].shape[0]
+    w = n * head_dim   # its heads' channels
+    lo = tp.model.rank * w
+    x = tp.copy(x)
+    w_in = tp.copy(params["w_in"])
+    dt0 = 2 * d_inner + 2 * d_state + tp.model.rank * n
+    proj = mm(x, torch.cat([w_in.narrow(1, lo, w),
+                            w_in.narrow(1, d_inner + lo, w),
+                            w_in.narrow(1, 2 * d_inner, 2 * d_state),
+                            w_in.narrow(1, dt0, n)], dim=1))
+    z, xbc, dt = torch.split(proj, [w, w + 2 * d_state, n], dim=-1)
+    conv_w = tp.copy(params["conv_w"])
+    conv_w = torch.cat([conv_w.narrow(1, lo, w),
+                        conv_w.narrow(1, d_inner, 2 * d_state)], dim=1)
+    if conv_state is not None:   # the whole window's channels of mine
+        conv_state = torch.cat([conv_state.narrow(-1, lo, w),
+                                conv_state.narrow(-1, d_inner, 2 * d_state)],
+                               dim=-1)
+    xbc, new_conv = _causal_conv(xbc, conv_w, conv_state)
+    if conv_state is not None:   # every rank's x channels, then B and C
+        new_conv = torch.cat([tp.whole(new_conv.narrow(-1, 0, w), -1),
+                              new_conv.narrow(-1, w, 2 * d_state)], dim=-1)
+    return xbc, new_conv, z, dt
 
 
 def ssd_chunked(xh, b, c, dt_a, chunk: int):
@@ -137,18 +181,28 @@ def ssd_chunked(xh, b, c, dt_a, chunk: int):
 
 
 def mamba2_forward(params, x, *, n_heads, head_dim, d_state, chunk=128,
-                   cache: Optional[SSMCache] = None):
+                   cache: Optional[SSMCache] = None, tp=None):
     """Full block.  x: (B, S, D).  With ``cache`` performs decode (S small,
     sequential recurrence); returns (out, new_cache or None).  The new
     state is cast back to the cache's dtype (a bf16 round trip a step in
     a bf16 cache, as in the reference); the new conv window keeps the
-    promoted dtype ``_causal_conv`` gives it."""
+    promoted dtype ``_causal_conv`` gives it.  ``tp``: the rank's SSM
+    heads (see the module doc)."""
     B, S, D = x.shape
     d_inner = n_heads * head_dim
-    z, xbc, dt = _split_proj(params, x, n_heads, head_dim, d_state)
     conv_state = cache.conv if cache is not None else None
-    xbc, new_conv = _causal_conv(xbc, params["conv_w"], conv_state)
-    xi, b, c = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
+    if tp is None:
+        z, xbc, dt = _split_proj(params, x, n_heads, head_dim, d_state)
+        xbc, new_conv = _causal_conv(xbc, params["conv_w"], conv_state)
+    else:
+        xbc, new_conv, z, dt = _proj_conv_tp(params, x, conv_state, tp,
+                                             head_dim, d_inner, d_state)
+        n_heads = params["A_log"].shape[0]
+        if cache is not None and cache.state.shape[1] != n_heads:
+            raise ValueError(f"an SSM state of {cache.state.shape[1]} heads "
+                             f"for a rank of {n_heads}")
+    xi, b, c = torch.split(xbc, [n_heads * head_dim, d_state, d_state],
+                           dim=-1)
     xh = xi.reshape(B, S, n_heads, head_dim)
     # jax.nn.softplus is logaddexp(x, 0); F.softplus returns x above 20,
     # where the two are equal in f32
@@ -185,9 +239,16 @@ def mamba2_forward(params, x, *, n_heads, head_dim, d_state, chunk=128,
         new_state = h
 
     y = y + params["D"][None, None, :, None] * xh.float()
-    y = y.reshape(B, S, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm_w"])
-    out = mm(y, params["w_out"])
+    y = y.reshape(B, S, n_heads * head_dim).to(x.dtype)
+    if tp is None:
+        y = rms_norm(y * F.silu(z), params["norm_w"])
+        out = mm(y, params["w_out"])
+    else:   # the rank's rows of d_inner; the partial product reduced
+        rows = (tp.model.rank * y.shape[-1], y.shape[-1])
+        y = rms_norm_split(y * F.silu(z),
+                           tp.copy(params["norm_w"]).narrow(0, *rows), tp,
+                           d_inner)
+        out = tp.reduce(mm(y, tp.copy(params["w_out"]).narrow(0, *rows)))
     if cache is None:
         return out, None
     return out, SSMCache(conv=new_conv,

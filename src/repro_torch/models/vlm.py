@@ -6,6 +6,15 @@ in the reference: the batch carries precomputed patch embeddings
 InternVL) and the LM backbone are real.  Patch tokens are prepended to
 the text sequence; the loss is computed on the text positions only.
 Decoding after the prefill is the LM's ``decode_step``.
+
+Under a ``dist.partitioning.TensorParallel`` hook (``constrain.tp``)
+the text embedding is the LM's vocab-parallel lookup, the backbone and
+the logits are the LM's on the rank's shards and the loss the
+vocab-parallel cross-entropy.  The projector's leaves are replicated
+(their "embed" dims split only under FSDP, gathered over "data" at use),
+so it runs whole on every rank's rows; the backbone's ``copy`` before
+every split product makes the grads reaching it whole, and they are
+summed over the batch axes only.
 """
 
 from __future__ import annotations
@@ -14,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from . import lm as _lm
-from .base import P, mm, rms_norm, softmax_xent
+from .base import P, mm, rms_norm
 
 
 def param_specs(cfg):
@@ -27,33 +36,36 @@ def param_specs(cfg):
     return specs
 
 
-def _project(params, patches):
+def _project(params, patches, tp=None):
     p = params["projector"]
+    if tp is not None:
+        p = tp.gather_fsdp(p, tp.specs["projector"])
     h = rms_norm(patches, p["ln"])
     return mm(F.gelu(mm(h, p["w1"]), approximate="tanh"), p["w2"])
 
 
-def _embed(params, batch):
+def _embed(params, batch, tp=None):
     """Projected patches (cast to bf16, as the reference does) followed
     by the text embeddings; ``torch.cat`` promotes as
     ``jnp.concatenate`` does."""
-    vis = _project(params, batch["patches"]).to(torch.bfloat16)
-    txt = params["embed"][batch["tokens"]]
+    vis = _project(params, batch["patches"], tp).to(torch.bfloat16)
+    txt = _lm._embed(params, batch["tokens"], tp)
     return vis, torch.cat([vis, txt], dim=1)
 
 
 def loss_fn(params, batch, cfg, constrain=None):
     """batch: patches (B,P,Dv), tokens (B,S), labels (B,S)."""
-    vis, x = _embed(params, batch)
+    tp = getattr(constrain, "tp", None)
+    vis, x = _embed(params, batch, tp)
     hidden = _lm.forward(params, None, cfg, constrain, embedded=x)
     n_p = vis.shape[1]
     logits = _lm.logits_fn(params, hidden[:, n_p:], cfg, constrain)
-    return softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return _lm.xent(logits, batch, cfg, constrain)
 
 
 def prefill(params, batch, cache, cfg, constrain=None):
     """Multimodal prefill: patches + prompt tokens fill the cache."""
-    _vis, x = _embed(params, batch)
+    _vis, x = _embed(params, batch, getattr(constrain, "tp", None))
     return _lm.prefill(params, None, cache, cfg, constrain, embedded=x)
 
 

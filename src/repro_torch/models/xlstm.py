@@ -18,6 +18,30 @@ three-operand ``einsum`` is contracted pairwise by torch, in another
 order than XLA's: only f32 rounding moves.  ``jax.nn.log_sigmoid`` is
 ``F.logsigmoid``.  This is plain torch; the reference computes the
 blocks in XLA, outside any Pallas kernel.
+
+Under tensor parallelism (``tp``, a ``dist.partitioning.TensorParallel``,
+with ``spec`` the block's ``PS`` tree) each block computes on the
+rank's shards:
+
+* mLSTM: ``w_up`` is split on its columns of ``[x, gate]`` and
+  ``w_down`` on its rows of ``d_inner``; ``w_qkv``, ``w_if`` and
+  ``norm_w`` are replicated.  The split up-projection is made whole over
+  "model" (a rank's columns do not line up with the split into ``x``
+  and ``gate``).  Where "model" divides the heads, each rank runs the
+  cell on its heads (its columns of ``w_qkv`` and ``w_if``, its slice of
+  the decode caches), normalises its ``d_inner`` rows with the sum of
+  squares summed over "model" and multiplies by its rows of ``w_down``;
+  the whole ``up`` each rank reads a part of is ``gather``ed (its grad
+  summed, then sliced).  Where the guard keeps the heads whole
+  (xlstm-125m's 4 on 16) the cell runs whole on every rank: ``up`` is
+  made ``whole`` (the grad: the rank's slice) and the rank's rows of the
+  gated output are ``split`` off for its rows of ``w_down``.  The
+  partial output is reduced over "model";
+* sLSTM: ``r_in`` is split on its heads, and each head's recurrence
+  reads only its own columns of the replicated ``w_in``, so where
+  "model" divides the heads each rank projects and runs its heads (its
+  slice of the caches) and the output is made ``whole``; the GeGLU FFN
+  is column- then row-parallel on "ffn" where "model" divides it.
 """
 
 from __future__ import annotations
@@ -29,7 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .base import P, mm, rms_norm
+from .base import P, mm, rms_norm, rms_norm_split
 
 __all__ = ["MLSTMCache", "SLSTMCache", "mlstm_specs", "mlstm_forward",
            "slstm_specs", "slstm_forward", "init_mlstm_cache",
@@ -131,20 +155,43 @@ def _mlstm_cell_chunked(q, k, v, i_gate, f_gate, chunk: int):
     return (num / den[..., None]).reshape(B, S, H, N)
 
 
+def _mlstm_up(params, x, tp, spec, per_head: bool):
+    """``x @ w_up``, whole on every rank (see the module doc)."""
+    if tp is None or not tp.splits(spec["w_up"], 1):
+        up = mm(x, params["w_up"])
+        return tp.copy(up) if per_head else up
+    up = mm(tp.copy(x), params["w_up"])
+    return tp.gather(up, tp.model, -1) if per_head else tp.whole(up, -1)
+
+
 def mlstm_forward(params, x, *, n_heads, cache: Optional[MLSTMCache] = None,
-                  chunk: int = 64):
+                  chunk: int = 64, tp=None, spec=None):
     """x: (B, S, D).  Without ``cache`` the chunked form (S padded to a
     chunk multiple); with it the recurrence.  Returns (out, new cache or
-    None), the new cache cast to the cache's dtypes."""
+    None), the new cache cast to the cache's dtypes.  ``tp`` / ``spec``:
+    the rank's shards (see the module doc)."""
     B, S, D = x.shape
-    up = mm(x, params["w_up"])
+    per_head = (tp is not None and tp.model.size > 1
+                and n_heads % tp.model.size == 0)
+    up = _mlstm_up(params, x, tp, spec, per_head)
     xi, gate = torch.chunk(up, 2, dim=-1)
     d_inner = xi.shape[-1]
     N = d_inner // n_heads
-    qkv = mm(xi, params["w_qkv"])
+    w_qkv, w_if = params["w_qkv"], params["w_if"]
+    if per_head:   # this rank's heads: its columns of q, k, v and i, f
+        n_heads //= tp.model.size
+        lo, w = tp.model.rank * n_heads * N, n_heads * N
+        w_qkv, w_if = tp.copy(w_qkv), tp.copy(w_if)
+        w_qkv = torch.cat([w_qkv.narrow(1, j * d_inner + lo, w)
+                           for j in range(3)], dim=1)
+        w_if = w_if.narrow(1, 2 * tp.model.rank * n_heads, 2 * n_heads)
+        if cache is not None and cache.m.shape[1] != n_heads:
+            raise ValueError(f"an mLSTM cache of {cache.m.shape[1]} heads "
+                             f"for a rank of {n_heads}")
+    qkv = mm(xi, w_qkv)
     q, k, v = (t.reshape(B, S, n_heads, N)
                for t in torch.chunk(qkv, 3, dim=-1))
-    gates = mm(xi, params["w_if"]).float()
+    gates = mm(xi, w_if).float()
     # i and f interleave per head: (..., H, 2), index 0 and index 1
     gates = gates.reshape(B, S, n_heads, 2)
     i_gate, f_gate = gates[..., 0], gates[..., 1]
@@ -191,9 +238,20 @@ def mlstm_forward(params, x, *, n_heads, cache: Optional[MLSTMCache] = None,
         new_cache = MLSTMCache(c=c.to(cache.c.dtype), n=n.to(cache.n.dtype),
                                m=m.to(cache.m.dtype))
 
-    h = h.reshape(B, S, d_inner).to(x.dtype)
+    h = h.reshape(B, S, n_heads * N).to(x.dtype)
+    w_down = params["w_down"]
+    down_split = tp is not None and tp.splits(spec["w_down"], 0)
+    if per_head:   # the rank's rows of d_inner
+        rows = (lo, w)
+        h = rms_norm_split(h, tp.copy(params["norm_w"]).narrow(0, *rows),
+                           tp, d_inner) * F.silu(gate.narrow(-1, *rows))
+        if not down_split:
+            w_down = tp.copy(w_down).narrow(0, *rows)
+        return tp.reduce(mm(h, w_down)), new_cache
     h = rms_norm(h, params["norm_w"]) * F.silu(gate)
-    return mm(h, params["w_down"]), new_cache
+    if down_split:
+        return tp.reduce(mm(tp.split(h, -1), w_down)), new_cache
+    return mm(h, w_down), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -214,12 +272,26 @@ def slstm_specs(d_model: int, n_heads: int):
     }
 
 
-def slstm_forward(params, x, *, n_heads, cache: Optional[SLSTMCache] = None):
+def slstm_forward(params, x, *, n_heads, cache: Optional[SLSTMCache] = None,
+                  tp=None, spec=None):
     """Sequential sLSTM with recurrent weights + post FFN.  x: (B,S,D).
-    Without ``cache`` the state starts at c = h = m = 0, n = 1."""
+    Without ``cache`` the state starts at c = h = m = 0, n = 1.  ``tp`` /
+    ``spec``: the rank's shards (see the module doc)."""
     B, S, D = x.shape
     N = D // n_heads
-    zifo = mm(x, params["w_in"]).reshape(B, S, n_heads, 4 * N)
+    per_head = tp is not None and tp.splits(spec["r_in"], 0)
+    w_in = params["w_in"]
+    if per_head:   # this rank's heads' columns of the input projection
+        n_heads = params["r_in"].shape[0]
+        x_in = tp.copy(x)
+        w_in = tp.copy(w_in).narrow(1, tp.model.rank * n_heads * 4 * N,
+                                    n_heads * 4 * N)
+        if cache is not None and cache.c.shape[1] != n_heads:
+            raise ValueError(f"an sLSTM cache of {cache.c.shape[1]} heads "
+                             f"for a rank of {n_heads}")
+    else:
+        x_in = x
+    zifo = mm(x_in, w_in).reshape(B, S, n_heads, 4 * N)
 
     if cache is None:
         def z():
@@ -248,11 +320,18 @@ def slstm_forward(params, x, *, n_heads, cache: Optional[SLSTMCache] = None):
         h = o * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    out_h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    out_h = torch.stack(hs, dim=1).reshape(B, S, n_heads * N).to(x.dtype)
+    if per_head:
+        out_h = tp.whole(out_h, -1)
     out_h = rms_norm(out_h, params["norm_w"])
+    ffn_split = tp is not None and tp.splits(spec["w_ff_gate"], 1)
+    if ffn_split:
+        out_h = tp.copy(out_h)
     ff = (F.gelu(mm(out_h, params["w_ff_gate"]), approximate="tanh")
           * mm(out_h, params["w_ff_up"]))
     out = mm(ff, params["w_ff_down"])
+    if ffn_split:
+        out = tp.reduce(out)
     new_cache = None
     if cache is not None:
         new_cache = SLSTMCache(c=c.to(cache.c.dtype), n=n.to(cache.n.dtype),

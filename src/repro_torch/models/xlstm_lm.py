@@ -6,6 +6,12 @@ The counterpart of ``repro.models.xlstm_lm``.  The caches are a dict
 keyed ``b{i}``; a decode step puts each block's new cache into the
 dict it was given (updated in place, where the reference returns a new
 dict) and returns it.
+
+Under a ``dist.partitioning.TensorParallel`` hook (``constrain.tp``)
+the params are each rank's shards: the vocab-parallel embedding, logits
+and cross-entropy of ``lm.py``, and each block on its shards
+(``xlstm.py``'s module doc), its FSDP leaves gathered over "data" at
+use; the caches are the rank's heads where "model" divides them.
 """
 
 from __future__ import annotations
@@ -13,8 +19,8 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
-from .base import P, padded_vocab, rms_norm, softmax_xent
-from .lm import _identity, logits_fn
+from .base import P, padded_vocab, rms_norm
+from .lm import _embed, _identity, leaf, logits_fn, xent
 from .xlstm import (
     MLSTMCache,
     SLSTMCache,
@@ -50,26 +56,31 @@ def param_specs(cfg):
 def forward(params, tokens, cfg, constrain=None, *, caches=None):
     """Returns (hidden, caches or None); see the module doc."""
     constrain = constrain or _identity
-    x = params["embed"][tokens]
+    tp = getattr(constrain, "tp", None)
+    x = _embed(params, tokens, tp)
     x = constrain(x, ("batch", None, "embed"))
     for i, kind in enumerate(block_kinds(cfg)):
-        bp = params["blocks"][f"b{i}"]
+        bp, kw = params["blocks"][f"b{i}"], {}
+        if tp is not None:
+            spec = tp.specs["blocks"][f"b{i}"]
+            bp = tp.gather_fsdp(bp, spec)
+            kw = {"tp": tp, "spec": spec["cell"]}
         h = rms_norm(x, bp["ln"])
         cache = None if caches is None else caches[f"b{i}"]
         cell = mlstm_forward if kind == "mlstm" else slstm_forward
-        o, nc = cell(bp["cell"], h, n_heads=cfg.n_heads, cache=cache)
+        o, nc = cell(bp["cell"], h, n_heads=cfg.n_heads, cache=cache, **kw)
         x = constrain(x + o, ("batch", None, "embed"))
         if nc is not None:
             caches[f"b{i}"] = nc
-    return rms_norm(x, params["ln_f"]), caches
+    return rms_norm(x, leaf(params, "ln_f", tp)), caches
 
 
 def loss_fn(params, batch, cfg, constrain=None):
     """Next-token CE, differentiable by autograd (no remat: the
     reference's xLSTM has none)."""
     hidden, _ = forward(params, batch["tokens"], cfg, constrain)
-    logits = logits_fn(params, hidden, cfg, constrain)
-    return softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return xent(logits_fn(params, hidden, cfg, constrain), batch, cfg,
+                constrain)
 
 
 def decode_step(params, tokens, caches, cache_index, cfg, constrain=None):

@@ -17,6 +17,17 @@ conv window has the promoted dtype of the cache and the activations
 (``ssm._causal_conv``), so f32 params over a bf16 cache turn the
 stacked conv cache f32 after the first step; the port promotes the
 stacked tensor once, then writes into it.
+
+Under a ``dist.partitioning.TensorParallel`` hook (``constrain.tp``)
+the params are each rank's shards: the vocab-parallel embedding, logits
+and cross-entropy of ``lm.py``; each Mamba-2 layer on the rank's SSM
+heads where "model" divides them (``ssm.py``'s module doc; its decode
+state is the rank's heads, the conv cache whole); the shared block's
+attention on the rank's heads and its MLP on the rank's "ffn" columns,
+each reduced over "model", with the replicated ``w_proj`` whole on the
+reduced (whole) attention output.  The shared block's params serve every
+application, so autograd adds their grads across uses.  FSDP leaves are
+gathered over "data" at use, a layer (or an application) at a time.
 """
 
 from __future__ import annotations
@@ -24,21 +35,20 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..dist.partitioning import layer_specs as _layer_spec_tree
 from .base import (
     P,
     attention_specs,
-    gqa_attention,
     layer_list,
     layer_slice,
-    mlp,
     mlp_specs,
     mm,
     padded_vocab,
     remat,
     rms_norm,
-    softmax_xent,
 )
-from .lm import _identity, _stack_specs, logits_fn
+from .lm import (_embed, _identity, _stack_specs, leaf, logits_fn,
+                 tp_attention, tp_mlp, xent)
 from .ssm import SSMCache, mamba2_forward, mamba2_specs
 
 
@@ -75,14 +85,18 @@ def param_specs(cfg):
 def _shared_block(params, x, x0, positions, cfg, constrain,
                   kv_cache=None, cache_index=None):
     """Shared attention over [x ; x0] -> project back to d_model."""
-    sp = params["shared_attn"]
+    tp = getattr(constrain, "tp", None)
+    sp, spec = params["shared_attn"], None
+    if tp is not None:
+        spec = tp.specs["shared_attn"]
+        sp = tp.gather_fsdp(sp, spec)
     cat = torch.cat([x, x0], dim=-1)
-    a, new_kv = gqa_attention(sp["attn"], rms_norm(cat, sp["ln_attn"]),
-                              positions, causal=True,
-                              rope_theta=cfg.rope_theta,
-                              kv_cache=kv_cache, cache_index=cache_index)
+    a, new_kv = tp_attention(sp["attn"], rms_norm(cat, sp["ln_attn"]),
+                             positions, tp, spec and spec["attn"],
+                             causal=True, rope_theta=cfg.rope_theta,
+                             kv_cache=kv_cache, cache_index=cache_index)
     x = constrain(x + mm(a, sp["w_proj"]), ("batch", None, "embed"))
-    h = mlp(sp["mlp"], rms_norm(x, sp["ln_mlp"]))
+    h = tp_mlp(sp["mlp"], rms_norm(x, sp["ln_mlp"]), tp, spec and spec["mlp"])
     return constrain(x + h, ("batch", None, "embed")), new_kv
 
 
@@ -101,7 +115,8 @@ def forward(params, tokens, cfg, constrain=None, *, caches=None,
     Returns (hidden, caches or None).
     """
     constrain = constrain or _identity
-    x = params["embed"][tokens]
+    tp = getattr(constrain, "tp", None)
+    x = _embed(params, tokens, tp)
     x = constrain(x, ("batch", None, "embed"))
     x0 = x
     B, S = x.shape[0], x.shape[1]
@@ -114,10 +129,18 @@ def forward(params, tokens, cfg, constrain=None, *, caches=None,
     if caches is not None:
         conv, state = caches["ssm"].conv, caches["ssm"].state
 
+    heads_tp = spec = None
+    if tp is not None:
+        spec = _layer_spec_tree(tp.specs["mamba_layers"])
+        if tp.splits(spec["ssm"]["A_log"], 0):
+            heads_tp = tp
+
     def mamba_body(lp, h, cache=None):
+        if tp is not None:
+            lp = tp.gather_fsdp(lp, spec)
         o, nc = mamba2_forward(
             lp["ssm"], rms_norm(h, lp["ln"]), n_heads=n_heads,
-            head_dim=head_dim, d_state=d_state, cache=cache)
+            head_dim=head_dim, d_state=d_state, cache=cache, tp=heads_tp)
         return constrain(h + o, ("batch", None, "embed")), nc
 
     if caches is None:   # training: remat over per-layer views
@@ -142,7 +165,7 @@ def forward(params, tokens, cfg, constrain=None, *, caches=None,
                 params, x, x0, positions, cfg, constrain,
                 kv_cache=kvc, cache_index=cache_index)
             app += 1
-    hidden = rms_norm(x, params["ln_f"])
+    hidden = rms_norm(x, leaf(params, "ln_f", tp))
     if caches is None:
         return hidden, None
     return hidden, {"ssm": SSMCache(conv=conv, state=state),
@@ -152,8 +175,8 @@ def forward(params, tokens, cfg, constrain=None, *, caches=None,
 def loss_fn(params, batch, cfg, constrain=None):
     """Next-token CE, differentiable by autograd."""
     hidden, _ = forward(params, batch["tokens"], cfg, constrain)
-    logits = logits_fn(params, hidden, cfg, constrain)
-    return softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return xent(logits_fn(params, hidden, cfg, constrain), batch, cfg,
+                constrain)
 
 
 def decode_step(params, tokens, caches, cache_index, cfg, constrain=None):

@@ -45,8 +45,9 @@ sharded over that mesh, and runs one of two designs (``design``):
   (``optim.FACTORED_SLOTS``: Adafactor's ``vr`` / ``vc``) by its param's
   spec less the dim it drops, as the reference's dry run places them;
   the step count is whole on every rank.
-* **"tensor-parallel"** (a model with ``tensor_parallel``, the LM
-  family): the model runs on each rank's shards under a
+* **"tensor-parallel"** (a model with ``tensor_parallel``: every
+  family, each on its own shards as its module doc says): the model
+  runs on each rank's shards under a
   ``dist.partitioning.TensorParallel`` hook, as GSPMD runs the
   reference's step.  No param is gathered whole: "model"-sharded leaves
   stay sharded, FSDP leaves are gathered over "data" a layer at a time
@@ -59,9 +60,10 @@ sharded over that mesh, and runs one of two designs (``design``):
   are reduced over the ranks the leaf (or the averaged dim) is split
   over, and the global norm sums each leaf's squares once: over the
   axes it is split over, and not over those it is replicated on.
-* **"gather-at-use"** (the other families): a step gathers the params
-  whole (``full_tensor``: ZeRO-3's gather at use) for the loss and
-  grads; the leaf-at-a-time compression and optimizer run on that
+* **"gather-at-use"** (a model whose ``tensor_parallel`` the caller
+  has turned off, the FLOP-ratio tests' baseline): a step gathers the
+  params whole (``full_tensor``: ZeRO-3's gather at use) for the loss
+  and grads; the leaf-at-a-time compression and optimizer run on that
   leaf's state gathered whole, and each rank keeps its shard of what
   they write.  The grads and the loss are summed over the whole group.
 * The loader gives each rank its rows of the batch (``ShardedLoader(

@@ -264,7 +264,7 @@ def test_cli_counts_a_cell_on_both_meshes(tmp_path):
         assert cell["bytes_per_device"] > 0
         assert cell["collective_ops"] >= 0
         assert "collectives" in cell
-        assert cell["design"] == "gather-at-use"
+        assert cell["design"] == "tensor-parallel"
         assert cell["fits"] is True
         assert cell["peak_bytes"] == (cell["argument_size_in_bytes"]
                                       + cell["temp_size_in_bytes"])

@@ -4,14 +4,16 @@
 * The reference's ``dryrun.build_step`` for reduced internlm2-1.8b
   train (8 x 128 tokens), jitted over an 8-device CPU mesh with Auto
   axes (a subprocess with ``XLA_FLAGS=--xla_force_host_platform_
-  device_count=8``), (8, 1) and (2, 4) data x model: its
-  ``cost_analysis()`` FLOPs a device rise 1.115 times from (8, 1) to
-  (2, 4), where a (2, 4) rank holds 4 rows to the (8, 1) rank's 1: the
-  reference splits the work over "model".  The port's count of the same
-  step in a ``fake`` group of 8 rises by a ratio within
-  ``RATIO_RTOL`` = 10% of the reference's.  XLA counts elementwise
-  FLOPs that ``FlopCounterMode`` does not, so the ratios are compared,
-  not the counts.  The same step under gather-at-use (the model's
+  device_count=8``), (8, 1) and (2, 4) data x model: the FLOPs of its
+  products a device (``hlo_dots.dot_flops``: every ``dot`` of its
+  partitioned HLO, a loop body times its trip count) rise 1.067 times
+  from (8, 1) to (2, 4), where a (2, 4) rank holds 4 rows to the (8, 1)
+  rank's 1: the reference splits the work over "model".  The port's
+  ``FlopCounterMode`` count of the same step in a ``fake`` group of 8
+  (the products too, every iteration) rises by a ratio within
+  ``RATIO_RTOL`` = 10% of the reference's.  ``cost_analysis()``'s ratio
+  (1.115: it adds elementwise work and counts a loop body once) is
+  printed beside it.  The same step under gather-at-use (the model's
   ``tensor_parallel`` off) rises about 4 times.
 * No LM-family step (train, prefill, decode; dense with FSDP, and the
   MoE both ways) calls ``full_tensor`` or ``redistribute`` on a DTensor
@@ -35,8 +37,10 @@ RATIO_RTOL = 0.10
 GATHER_AT_USE_TFLOP = 1024.6     # the gather-at-use count (PERF.md §6)
 
 REFERENCE = r"""
-import os, json
+import os, json, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+sys.path.insert(0, "tests")
+from hlo_dots import dot_flops
 import jax
 jax.devices()
 from jax.sharding import AxisType
@@ -51,9 +55,11 @@ for ms in ((8, 1), (2, 4)):
     mesh = jax.make_mesh(ms, ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
     fn, args = dr.build_step(model, shape, mesh)
-    ca = fn.lower(*args).compile().cost_analysis()
+    compiled = fn.lower(*args).compile()
+    ca = compiled.cost_analysis()
     ca = ca[0] if isinstance(ca, list) else ca
-    out["x".join(map(str, ms))] = ca["flops"]
+    out["x".join(map(str, ms))] = {"cost": ca["flops"],
+                                   "dots": dot_flops(compiled.as_text())}
 print(json.dumps(out))
 """
 
@@ -157,11 +163,13 @@ def _env():
 def test_flop_ratio_over_model_matches_the_references_compiled_ratio():
     ref = _run(REFERENCE, _env())
     port = _run(PORT, _env())
-    ref_ratio = ref["2x4"] / ref["8x1"]
+    ref_ratio = ref["2x4"]["dots"] / ref["8x1"]["dots"]
+    cost_ratio = ref["2x4"]["cost"] / ref["8x1"]["cost"]
     tp_ratio = port["tensor-parallel:2x4"] / port["tensor-parallel:8x1"]
     gau_ratio = port["gather-at-use:2x4"] / port["gather-at-use:8x1"]
     print(json.dumps({"reference": ref, "port": port,
-                      "reference_ratio": ref_ratio,
+                      "reference_dot_ratio": ref_ratio,
+                      "reference_cost_ratio": cost_ratio,
                       "tensor_parallel_ratio": tp_ratio,
                       "gather_at_use_ratio": gau_ratio}))
     assert abs(tp_ratio / ref_ratio - 1) <= RATIO_RTOL

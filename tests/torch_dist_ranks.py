@@ -151,14 +151,30 @@ def _reduced(arch, **kw):
 
 def _batch(rng, cfg, rows, seq):
     """tokens, labels and a mask with about a fifth of its tokens off,
-    unevenly over the rows (so ranks count different tokens)."""
+    unevenly over the rows (so ranks count different tokens); the
+    stub frontend's embeddings (standard normal, f32) for an enc-dec's
+    frames or a VLM's patches."""
     mask = (rng.random((rows, seq)) > 0.2 * (1 + np.arange(rows)[:, None]
                                             / rows)).astype(np.float32)
-    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (rows, seq))
-                                       ).to(DEVICE),
-            "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (rows, seq))
-                                       ).to(DEVICE),
-            "mask": torch.from_numpy(mask).to(DEVICE)}
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (rows, seq))
+                                      ).to(DEVICE),
+           "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (rows, seq))
+                                      ).to(DEVICE),
+           "mask": torch.from_numpy(mask).to(DEVICE)}
+    out.update(_frontend(rng, cfg, rows))
+    return out
+
+
+def _frontend(rng, cfg, rows):
+    """``{"frames"}`` (enc-dec) or ``{"patches"}`` (VLM) of ``rows``
+    rows, else nothing."""
+    width = {"encdec": ("frames", cfg.d_model),
+             "vlm": ("patches", cfg.d_frontend)}.get(cfg.arch)
+    if width is None:
+        return {}
+    name, d = width
+    return {name: torch.from_numpy(rng.standard_normal(
+        (rows, cfg.n_frontend_tokens, d)).astype(np.float32)).to(DEVICE)}
 
 
 def _rows(batch, shard_id, n_shards):
@@ -519,17 +535,44 @@ TP_CELLS = {
     "kv_index": ("internlm2-1.8b", {"n_heads": 12, "n_kv": 3,
                                     "head_dim": 8}),
 }
-# full width at 2 layers, for four cards over ``nccl``
-TP_FULL_CELLS = {"internlm2_full2": "internlm2-1.8b", "yi_full2": "yi-9b"}
-TP_MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
+# the other four families (tests/test_torch_tp_families.py), reduced.
+# xlstm: 8 blocks (block 7 is the sLSTM) at d_model 96, so the sLSTM's
+# GeGLU FFN (4/3 of it, 128) splits over "model" too; "_fsdp": FSDP on
+# (the per-layer gathers over "data"); "whisper_guard": 6 heads and 6 KV
+# heads, whole on a "model" axis of 4, as whisper-base's 8 are on 16;
+# "xlstm_guard": 3 heads, whole on 4 as xlstm-125m's 4 are on 16 (the
+# mLSTM cell whole between its split up- and down-projections)
+TP_FAMILY_CELLS = {
+    "internvl2": ("internvl2-2b", {}),
+    "whisper": ("whisper-base", {}),
+    "zamba": ("zamba2-1.2b", {}),
+    "zamba_fsdp": ("zamba2-1.2b", {"fsdp": True}),
+    "xlstm": ("xlstm-125m", {"n_layers": 8, "d_model": 96}),
+    "xlstm_fsdp": ("xlstm-125m", {"n_layers": 8, "d_model": 96,
+                                  "fsdp": True}),
+    "whisper_guard": ("whisper-base", {"n_heads": 6, "n_kv": 6}),
+    "xlstm_guard": ("xlstm-125m", {"n_layers": 8, "d_model": 96,
+                                   "n_heads": 3}),
+}
+# full width at 2 layers (whisper 2 + 2, zamba 6: one shared block,
+# xlstm 8: one sLSTM), for four cards over ``nccl``
+TP_FULL_CELLS = {"internlm2_full2": ("internlm2-1.8b", 2),
+                 "yi_full2": ("yi-9b", 2),
+                 "internvl2_full": ("internvl2-2b", 2),
+                 "whisper_full": ("whisper-base", 2),
+                 "zamba_full": ("zamba2-1.2b", 6),
+                 "xlstm_full": ("xlstm-125m", 8)}
+TP_MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1)}
 
 
 def tp_config(cell):
     if cell in TP_FULL_CELLS:
         from repro_torch.configs import ARCHS
-        return dataclasses.replace(ARCHS[TP_FULL_CELLS[cell]], n_layers=2,
-                                   remat="full")
-    arch, kw = TP_CELLS[cell]
+        arch, layers = TP_FULL_CELLS[cell]
+        kw = {"n_enc_layers": layers} if ARCHS[arch].n_enc_layers else {}
+        return dataclasses.replace(ARCHS[arch], n_layers=layers,
+                                   remat="full", **kw)
+    arch, kw = {**TP_CELLS, **TP_FAMILY_CELLS}[cell]
     cfg = _reduced(arch, remat="full", **kw)
     if cfg.moe is not None:   # no token dropped (see test_torch_dist.py)
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -575,14 +618,22 @@ def tp_training(rank, world, tmp, cell, mesh_name):
     their own scale (a skipped update misses by 2 lr, over 1e-3 of it),
     not on their change's.  Adafactor's bf16 momentum and the factored
     moments it divides by are held at ``ADAFACTOR_UPDATE_RTOL`` (see
-    ``_adafactor_step``)."""
+    ``_adafactor_step``).  ``grad_ulp_spread`` / ``step_ulp_spread``:
+    how far one process's own grads (on each leaf's scale) and two
+    steps' losses and gnorms move when its f32 params move by one ulp
+    (the bound for a model that sensitive); ``state_ulp_spread`` the
+    same of each state leaf's shard, and ``state_excess`` the largest
+    ratio of a leaf's error to ``max(1e-4, 2 x`` its own spread``)``,
+    with its leaf, error and spread on rank 0 (``state_worst_rank0``):
+    a leaf whose AdamW sign moves the rounding decides has a spread of
+    its error's size, any other leaf one below 1e-4."""
     from torch.distributed.tensor import DTensor
     from chip_smoke import conditioned
     from repro_torch.dist import activation_constrainer
     from repro_torch.dist.partitioning import batch_shard, local_shard
     from repro_torch.models import build_model
     from repro_torch.train import TrainConfig, Trainer
-    from repro_torch.tree import leaf_paths, tree_map
+    from repro_torch.tree import leaf_paths, leaves, tree_map
     cfg = tp_config(cell)
     model = build_model(cfg)
     mesh = _mesh(TP_MESHES[mesh_name])
@@ -604,19 +655,35 @@ def tp_training(rank, world, tmp, cell, mesh_name):
                      s2["params"])
     l2, g2 = sh.loss_and_grads(local, _rows(batches[0], sid, n_shards))
     loss_err = abs(float(l2) - float(l1)) / abs(float(l1))
-    grad_err = max(_shard_err(b, a, sh._shardings[path])
-                   for (path, a), (_, b) in zip(leaf_paths(g1),
-                                                leaf_paths(g2)))
+    grad_err, worst = max(
+        (_shard_err(b, a, sh._shardings[path]), path)
+        for (path, a), (_, b) in zip(leaf_paths(g1), leaf_paths(g2)))
+    # the one process again from params moved by one ulp (relative
+    # 2^-23 normal noise): how far its own grads and steps move
+    g = torch.Generator(device="cpu").manual_seed(100)
+    p0 = tree_map(lambda t: t * (1 + 2.0 ** -23 * torch.randn(
+        t.shape, generator=g).to(t.device)), clone(params))
+    _, g0 = one.loss_and_grads(clone(p0), batches[0])
+    grad_spread = max(rel_max(b, a) for a, b in zip(leaves(g1),
+                                                     leaves(g0)))
+    del g0
+    s0 = _f32_state(model, p0)
     steps = []
     for b in batches[1:]:
         m1 = one.train_step(s1, b)
         m2 = sh.train_step(s2, _rows(b, sid, n_shards))
+        m0 = one.train_step(s0, b)
         steps.append((float(m1["loss"]), float(m2["loss"]),
-                      float(m1["gnorm"]), float(m2["gnorm"])))
-    step_err = max(abs(b - a) / abs(a) for a, b, _, _ in steps)
-    gnorm_err = max(abs(d - c) / abs(c) for _, _, c, d in steps)
-    state_err, loose_err = 0.0, 0.0
-    for (path, a), (_, b) in zip(leaf_paths(s1), leaf_paths(s2)):
+                      float(m1["gnorm"]), float(m2["gnorm"]),
+                      float(m0["loss"]), float(m0["gnorm"])))
+    step_err = max(abs(b - a) / abs(a) for a, b, *_ in steps)
+    gnorm_err = max(abs(d - c) / abs(c) for _, _, c, d, *_ in steps)
+    spread = max(max(abs(e - a) / abs(a), abs(f - c) / abs(c))
+                 for a, _, c, _, e, f in steps)
+    state_err, loose_err, state_spread = 0.0, 0.0, 0.0
+    excess = (0.0, None, 0.0, 0.0)
+    for (path, a), (_, b), (_, c) in zip(leaf_paths(s1), leaf_paths(s2),
+                                         leaf_paths(s0)):
         if not isinstance(b, DTensor):   # the step count
             assert torch.equal(a, b), path
             continue
@@ -627,10 +694,18 @@ def tp_training(rank, world, tmp, cell, mesh_name):
             loose_err = max(loose_err, err)
         else:
             state_err = max(state_err, err)
+            own = _shard_err(_cut(c.float(), b), a.float(), b)
+            state_spread = max(state_spread, own)
+            excess = max(excess, (err / max(1e-4, 2 * own),
+                                  "/".join(map(str, path)), err, own))
     out = {"loss_rel_err": loss_err, "grad_max_rel_err": grad_err,
            "step_loss_rel_err": step_err, "gnorm_rel_err": gnorm_err,
-           "state_max_rel_err": state_err, "adafactor_rel_err": loose_err}
-    return {k: _max_over_ranks(v) for k, v in out.items()}
+           "state_max_rel_err": state_err, "adafactor_rel_err": loose_err,
+           "grad_ulp_spread": grad_spread, "step_ulp_spread": spread,
+           "state_ulp_spread": state_spread, "state_excess": excess[0]}
+    return {**{k: _max_over_ranks(v) for k, v in out.items()},
+            "grad_worst_leaf_rank0": "/".join(map(str, worst)),
+            "state_worst_rank0": excess[1:]}
 
 
 def _shard_like(trainer, path):
@@ -653,19 +728,49 @@ def _shard_like(trainer, path):
     return trainer._shardings[rest]
 
 
-def tp_decode(rank, world, tmp, cell, mesh_name):
-    """Prefill of 32 x 16 tokens and two decode steps under the
-    tensor-parallel hook, on the rank's params, rows and cache shards
-    (``launch.dryrun._cache_shardings``): each rank's logits columns
-    and cache shards against one process's within 1e-4 of their
-    scale (32 rows: ``_cache_shardings`` splits a cache of fewer than
-    32 rows on its sequence, the reference's long-context rule)."""
+def _serve(model, params, batch, cache, steps, tp=None):
+    """A prefill of ``batch`` and a decode step a token of ``steps``
+    (each ``(B, 1)``): ``[(logits or loss, cache)]``.  The enc-dec has
+    no prefill: its first entry is the dry run's (the loss with labels
+    = tokens; the caches are drawn); the recurrent families' prefill is
+    the prompt through ``decode_fn`` at index 0."""
+    cfg = model.cfg
+    S = batch["tokens"].shape[1]
+    if model.prefill_fn is not None:
+        out = [model.prefill_fn(params, batch, cache, tp)]
+        start = S + (cfg.n_frontend_tokens if cfg.arch == "vlm" else 0)
+    elif cfg.arch == "encdec":
+        loss = model.loss_fn(params, {**batch, "labels": batch["tokens"]},
+                             tp)
+        out, start = [(loss[None], cache)], S
+    else:
+        out = [model.decode_fn(params, batch, cache, 0, tp)]
+        start = S
+    for i, t in enumerate(steps):
+        out.append(model.decode_fn(params, {"tokens": t}, out[-1][1],
+                                   start + i, tp))
+    return out
+
+
+def tp_decode(rank, world, tmp, cell, mesh_name, n_rows=32):
+    """``_serve`` of ``n_rows`` x 16 tokens (and the frontend's rows)
+    under the tensor-parallel hook on the rank's params, rows and cache
+    shards (``launch.dryrun._cache_shardings``) against one process's:
+    each rank's logits columns (the enc-dec's loss) and its cache shards
+    within 1e-4 of their scale.  At 32 rows the caches split by rows
+    and heads; ``_cache_shardings`` splits a KV cache of fewer rows on
+    its sequence over the batch axes (the reference's long-context
+    rule), and the hook's ``kv_seq`` then attends over each rank's
+    positions (``tp_long_decode``: one row, as long_500k).  The
+    enc-dec's caches are drawn standard normal (its cross-KV as an
+    encoder would have written it)."""
     from chip_smoke import conditioned
     from repro_torch.configs import ShapeConfig
-    from repro_torch.dist.partitioning import (TensorParallel, batch_shard,
-                                               input_shardings, param_shardings,
-                                               place)
-    from repro_torch.launch.dryrun import _cache_shardings
+    from repro_torch.dist.partitioning import (TensorParallel,
+                                               input_shardings,
+                                               param_shardings, place)
+    from repro_torch.launch.dryrun import (_cache_len, _cache_shardings,
+                                           _kv_seq)
     from repro_torch.models import build_model
     from repro_torch.tree import leaves, tree_map
     cfg = tp_config(cell)
@@ -674,48 +779,71 @@ def tp_decode(rank, world, tmp, cell, mesh_name):
     params = conditioned(_draw(model, 0))
     pshard = param_shardings(model.logical_axes(), mesh, fsdp=cfg.fsdp,
                              abstract_tree=model.abstract_params())
-    tp = TensorParallel(mesh, tree_map(lambda s: s.spec, pshard))
     local = tree_map(lambda t, s: place(t, mesh, s.placements).to_local(),
                      params, pshard)
     rng = np.random.default_rng(3)
-    B, S, T = 32, 16, 24
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(DEVICE)
+    B, S = n_rows, 16
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))
+                                        ).to(DEVICE),
+             **_frontend(rng, cfg, B)}
     steps = [torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1))).to(DEVICE)
              for _ in range(2)]
-    shape = ShapeConfig("decode_small", T, B, "decode")
-    whole = model.init_caches(B, T, device=DEVICE)
-    whole = tree_map(lambda t: t.float(), whole)
+    shape = ShapeConfig("decode_small", S + 8, B, "decode")
+    T = _cache_len(cfg, shape)
+    whole = tree_map(lambda t: t.float(),
+                     model.init_caches(B, T, device=DEVICE))
+    if cfg.arch == "encdec":
+        g = torch.Generator(device="cpu").manual_seed(5)
+        whole = tree_map(lambda t: torch.randn(t.shape, generator=g).to(
+            DEVICE), whole)
     cshard = _cache_shardings(whole, mesh, cfg, shape)
+    tp = TensorParallel(mesh, tree_map(lambda s: s.spec, pshard),
+                        _kv_seq(whole, cshard, mesh, shape))
     mine = tree_map(lambda t, s: place(t.clone(), mesh, s.placements
                                        ).to_local(), whole, cshard)
-    rows = input_shardings({"tokens": tokens}, mesh)["tokens"]
+    rows = input_shardings(batch, mesh)
 
-    def my_rows(t):
-        return place(t, mesh, rows.placements).to_local()
+    def my_rows(t, name="tokens"):
+        return place(t, mesh, rows[name].placements).to_local()
 
-    err = 0.0
-    vl = local["embed"].shape[0] if tp.splits(tp.specs["embed"], 0) \
-        else None
+    mine_batch = {k: my_rows(v, k) for k, v in batch.items()}
     with torch.no_grad():
-        outs = [model.prefill_fn(params, {"tokens": tokens}, whole)]
-        outs_tp = [model.prefill_fn(local, {"tokens": my_rows(tokens)},
-                                    mine, tp)]
-        for i, t in enumerate(steps):
-            outs.append(model.decode_fn(params, {"tokens": t}, outs[-1][1],
-                                        S + i))
-            outs_tp.append(model.decode_fn(local, {"tokens": my_rows(t)},
-                                           outs_tp[-1][1], S + i, tp))
-    sid, n = batch_shard(mesh)
-    for (lg, cache), (lg_tp, cache_tp) in zip(outs, outs_tp):
-        want = my_rows(lg)
-        if vl is not None:
-            lo = tp.model.rank * vl
-            want = want[:, lo:lo + vl]
-        err = max(err, float((lg_tp - want).abs().max())
-                  / float(lg.abs().max()))
+        if cfg.arch == "encdec":   # the one process's loss of my rows
+            out = _serve(model, params, mine_batch, whole, [], None)[:1]
+            rest = _serve(model, params, batch, whole, steps)[1:]
+            out = out + [(my_rows(lg), c) for lg, c in rest]
+        else:
+            out = [(my_rows(lg), c)
+                   for lg, c in _serve(model, params, batch, whole, steps)]
+        out_tp = _serve(model, local, mine_batch, mine,
+                        [my_rows(t) for t in steps], tp)
+    err, split_cols = 0.0, False
+    for (want, cache), (got, cache_tp) in zip(out, out_tp):
+        if got.shape[-1] != want.shape[-1]:   # the rank's vocab columns
+            split_cols = True
+            vl = got.shape[-1]
+            want = want[..., tp.model.rank * vl:(tp.model.rank + 1) * vl]
+        err = max(err, float((got - want).abs().max())
+                  / float(want.abs().max()))
         for a, b, s in zip(leaves(cache), leaves(cache_tp), leaves(cshard)):
             err = max(err, _shard_err(b, a, s))
-    return {"rel_err": _max_over_ranks(err)}
+    return {"rel_err": _max_over_ranks(err), "vocab_split": split_cols,
+            "kv_seq": [a.name for a in tp.kv_seq],
+            "cache_leaves_split": sum(
+                1 for t, s in zip(leaves(whole), leaves(mine))
+                if s.numel() < t.numel())}
+
+
+def tp_long_decode(rank, world, tmp, cell, mesh_name):
+    """``tp_decode`` of one row: the KV caches' sequence split over the
+    batch axes."""
+    return tp_decode(rank, world, tmp, cell, mesh_name, n_rows=1)
+
+
+def tp_case(rank, world, tmp, cell, mesh_name):
+    """``tp_training`` and ``tp_decode`` of one cell in one group."""
+    return {**tp_training(rank, world, tmp, cell, mesh_name),
+            **tp_decode(rank, world, tmp, cell, mesh_name)}
 
 
 def tp_one_rank(rank, world, tmp):
@@ -740,6 +868,43 @@ def tp_one_rank(rank, world, tmp):
         for hook in (None, activation_constrainer(mesh, fsdp=cfg.fsdp)):
             tr = Trainer(model, TrainConfig(
                 total_steps=2, warmup_steps=0, grad_compress=compress,
+                ckpt_dir=str(tmp / f"one_{cell}_{hook is None}")), None,
+                constrain=hook, device=DEVICE)
+            state = tr.init_state(0)
+            ms = [tr.train_step(state, b) for b in batches]
+            runs.append((tr, state, [(float(m["loss"]), float(m["gnorm"]))
+                                     for m in ms]))
+        (_, plain, m1), (tr, sharded, m2) = runs
+        assert tr.design == "tensor-parallel"
+        assert m1 == m2, (cell, m1, m2)
+        whole = {p: t.full_tensor() if isinstance(t, DTensor) else t
+                 for p, t in leaf_paths(sharded)}
+        for path, a in leaf_paths(plain):
+            assert torch.equal(a.detach(), whole[path].detach()), (cell, path)
+        out[cell] = {"steps": m1, "leaves": len(whole)}
+    return out
+
+
+def tp_families_one_rank(rank, world, tmp):
+    """``tp_one_rank`` for the four other families: reduced internvl2,
+    whisper, zamba and xlstm (8 blocks), two steps bf16 as drawn on a
+    1x1 mesh against the plain trainer, bit for bit."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist import activation_constrainer
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaf_paths
+    mesh = _mesh((1, 1))
+    out = {}
+    for cell in ("internvl2", "whisper", "zamba", "xlstm"):
+        cfg = tp_config(cell)
+        model = build_model(cfg)
+        rng = np.random.default_rng(4)
+        batches = [_batch(rng, cfg, 4, 16) for _ in range(2)]
+        runs = []
+        for hook in (None, activation_constrainer(mesh, fsdp=cfg.fsdp)):
+            tr = Trainer(model, TrainConfig(
+                total_steps=2, warmup_steps=0,
                 ckpt_dir=str(tmp / f"one_{cell}_{hook is None}")), None,
                 constrain=hook, device=DEVICE)
             state = tr.init_state(0)
@@ -829,13 +994,15 @@ def dryrun_ep(rank, world, tmp):
 RANKS = {"moe_ep": moe_ep, "sharded_training": sharded_training,
          "elastic_one": elastic_one, "moe_ep_training": moe_ep_training,
          "dryrun_dense": dryrun_dense, "dryrun_ep": dryrun_ep,
-         "tp_xent": tp_xent, "tp_one_rank": tp_one_rank}
-for _cell in (*TP_CELLS, *TP_FULL_CELLS):
+         "tp_xent": tp_xent, "tp_one_rank": tp_one_rank,
+         "tp_families_one_rank": tp_families_one_rank}
+for _cell in (*TP_CELLS, *TP_FAMILY_CELLS, *TP_FULL_CELLS):
     for _mesh_name in TP_MESHES:
-        RANKS[f"tp_training:{_cell}:{_mesh_name}"] = functools.partial(
-            tp_training, cell=_cell, mesh_name=_mesh_name)
-        RANKS[f"tp_decode:{_cell}:{_mesh_name}"] = functools.partial(
-            tp_decode, cell=_cell, mesh_name=_mesh_name)
+        for _name, _fn in (("tp_training", tp_training),
+                           ("tp_decode", tp_decode), ("tp_case", tp_case),
+                           ("tp_long_decode", tp_long_decode)):
+            RANKS[f"{_name}:{_cell}:{_mesh_name}"] = functools.partial(
+                _fn, cell=_cell, mesh_name=_mesh_name)
 
 
 if __name__ == "__main__":   # python tests/torch_dist_ranks.py NAME WORLD TMP
