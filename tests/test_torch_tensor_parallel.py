@@ -17,6 +17,18 @@ split over "model", FSDP leaves gathered over "data" a layer at a time.
   losses and gnorms within 1e-4, and every leaf of each rank's state
   (placed by its spec, Adafactor's factored moments by the spec less
   the dim each drops) against one process's state cut by that spec.
+* Each of the two steps again from a common state, the one process's
+  before it (``per_step``; ``_step_readings`` in torch_dist_ranks.py),
+  so that no difference of step 1 compounds into step 2: (a) the
+  mesh's grads assembled whole within 1e-4 of the one process's on
+  each leaf's scale; (b) the mesh's new state equal, bit for bit, to
+  the one process's optimizer applied to that state with the mesh's
+  grads and global norm (Adafactor's factored leaves, whose means
+  reduce over split dims in another order, within
+  ``ADAFACTOR_UPDATE_RTOL``); (c) every grad and state leaf, and the
+  norm, equal bit for bit on the ranks that replicate it; (d) every
+  component whose AdamW direction changes sign between the two updates
+  one the grads' difference decides.
 * Prefill and two decode steps on the rank's params, rows and cache
   shards: each rank's vocab columns of the logits and its cache shards
   within 1e-4 of one process's.
@@ -71,6 +83,13 @@ def test_tensor_parallel_training_equals_one_process(cell, mesh, tmp_path):
     assert out["gnorm_rel_err"] <= RTOL
     assert out["state_max_rel_err"] <= RTOL
     assert out["adafactor_rel_err"] <= ADAFACTOR_RTOL
+    assert len(out["per_step"]) == 2
+    for step in out["per_step"]:   # each step from the one process's state
+        assert step["grad_rel_err"] <= RTOL, step["grad_worst_rank0"]
+        assert step["update_mismatches"] == []
+        assert step["adafactor_update_rel_err"] <= ADAFACTOR_RTOL
+        assert step["replica_mismatches"] == []
+        assert step["flips_unexplained"] == 0, step["flips_by_leaf_rank0"]
 
 
 DECODE_CASES = [("internlm2", "2x2"), ("granite_ep", "2x2"),

@@ -33,6 +33,16 @@ heads.
   families: the prompt through ``decode_fn``) on the rank's rows and
   cache shards, each rank's logits columns and cache shards within 1e-4
   of one process's.
+* Each of the two steps again from a common state, the one process's
+  before it (``per_step``, as in test_torch_tensor_parallel.py): (a)
+  each leaf of the mesh's grads, assembled whole, within 1e-4 of the
+  one process's on its scale, or within twice that one process's own
+  spread of it when that is larger (the largest of three draws of
+  one-ulp param changes: internvl2's projector grads, at 1.6e-4-5.1e-4,
+  move 1.5e-4-5.0e-4 on their own); (b) the mesh's new state bit for
+  bit the one process's optimizer applied to that state with the mesh's
+  grads and norm; (c) replicas bit for bit; (d) every AdamW sign move
+  one the grads' difference decides (the xLSTM's).
 * zamba's one-row decode (as long_500k) on (2, 2) and (4, 1): the
   long-context rule splits the shared block's KV cache on its sequence
   over "data", and each rank attends over its own positions (the hook's
@@ -87,6 +97,13 @@ def test_family_trains_and_serves_as_one_process(cell, mesh, tmp_path):
     assert out["step_loss_rel_err"] <= step_tol
     assert out["gnorm_rel_err"] <= step_tol
     assert out["state_excess"] <= 1, out["state_worst_rank0"]
+    assert len(out["per_step"]) == 2
+    for step in out["per_step"]:   # each step from the one process's state
+        assert step["grad_excess"] <= 1, (step["grad_misses_rank0"],
+                                          step["grad_ulp_spread_rank0"])
+        assert step["update_mismatches"] == []
+        assert step["replica_mismatches"] == []
+        assert step["flips_unexplained"] == 0, step["flips_by_leaf_rank0"]
     assert out["rel_err"] <= RTOL
     assert out["vocab_split"]
     assert (out["cache_leaves_split"] == 0) == ((cell, mesh) in WHOLE_CACHES)

@@ -17,8 +17,10 @@ nonzero.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import inspect
 import json
 import os
 import sys
@@ -604,6 +606,300 @@ def _shard_err(local, whole, like):
         float(whole.abs().max()), 1e-30)
 
 
+@contextlib.contextmanager
+def _grads_of(trainer):
+    """Within: each ``trainer.loss_and_grads`` call's grads appended to
+    the yielded list (the optimizer reads them and writes nothing)."""
+    got, inner = [], trainer.loss_and_grads
+
+    def keep(params, batch):
+        loss, grads = inner(params, batch)
+        got.append(grads)
+        return loss, grads
+    trainer.loss_and_grads = keep
+    try:
+        yield got
+    finally:
+        trainer.loss_and_grads = inner
+
+
+def _bits(t):
+    """``t``'s bits as an int32 tensor (f32 as they are, bf16 widened)."""
+    t = t.detach().contiguous()
+    if t.element_size() == 2:
+        return t.view(torch.int16).to(torch.int32)
+    return t.view(torch.int32)
+
+
+def _replicas_differ(t, placements, mesh) -> bool:
+    """Whether the local ``t`` differs in any bit from a copy on another
+    rank of a mesh dim that ``placements`` replicate it over (each such
+    dim's elementwise max and min of the bits; every rank runs the same
+    collectives whatever it finds)."""
+    bits, differ = _bits(t), False
+    for i, pl in enumerate(placements):
+        if not pl.is_replicate() or mesh.size(i) == 1:
+            continue
+        hi, lo = bits.clone(), bits.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.get_group(i))
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.get_group(i))
+        differ |= not torch.equal(hi, lo)
+    return differ
+
+
+def _assemble(local, like, shape):
+    """The whole leaf of ``shape`` from each rank's ``local`` shard by
+    ``like``'s placements (a replicated dim keeps this rank's copy)."""
+    from torch.distributed.tensor import DTensor
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local.detach(), like.mesh, like.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride).full_tensor()
+
+
+def _on_all_ranks(items):
+    """The sorted union of every rank's ``items``."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, sorted(items))
+    return sorted(set().union(*map(set, out)))
+
+
+def _clip_scale(gnorm, clip_norm=1.0):
+    """The optimizers' clip factor for a global norm (their default
+    ``clip_norm``)."""
+    return torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+
+
+def _adamw_direction(m, v, step):
+    """AdamW's direction ``mh / (sqrt(vh) + eps)`` at ``step`` (the
+    step count after the update), with ``adamw_update``'s defaults."""
+    from repro_torch.optim.adamw import adamw_update
+    kw = {k: p.default for k, p in
+          inspect.signature(adamw_update).parameters.items()
+          if k in ("b1", "b2", "eps")}
+    mh = m / (1 - kw["b1"] ** step)
+    vh = v / (1 - kw["b2"] ** step)
+    return mh / (torch.sqrt(vh) + kw["eps"]), kw["b1"]
+
+
+def _sign_moves(A, B, G1, Gm, gnorm_1, gnorm_m):
+    """(d): ``B - A`` = U(S, Gm) - U(S, G1) read leaf by leaf.  In each
+    AdamW leaf, the components whose direction has another sign in the
+    two (``[count, max |G1| of them, max |Gm - G1|]``, both on the
+    leaf's grad scale), and how many of them are not the grads'
+    doing: a flip on a ``|G1|`` above the leaf's grad difference whose
+    new first moment (one process's) is also above the difference's
+    share of it, ``(1 - b1) max |s_m Gm - s_1 G1|`` (``s`` the clip
+    factors) plus one rounding of ``(1 - b1) s_1 |G1|``.  With ``S``'s
+    moments zero (step 1) a flip's ``|G1|`` is at most the difference;
+    at a later step a flip may also sit where the old moment cancels
+    the new grad's share."""
+    from repro_torch.tree import leaf_paths
+    step = int(B["opt"]["step"])
+    s1, sm = _clip_scale(gnorm_1), _clip_scale(gnorm_m)
+    by_leaf, unexplained, above = {}, 0, 0
+    g1s, gms = dict(leaf_paths(G1)), dict(leaf_paths(Gm))
+    vAs, mBs, vBs = (dict(leaf_paths(t)) for t in (
+        A["opt"]["v"], B["opt"]["m"], B["opt"]["v"]))
+    for path, mA in leaf_paths(A["opt"]["m"]):
+        vA, mB, vB = vAs[path], mBs[path], vBs[path]
+        dA, b1 = _adamw_direction(mA, vA, step)
+        dB, _ = _adamw_direction(mB, vB, step)
+        flips = torch.sign(dA) != torch.sign(dB)
+        n = int(flips.sum())
+        if not n:
+            continue
+        g1, gm = g1s[path].float(), gms[path].float()
+        scale = max(float(g1.abs().max()), 1e-30)
+        gdiff = float((gm - g1).abs().max())
+        share = (1 - b1) * float((sm * gm - s1 * g1).abs().max())
+        g_f = g1[flips].abs()
+        big = g_f > gdiff
+        loose = mA[flips].abs() > share + 2.0 ** -22 * (1 - b1) * float(
+            s1) * g_f
+        above += int(big.sum())
+        unexplained += int((big & loose).sum())
+        by_leaf["/".join(map(str, path))] = [n, float(g_f.max()) / scale,
+                                             gdiff / scale]
+    return by_leaf, above, unexplained
+
+
+def _step_readings(one, sh, S, A, G1, M, Gm_local, gnorm_1, gnorm_m,
+                   noise):
+    """The per-step check from a common state ``S`` (the one process's
+    state before the step, whole; consumed: it becomes U(S, Gm)).  ``A``
+    = U(S, G1) is the one process's state after its step on the whole
+    batch, ``G1`` its grads; ``M`` the mesh's state after its step from
+    ``shard_state(S)`` on its rows, ``Gm_local`` this rank's grad shards
+    and ``gnorm_m`` its global norm.
+
+    (a) ``grad_rel_err``: the mesh's grads assembled whole (``Gm``)
+    against ``G1``, leaf by leaf on the leaf's scale (``grad_misses``:
+    the leaves above ``RTOL``; for them ``noise(S's params, Gm,
+    names)`` gives ``grad_ulp_spread_rank0``, how far one process's own
+    grads of each move under one-ulp changes of the params, and
+    ``grad_row_split_rank0``, ``_row_split``'s reading); and
+    ``grad_excess``, the largest ratio of a leaf's error to ``max(RTOL,
+    2 x`` its one-ulp spread``)``, the rule ``state_excess`` holds the
+    state to.
+    (b) the one process's optimizer on ``S`` with ``Gm`` and the mesh's
+    ``gnorm``, U(S, Gm), cut by each leaf's placements, against the
+    rank's state: ``update_mismatches`` lists the leaves that differ in
+    any bit (AdamW's, Adafactor's unfactored leaves, the step count),
+    ``adafactor_update_rel_err`` the largest error of a factored param's
+    update on its change's scale and of its ``m`` / ``vr`` / ``vc`` on
+    their scale (their means reduce over split dims in another order).
+    (c) ``replica_mismatches``: the grads and state leaves (and the
+    global norm) that differ in any bit between two ranks holding the
+    same copy.
+    (d) ``_sign_moves`` of U(S, Gm) - U(S, G1) (AdamW), and
+    ``state_rel_err``, its largest leaf on the leaf's scale."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.optim import OPTIMIZERS
+    from repro_torch.tree import leaf_paths, unflatten
+    mesh = sh.mesh
+    ada = sh.model.cfg.optimizer == "adafactor"
+    # (a), and (c) of the grads
+    whole, grad_err, worst, misses, rep = [], 0.0, None, {}, []
+    for (path, g1), (_, gm) in zip(leaf_paths(G1), leaf_paths(Gm_local)):
+        like = sh._shardings[path]
+        name = "grads/" + "/".join(map(str, path))
+        if _replicas_differ(gm, like.placements, mesh):
+            rep.append(name)
+        w = _assemble(gm, like, tuple(g1.shape))
+        whole.append(w)
+        e = rel_max(w.float(), g1.float())
+        if e > RTOL:
+            misses[name] = e
+        if e >= grad_err:
+            grad_err, worst = e, name
+    Gm = unflatten(G1, whole)
+    if _replicas_differ(gnorm_m, [Replicate()] * mesh.ndim, mesh):
+        rep.append("gnorm")
+    spread, split = noise(S["params"], Gm, misses) if misses else ({}, {})
+    excess = max([misses[k] / max(RTOL, 2 * spread[k]) for k in misses],
+                 default=0.0)
+    # (b): U(S, Gm) with the one process's optimizer, S updated in place
+    p0 = ({p: t.detach().clone() for p, t in leaf_paths(S["params"])}
+          if ada else {})
+    update = OPTIMIZERS[sh.model.cfg.optimizer][1]
+    params, opt, _ = update(Gm, S["opt"], S["params"],
+                            lr=one.lr_at(S["opt"]["step"]), gnorm=gnorm_m)
+    B = {"params": params, "opt": opt, "residual": S["residual"]}
+    factored = set()
+    if ada:
+        factored = {p[:-1] for p, _ in leaf_paths(opt["slots"])
+                    if p[-1] == "vr"}
+    exact, loose = [], 0.0
+    for (path, b), (_, m) in zip(leaf_paths(B), leaf_paths(M)):
+        name = "/".join(map(str, path))
+        if not isinstance(m, DTensor):   # the step count, placeholders
+            if not torch.equal(b, m):
+                exact.append(name)
+            continue
+        if _replicas_differ(m.to_local(), m.placements, mesh):
+            rep.append(name)
+        want = _cut(b, m)
+        got = m.to_local().detach()
+        if ada and path[0] == "params" and path[1:] in factored:
+            before = _cut(p0[path[1:]], m)
+            loose = max(loose, rel_max(got.float() - before.float(),
+                                       want.float() - before.float()))
+        elif ada and path[0] == "opt" and path[2:-1] in factored:
+            loose = max(loose, _shard_err(got.float(), b.float(), m))
+        elif not torch.equal(got, want):
+            exact.append(name)
+    # (d), and U(S, Gm) - U(S, G1) on each leaf's scale
+    state_err = max(rel_max(b.detach().float(), a.detach().float())
+                    for (_, a), (_, b) in zip(leaf_paths(A), leaf_paths(B))
+                    if a.ndim)
+    flips, above, unexplained = ({}, 0, 0) if ada else _sign_moves(
+        A, B, G1, Gm, gnorm_1, gnorm_m)
+    return {"grad_rel_err": _max_over_ranks(grad_err),
+            "grad_worst_rank0": worst, "grad_misses_rank0": misses,
+            "grad_ulp_spread_rank0": spread, "grad_row_split_rank0": split,
+            "grad_excess": _max_over_ranks(excess),
+            "update_mismatches": _on_all_ranks(exact),
+            "adafactor_update_rel_err": _max_over_ranks(loose),
+            "replica_mismatches": _on_all_ranks(rep),
+            "state_rel_err": state_err,
+            "sign_flips": sum(v[0] for v in flips.values()),
+            "flips_above_grad_diff": above,
+            "flips_unexplained": int(_max_over_ranks(unexplained)),
+            "flips_by_leaf_rank0": flips}
+
+
+def _ulp_draws(one, params, batch, G1, names, draws=3):
+    """For each leaf in ``names`` (``grads/...``): the largest error on
+    its scale of one process's grads, over ``draws`` draws of its f32
+    params moved by one ulp (relative 2^-23 normal noise), against
+    ``G1``."""
+    from repro_torch.tree import leaf_paths, tree_map
+    out = dict.fromkeys(names, 0.0)
+    for d in range(draws):
+        g = torch.Generator(device="cpu").manual_seed(200 + d)
+        p = tree_map(lambda t: (t * (1 + 2.0 ** -23 * torch.randn(
+            t.shape, generator=g).to(t.device))).detach(), params)
+        _, gd = one.loss_and_grads(p, batch)
+        for (path, a), (_, b) in zip(leaf_paths(G1), leaf_paths(gd)):
+            name = "grads/" + "/".join(map(str, path))
+            if name in out:
+                out[name] = max(out[name], rel_max(b.float(), a.float()))
+    return out
+
+
+def _row_split(one, params, batch, n, G1, Gm, names):
+    """For each leaf in ``names``: one process's grads of ``batch`` taken
+    in the mesh's ``n`` row groups (rows ``i::n``), each group's mean
+    loss weighted by its token share before the backward as the mesh
+    weights a rank's, summed in group order (what the batch split alone
+    does to the order of the sums); ``[its error against G1, Gm's error
+    against it]`` on the leaf's scale."""
+    from repro_torch.tree import leaf_paths, leaves, tree_map
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    flat = leaves(p)
+    parts = [_rows(batch, i, n) for i in range(n)]
+    counts = [torch.clamp(torch.sum(r["mask"].float()), min=1.0)
+              for r in parts]
+    total = sum(counts)
+    acc = None
+    for r, c in zip(parts, counts):
+        g = torch.autograd.grad(one.model.loss_fn(p, r, None) * (c / total),
+                                flat, allow_unused=True)
+        g = [torch.zeros_like(x) if y is None else y for x, y in zip(flat, g)]
+        acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+    out = {}
+    for (path, a), (_, b), c in zip(leaf_paths(G1), leaf_paths(Gm), acc):
+        name = "grads/" + "/".join(map(str, path))
+        if name in names:
+            out[name] = [rel_max(c.float(), a.float()),
+                         rel_max(b.float(), c.float())]
+    return out
+
+
+def _per_step(one, sh, s_one, s_mesh, batch, rows):
+    """One step of each trainer from one state: ``s_one`` (the one
+    process's, whole) and ``s_mesh`` (``shard_state`` of the same
+    state), each stepped in place, ``batch`` whole and this rank's
+    ``rows`` of it.  Returns ``_step_readings`` (with, for each leaf
+    whose grads miss ``RTOL``, its one-ulp spread over three draws and
+    ``_row_split``) and the two steps' metrics."""
+    from repro_torch.dist.partitioning import batch_shard
+    from repro_torch.tree import tree_map
+    S = tree_map(lambda t: t.detach().clone(), s_one)
+    with _grads_of(one) as g1:
+        m1 = one.train_step(s_one, batch)
+    with _grads_of(sh) as gm:
+        mm = sh.train_step(s_mesh, rows)
+    out = _step_readings(
+        one, sh, S, s_one, g1[0], s_mesh, gm[0], m1["gnorm"], mm["gnorm"],
+        lambda params, Gm, names: (
+            _ulp_draws(one, params, batch, g1[0], names),
+            _row_split(one, params, batch, batch_shard(sh.mesh)[1], g1[0],
+                       Gm, names)))
+    return out, m1, mm
+
+
 def tp_training(rank, world, tmp, cell, mesh_name):
     """One reduced LM-family config on a ``TP_MESHES`` mesh in f32 on
     ``conditioned`` params, under the tensor-parallel design: the loss
@@ -626,7 +922,12 @@ def tp_training(rank, world, tmp, cell, mesh_name):
     ratio of a leaf's error to ``max(1e-4, 2 x`` its own spread``)``,
     with its leaf, error and spread on rank 0 (``state_worst_rank0``):
     a leaf whose AdamW sign moves the rounding decides has a spread of
-    its error's size, any other leaf one below 1e-4."""
+    its error's size, any other leaf one below 1e-4.
+
+    ``per_step``: each step k of the two again from a common state, the
+    one process's before it (``_per_step``, ``_step_readings``), so
+    that no difference of step 1 compounds into step 2: the grads, the
+    update apart from them, the replicas, and the sign moves."""
     from torch.distributed.tensor import DTensor
     from chip_smoke import conditioned
     from repro_torch.dist import activation_constrainer
@@ -668,10 +969,21 @@ def tp_training(rank, world, tmp, cell, mesh_name):
                                                      leaves(g0)))
     del g0
     s0 = _f32_state(model, p0)
-    steps = []
-    for b in batches[1:]:
-        m1 = one.train_step(s1, b)
-        m2 = sh.train_step(s2, _rows(b, sid, n_shards))
+    del g1, g2
+    steps, per_step = [], []
+    for k, b in enumerate(batches[1:], 1):
+        rows = _rows(b, sid, n_shards)
+        # the per-step check from the one process's state before step k
+        # (``_per_step``); at k = 1 the mesh's own state is that state's
+        # shards, so its step is the two-step run's first
+        if k == 1:
+            check, m1, m2 = _per_step(one, sh, s1, s2, b, rows)
+        else:
+            mk = sh.shard_state(tree_map(lambda t: t.detach().clone(), s1))
+            check, m1, _ = _per_step(one, sh, s1, mk, b, rows)
+            del mk
+            m2 = sh.train_step(s2, rows)
+        per_step.append(check)
         m0 = one.train_step(s0, b)
         steps.append((float(m1["loss"]), float(m2["loss"]),
                       float(m1["gnorm"]), float(m2["gnorm"]),
@@ -705,7 +1017,93 @@ def tp_training(rank, world, tmp, cell, mesh_name):
            "state_ulp_spread": state_spread, "state_excess": excess[0]}
     return {**{k: _max_over_ranks(v) for k, v in out.items()},
             "grad_worst_leaf_rank0": "/".join(map(str, worst)),
-            "state_worst_rank0": excess[1:]}
+            "state_worst_rank0": excess[1:], "per_step": per_step}
+
+
+STEP_FAULT_RANK = 1
+STEP_FAULT_LEAF = {"step": ("layers", "attn", "wq"),   # split on "model"
+                   "reduce": ("ln_f",)}                 # replicated
+
+
+def _plant(sh, fault):
+    """A fault in this rank's mesh trainer, patched on the instance (no
+    port code changes).  "step": the optimizer updates this rank's shard
+    of ``STEP_FAULT_LEAF["step"]`` with the step count one too high.
+    "reduce": this rank's grad of ``STEP_FAULT_LEAF["reduce"]`` skips
+    its sum over "data" (the rank still joins the collective, with a
+    copy, so the group stays in step)."""
+    from repro_torch.tree import leaf_paths
+    target = STEP_FAULT_LEAF[fault]
+    if fault == "step":
+        paths = [p for p, _ in leaf_paths(sh.model.abstract_params())]
+        i = paths.index(target)
+        assert 0 < i < len(paths) - 1 and sh.tp.splits(
+            sh._shardings[target].spec, 2)
+        update, calls = sh._opt_update, [0]
+
+        def off_by_one(grads, state, params, **kw):
+            n, calls[0] = calls[0], calls[0] + 1
+            if n % len(paths) == i:
+                state = {**state, "step": state["step"] + 1}
+            return update(grads, state, params, **kw)
+        sh._opt_update = off_by_one
+        return
+    data = sh.tp.axes["data"].group
+    split_axes, asked = sh._split_axes, [None]
+    all_reduce = dist.all_reduce
+
+    def ask(path, dim=None):
+        asked[0] = path
+        return split_axes(path, dim)
+
+    def skip(t, *args, group=None, **kw):
+        if asked[0] == target and group is data:   # this leaf's sum only
+            asked[0] = None
+            all_reduce(t.clone(), *args, group=group, **kw)
+            return None
+        return all_reduce(t, *args, group=group, **kw)
+    inner = sh.loss_and_grads
+
+    def loss_and_grads(params, batch):
+        sh._split_axes, dist.all_reduce = ask, skip
+        try:
+            return inner(params, batch)
+        finally:
+            sh._split_axes, dist.all_reduce = split_axes, all_reduce
+            asked[0] = None
+    sh.loss_and_grads = loss_and_grads
+
+
+def tp_step_fault(rank, world, tmp, fault):
+    """``_per_step`` of reduced internlm2 on a (2, 2) mesh from one fresh
+    state, with ``fault`` ("none", or a ``_plant`` fault) planted in
+    rank ``STEP_FAULT_RANK``'s mesh trainer: the readings, which must
+    name the fault."""
+    from chip_smoke import conditioned
+    from repro_torch.dist import activation_constrainer
+    from repro_torch.dist.partitioning import batch_shard
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.tree import tree_map
+    cfg = tp_config("internlm2")
+    model = build_model(cfg)
+    mesh = _mesh((2, 2))
+    params = conditioned(_draw(model, 0))
+    batch = _batch(np.random.default_rng(7), cfg, 8, 16)
+    tc = TrainConfig(total_steps=2, warmup_steps=0,
+                     ckpt_dir=str(tmp / f"fault{rank}"))
+    one = Trainer(model, tc, None, device=DEVICE)
+    sh = Trainer(model, tc, None, device=DEVICE,
+                 constrain=activation_constrainer(mesh, fsdp=cfg.fsdp))
+    if fault != "none" and rank == STEP_FAULT_RANK:
+        _plant(sh, fault)
+    clone = lambda tr: tree_map(lambda t: t.detach().clone(), tr)  # noqa
+    s_one = _f32_state(model, clone(params))
+    s_mesh = sh.shard_state(_f32_state(model, clone(params)))
+    check, _, _ = _per_step(one, sh, s_one, s_mesh, batch,
+                            _rows(batch, *batch_shard(mesh)))
+    return {**check, "fault_rank": STEP_FAULT_RANK,
+            "fault_leaf": "/".join(STEP_FAULT_LEAF.get(fault, ()))}
 
 
 def _shard_like(trainer, path):
@@ -996,6 +1394,9 @@ RANKS = {"moe_ep": moe_ep, "sharded_training": sharded_training,
          "dryrun_dense": dryrun_dense, "dryrun_ep": dryrun_ep,
          "tp_xent": tp_xent, "tp_one_rank": tp_one_rank,
          "tp_families_one_rank": tp_families_one_rank}
+for _fault in ("none", *STEP_FAULT_LEAF):
+    RANKS[f"tp_step_fault:{_fault}"] = functools.partial(tp_step_fault,
+                                                         fault=_fault)
 for _cell in (*TP_CELLS, *TP_FAMILY_CELLS, *TP_FULL_CELLS):
     for _mesh_name in TP_MESHES:
         for _name, _fn in (("tp_training", tp_training),
