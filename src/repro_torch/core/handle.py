@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..spans import span
 from . import gaps as _gaps
 from . import mdl as _mdl
 from . import sampling as _sampling
@@ -345,7 +346,7 @@ class Index:
             fused_ingest_enabled=self.fused_ingest_enabled,
             fused_split_commit=self.fused_split_commit,
             refresh_segments_frac=self.refresh_segments_frac,
-            stats=dict(self.stats),
+            stats=_copy.deepcopy(self.stats, memo),
         )
         new.__class__ = self.__class__
         memo[id(self)] = new
@@ -482,13 +483,16 @@ class Index:
         engine."""
         from ..kernels.delta import freeze_state
         t0 = time.perf_counter()
-        self._engine, self._mirror = freeze_state(self, self.device)
+        stages = {}
+        self._engine, self._mirror = freeze_state(self, self.device,
+                                                  stages=stages)
         self._device_epoch = self.epoch
         self._pending_touch = []  # fresh bounds cover everything logged
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats["refreezes"] += 1
         self.stats["freeze_seconds"] = time.perf_counter() - t0
+        self.stats["freeze_stages"] = stages
         return self._engine
 
     def _log_touch(self, keys) -> None:
@@ -596,41 +600,46 @@ class Index:
         resolves by batch size and key width.  ``queries_sorted=True``
         skips the sort round trip on the fused path.
         """
-        queries = np.asarray(queries, np.float64)
-        spec = self.resolve_backend(queries.shape[0], backend)
-        self.stats["lookups"] += 1
-        if not spec.device:
-            if self.gapped is not None:
-                pay, slots, found = self.gapped.lookup_batch(queries,
-                                                             full=True)
-                return host_lookup_result(pay, slots, found, spec.name,
+        with span("lookup"):
+            with span("lookup.route"):
+                queries = np.asarray(queries, np.float64)
+                spec = self.resolve_backend(queries.shape[0], backend)
+                self.stats["lookups"] += 1
+                engine = self.sync_device() if spec.device else None
+            if engine is None:
+                if self.gapped is not None:
+                    pay, slots, found = self.gapped.lookup_batch(
+                        queries, full=True)
+                    return host_lookup_result(pay, slots, found, spec.name,
+                                              self.epoch)
+                pos, probes = _sampling.exponential_search(
+                    self.keys, queries, self.predict(queries))
+                self.stats["search_probes"] += probes
+                found = self.keys[pos] == queries
+                pay = np.where(found, pos, -1)
+                return host_lookup_result(pay, pos, found, spec.name,
                                           self.epoch)
-            pos, probes = _sampling.exponential_search(
-                self.keys, queries, self.predict(queries))
-            self.stats["search_probes"] += probes
-            found = self.keys[pos] == queries
-            pay = np.where(found, pos, -1)
-            return host_lookup_result(pay, pos, found, spec.name, self.epoch)
-        engine = self.sync_device()
-        esc0 = engine.stats["oracle_escapes"]
-        out, slot, found, fb = engine.lookup(
-            queries, queries_sorted=queries_sorted,
-            backend=spec.engine_backend, force_backend=backend is not None)
-        # label the stage that actually ran: an overflowed batch lands on
-        # the device oracle (explicit requests skip the engine's xla
-        # size cut)
-        stage = {"fused": "fused", "pallas": "pallas",
-                 "xla": "xla-windowed",
-                 "oracle": "device-oracle"}[engine.last_stage]
-        return LookupResult(
-            payloads=np.asarray(out).astype(np.int64),
-            slots=np.asarray(slot).astype(np.int64),
-            found=np.asarray(found, bool),
-            backend=stage,
-            epoch=self.epoch,
-            fallbacks=int(fb),
-            oracle_escapes=engine.stats["oracle_escapes"] - esc0,
-        )
+            esc0 = engine.stats["oracle_escapes"]
+            out, slot, found, fb = engine.lookup(
+                queries, queries_sorted=queries_sorted,
+                backend=spec.engine_backend,
+                force_backend=backend is not None)
+            with span("lookup.finish"):
+                # label the stage that actually ran: an overflowed batch
+                # lands on the device oracle (explicit requests skip the
+                # engine's xla size cut)
+                stage = {"fused": "fused", "pallas": "pallas",
+                         "xla": "xla-windowed",
+                         "oracle": "device-oracle"}[engine.last_stage]
+                return LookupResult(
+                    payloads=np.asarray(out).astype(np.int64),
+                    slots=np.asarray(slot).astype(np.int64),
+                    found=np.asarray(found, bool),
+                    backend=stage,
+                    epoch=self.epoch,
+                    fallbacks=int(fb),
+                    oracle_escapes=engine.stats["oracle_escapes"] - esc0,
+                )
 
     # ------------------------------------------------------------------
     # writes (§5.3 dynamic ops — need a gapped build)

@@ -14,10 +14,12 @@ device tensor, in place (nothing else holds the old images).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..spans import span
 from .bounds import query_window_bounds
 from .freeze import (_I32_MAX, _I32_MIN, IndexArrays, _pad_pow, _split_i64,
                      freeze_numpy_headroom, keys_need_pair, split_key_pair,
@@ -61,25 +63,35 @@ def _upload(img: np.ndarray, device) -> torch.Tensor:
 
 
 def freeze_state(index, device, *, w_tile: int = 2048,
-                 seg_chunk: int = 512, **engine_kwargs):
+                 seg_chunk: int = 512, stages: Optional[dict] = None,
+                 **engine_kwargs):
     """Freeze an index into a ``QueryEngine`` + ``HostMirror`` pair,
     capacities frozen with headroom (``freeze.freeze_numpy_headroom``)
-    so delta updates keep the shapes."""
+    so delta updates keep the shapes.  ``stages``, when given, gains
+    the seconds of each stage: ``images`` (the padded host images),
+    ``upload`` (to the device), ``bounds`` (the query-safe window
+    bounds), ``routers`` (the engine: its bounds upload and its radix
+    and rank routers) and ``mirror`` (the host mirror's copies)."""
     from .ops import QueryEngine
-    np_arrays, statics = freeze_numpy_headroom(index, w_tile=w_tile,
-                                               seg_chunk=seg_chunk)
-    arrays = to_device(np_arrays, statics, device)
-    err_lo, err_hi = query_window_bounds(index)
-    engine = QueryEngine(arrays, err_lo, err_hi, w_tile=w_tile,
-                         **engine_kwargs)
-    ga = getattr(index, "gapped", None)
-    total = ga.links.total if ga is not None else 0
-    n_keys = ga.n_keys if ga is not None else int(index.keys.shape[0])
-    images = {f: np_arrays[f].copy() for f in DELTA_FIELDS
-              if np_arrays[f].size}
-    mirror = HostMirror(sources=snapshot_sources(index), images=images,
-                        statics=statics, links_at_freeze=total,
-                        n_keys_at_freeze=n_keys)
+    with span("freeze.images", stages):
+        np_arrays, statics = freeze_numpy_headroom(index, w_tile=w_tile,
+                                                   seg_chunk=seg_chunk)
+    with span("freeze.upload", stages):
+        arrays = to_device(np_arrays, statics, device)
+    with span("freeze.bounds", stages):
+        err_lo, err_hi = query_window_bounds(index)
+    with span("freeze.routers", stages):
+        engine = QueryEngine(arrays, err_lo, err_hi, w_tile=w_tile,
+                             **engine_kwargs)
+    with span("freeze.mirror", stages):
+        ga = getattr(index, "gapped", None)
+        total = ga.links.total if ga is not None else 0
+        n_keys = ga.n_keys if ga is not None else int(index.keys.shape[0])
+        images = {f: np_arrays[f].copy() for f in DELTA_FIELDS
+                  if np_arrays[f].size}
+        mirror = HostMirror(sources=snapshot_sources(index), images=images,
+                            statics=statics, links_at_freeze=total,
+                            n_keys_at_freeze=n_keys)
     return engine, mirror
 
 

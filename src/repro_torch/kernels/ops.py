@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..spans import span
 from .bounds import (_bisect_trips, _flat_width, _fused_flat_width,
                      auto_q_tile, build_radix_router, build_rank_router,
                      query_window_bounds)
@@ -408,22 +409,24 @@ def finish_fused_host(out, out_hi, slot, found, fb, n_q: int, wide: bool,
     ``resolve_escapes_host``.  ``host_views`` is a zero-argument
     callable, so the host copies are built only when a query escaped.
     Returns ``(payload_i64, slot, found, n_escapes)``."""
-    idx = np.flatnonzero(_np(fb)[:n_q])
-    out_np = _np(out)[:n_q]
-    if wide:
-        out_np = ((_np(out_hi)[:n_q].astype(np.int64) << 32)
-                  | (out_np.astype(np.int64) & 0xFFFFFFFF))
-    slot_np = _np(slot)[:n_q]
-    found_np = _np(found)[:n_q]
+    with span("lookup.copy_out"):
+        idx = np.flatnonzero(_np(fb)[:n_q])
+        out_np = _np(out)[:n_q]
+        if wide:
+            out_np = ((_np(out_hi)[:n_q].astype(np.int64) << 32)
+                      | (out_np.astype(np.int64) & 0xFFFFFFFF))
+        slot_np = _np(slot)[:n_q]
+        found_np = _np(found)[:n_q]
     if idx.size:
-        out_np = np.array(out_np)
-        slot_np = np.array(slot_np)
-        found_np = np.array(found_np)
-        r, res, pay = resolve_escapes_host(
-            host_views(), np.asarray(queries, np.float64)[idx])
-        out_np[idx] = pay
-        slot_np[idx] = r
-        found_np[idx] = res
+        with span("lookup.fixup"):
+            out_np = np.array(out_np)
+            slot_np = np.array(slot_np)
+            found_np = np.array(found_np)
+            r, res, pay = resolve_escapes_host(
+                host_views(), np.asarray(queries, np.float64)[idx])
+            out_np[idx] = pay
+            slot_np[idx] = r
+            found_np[idx] = res
     return out_np, slot_np, found_np, int(idx.size)
 
 
@@ -441,20 +444,24 @@ def pipeline(qh, ql, a: IndexArrays, err_lo_pad, radix_table, radix_scale,
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}")
     if stage == "oracle":
-        slot, found = oracle_search(qh, ql, a.slot_key, a.slot_key_lo,
-                                    a.key_wide)
-        out, out_hi, resolved = epilogue(qh, ql, slot, found, a,
-                                         a.max_chain)
+        with span("lookup.search"):
+            slot, found = oracle_search(qh, ql, a.slot_key, a.slot_key_lo,
+                                        a.key_wide)
+        with span("lookup.fixup"):
+            out, out_hi, resolved = epilogue(qh, ql, slot, found, a,
+                                             a.max_chain)
         return out, out_hi, slot, resolved, 0, False
     if stage == "xla":  # permutation-free
-        slot, found, fb = xla_window_lookup(
-            qh, ql, a, err_lo_pad, err_hi_pad, trips=trips, flat_w=flat_w,
-            radix_table=radix_table if radix else None,
-            radix_scale=radix_scale if radix else None)
-        fb_count, overflow = compact_fallback(qh, ql, slot, found, fb, a,
-                                              fb_cap=fb_cap)
-        out, out_hi, resolved = epilogue(qh, ql, slot, found, a,
-                                         a.max_chain)
+        with span("lookup.search"):
+            slot, found, fb = xla_window_lookup(
+                qh, ql, a, err_lo_pad, err_hi_pad, trips=trips,
+                flat_w=flat_w, radix_table=radix_table if radix else None,
+                radix_scale=radix_scale if radix else None)
+        with span("lookup.fixup"):
+            fb_count, overflow = compact_fallback(qh, ql, slot, found, fb,
+                                                  a, fb_cap=fb_cap)
+            out, out_hi, resolved = epilogue(qh, ql, slot, found, a,
+                                             a.max_chain)
         return out, out_hi, slot, resolved, fb_count, overflow
     if stage == "pallas" and a.key_wide:
         raise ValueError("the pallas backend does not support wide "
@@ -462,30 +469,36 @@ def pipeline(qh, ql, a: IndexArrays, err_lo_pad, radix_table, radix_scale,
     if assume_sorted:
         qs, qls, order = qh, ql, None
     else:
-        if a.key_wide:  # lexsort: lo first, then a stable sort by hi
-            o_lo = torch.sort(ql, stable=True).indices
-            order = o_lo[torch.sort(qh[o_lo], stable=True).indices]
-            qls = ql[order]
-        else:
-            order = torch.sort(qh, stable=True).indices
-            qls = ql
-        qs = qh[order]
+        with span("lookup.sort"):
+            if a.key_wide:  # lexsort: lo first, then a stable sort by hi
+                o_lo = torch.sort(ql, stable=True).indices
+                order = o_lo[torch.sort(qh[o_lo], stable=True).indices]
+                qls = ql[order]
+            else:
+                order = torch.sort(qh, stable=True).indices
+                qls = ql
+            qs = qh[order]
     if stage == "fused":
-        slot, res, out, out_hi, _fb, fb_loc, fb_cnt = fused_lookup(
-            *fused_args(qs, qls, a, err_lo_pad, radix_table, radix_scale,
-                        q_tile=q_tile, w_tile=w_tile),
-            **fused_statics(a, q_tile=q_tile, w_tile=w_tile, flat_w=flat_w))
-        resolved = res.bool()
-        fb_count, overflow = fused_fixup(qs, qls, slot, resolved, out,
-                                         out_hi, fb_loc, fb_cnt, a,
-                                         q_tile=q_tile, fb_cap=fb_cap)
+        with span("lookup.search"):
+            slot, res, out, out_hi, _fb, fb_loc, fb_cnt = fused_lookup(
+                *fused_args(qs, qls, a, err_lo_pad, radix_table,
+                            radix_scale, q_tile=q_tile, w_tile=w_tile),
+                **fused_statics(a, q_tile=q_tile, w_tile=w_tile,
+                                flat_w=flat_w))
+        with span("lookup.fixup"):
+            resolved = res.bool()
+            fb_count, overflow = fused_fixup(qs, qls, slot, resolved, out,
+                                             out_hi, fb_loc, fb_cnt, a,
+                                             q_tile=q_tile, fb_cap=fb_cap)
     else:
-        slot, found, fb = pallas_search(qs, a, err_lo_pad, q_tile=q_tile,
-                                        w_tile=w_tile)
-        fb_count, overflow = compact_fallback(qs, qls, slot, found, fb, a,
-                                              fb_cap=fb_cap)
-        out, out_hi, resolved = epilogue(qs, qls, slot, found, a,
-                                         a.max_chain)
+        with span("lookup.search"):
+            slot, found, fb = pallas_search(qs, a, err_lo_pad,
+                                            q_tile=q_tile, w_tile=w_tile)
+        with span("lookup.fixup"):
+            fb_count, overflow = compact_fallback(qs, qls, slot, found, fb,
+                                                  a, fb_cap=fb_cap)
+            out, out_hi, resolved = epilogue(qs, qls, slot, found, a,
+                                             a.max_chain)
     if order is None:
         return out, out_hi, slot, resolved, fb_count, overflow
 
@@ -494,9 +507,10 @@ def pipeline(qh, ql, a: IndexArrays, err_lo_pad, radix_table, radix_scale,
         y[order] = x
         return y
 
-    out_hi = unsort(out_hi) if a.wide else out_hi
-    return (unsort(out), out_hi, unsort(slot), unsort(resolved), fb_count,
-            overflow)
+    with span("lookup.unsort"):
+        out_hi = unsort(out_hi) if a.wide else out_hi
+        return (unsort(out), out_hi, unsort(slot), unsort(resolved),
+                fb_count, overflow)
 
 
 def _pad_bounds(err, k_pad: int, device) -> torch.Tensor:
@@ -881,40 +895,53 @@ class QueryEngine:
         always applied); below ``xla_min_bucket`` an "xla" request runs
         the oracle stage unless ``force_backend``."""
         a = self.arrays
-        qh, ql = split_queries(queries, a.key_wide)
-        n_q = qh.shape[0]
-        b = self.bucket(n_q)
-        if b == n_q:
-            qp, qlp = qh, ql
-        else:
-            qp = np.full(b, np.inf, np.float32)
-            qp[:n_q] = qh  # +inf tail keeps sorted batches sorted
-            if a.key_wide:
-                qlp = np.zeros(b, np.float32)
-                qlp[:n_q] = ql
+        with span("lookup.prepare"):
+            qh, ql = split_queries(queries, a.key_wide)
+            n_q = qh.shape[0]
+            b = self.bucket(n_q)
+            if b == n_q:
+                qp, qlp = qh, ql
             else:
-                qlp = ql
-        q_tile = min(b, auto_q_tile(b, a.n_slots, self.w_tile))
-        stage = backend or self.backend
-        if stage not in STAGES:
-            raise ValueError(f"unknown backend {stage!r}")
-        if stage == "pallas" and a.key_wide:
-            stage = "xla"  # capability fallback (the legacy kernel)
-        if stage == "xla" and b < self.xla_min_bucket and not force_backend:
-            stage = "oracle"  # size-aware scheduling (see __init__)
-        self.last_stage = stage
+                qp = np.full(b, np.inf, np.float32)
+                qp[:n_q] = qh  # +inf tail keeps sorted batches sorted
+                if a.key_wide:
+                    qlp = np.zeros(b, np.float32)
+                    qlp[:n_q] = ql
+                else:
+                    qlp = ql
+            q_tile = min(b, auto_q_tile(b, a.n_slots, self.w_tile))
+            stage = backend or self.backend
+            if stage not in STAGES:
+                raise ValueError(f"unknown backend {stage!r}")
+            if stage == "pallas" and a.key_wide:
+                stage = "xla"  # capability fallback (the legacy kernel)
+            if (stage == "xla" and b < self.xla_min_bucket
+                    and not force_backend):
+                stage = "oracle"  # size-aware scheduling (see __init__)
+            self.last_stage = stage
+            boost = self._cap_boost.get(b, 1)
+            tile_granular = stage in ("fused", "pallas")
+            fb_cap = int(min(b, boost * max(
+                q_tile if tile_granular else 64,
+                int(np.ceil(self.fb_frac * b)))))
+            flat_w = (self._fused_width_for(b) if stage == "fused"
+                      else self._flat_w)
         dev = a.device
+        with span("lookup.copy_in"):
+            qj = torch.from_numpy(qp).to(dev)
+            qlj = torch.from_numpy(qlp).to(dev)
         if stage == "fused" and self.fused_impl == "xla":
             # one lean graph returning the escape mask; the flagged
             # queries are patched on the host in O(#escapes), with no
             # compaction buffer and no oracle escape
-            out, out_hi, slot, found, fbm = fused_pipeline(
-                torch.from_numpy(qp).to(dev), torch.from_numpy(qlp).to(dev),
-                a.slot_key, a.slot_key_lo, a.payload, a.payload_hi,
-                a.link_offsets, a.link_keys, a.link_keys_lo,
-                a.link_payloads, a.link_payload_hi, self._rank_table,
-                self._rank_scale, trips=self._rank_trips,
-                max_chain=a.max_chain, wide=a.wide, key_wide=a.key_wide)
+            with span("lookup.search"):
+                out, out_hi, slot, found, fbm = fused_pipeline(
+                    qj, qlj, a.slot_key, a.slot_key_lo, a.payload,
+                    a.payload_hi, a.link_offsets, a.link_keys,
+                    a.link_keys_lo, a.link_payloads, a.link_payload_hi,
+                    self._rank_table, self._rank_scale,
+                    trips=self._rank_trips, max_chain=a.max_chain,
+                    wide=a.wide, key_wide=a.key_wide)
             out, slot_h, found_h, n_fb = finish_fused_host(
                 out, out_hi, slot, found, fbm, n_q, a.wide, queries,
                 self._host_views)
@@ -923,26 +950,21 @@ class QueryEngine:
             self.stats["fallbacks"] += n_fb
             self.stats["buckets"].add(b)
             return out, slot_h, found_h, n_fb
-        boost = self._cap_boost.get(b, 1)
-        tile_granular = stage in ("fused", "pallas")
-        fb_cap = int(min(b, boost * max(q_tile if tile_granular else 64,
-                                        int(np.ceil(self.fb_frac * b)))))
-        qj = torch.from_numpy(qp).to(dev)
-        qlj = torch.from_numpy(qlp).to(dev)
-        flat_w = (self._fused_width_for(b) if stage == "fused"
-                  else self._flat_w)
         out, out_hi, slot, found, fb, overflow = self._dispatch(
             qj, qlj, stage, q_tile, fb_cap, bool(queries_sorted), flat_w)
         self.last_escapes = int(fb)
         if stage != "oracle" and fb_cap < b and overflow:
-            self.stats["oracle_escapes"] += 1
-            self._cap_boost[b] = min(boost * 4, 64)  # sticky escalation
-            self.last_stage = "oracle"  # the stage that actually served
-            out, out_hi, slot, found, fb, _ = self._dispatch(
-                qj, qlj, "oracle", q_tile, fb_cap, bool(queries_sorted), 0)
+            with span("lookup.oracle"):
+                self.stats["oracle_escapes"] += 1
+                self._cap_boost[b] = min(boost * 4, 64)  # sticky escalation
+                self.last_stage = "oracle"  # the stage that actually served
+                out, out_hi, slot, found, fb, _ = self._dispatch(
+                    qj, qlj, "oracle", q_tile, fb_cap, bool(queries_sorted),
+                    0)
         self.stats["calls"] += 1
         self.stats["fallbacks"] += int(fb)
         self.stats["buckets"].add(b)
-        return (recombine_i64(out, out_hi, n_q, a.wide),
-                slot[:n_q].cpu().numpy(), found[:n_q].cpu().numpy(),
-                int(fb))
+        with span("lookup.copy_out"):
+            return (recombine_i64(out, out_hi, n_q, a.wide),
+                    slot[:n_q].cpu().numpy(), found[:n_q].cpu().numpy(),
+                    int(fb))

@@ -36,7 +36,7 @@ def _report(rep):
 
 def _stats(idx):
     return {k: v for k, v in idx.stats.items()
-            if k not in ("retrains", "freeze_seconds")}
+            if k not in ("retrains", "freeze_seconds", "freeze_stages")}
 
 
 def _both(keys, fused, **kw):
