@@ -1,10 +1,14 @@
 """The port's ``Index`` handle: ``repro.core.Index``'s read path and
 its §5.3 write path.
 
-``Index.build`` runs the host build (§4 sampling, mechanism fit, Eq. 3
-gap insertion — ``gaps.build_gapped``, a copy of the reference's);
-``lookup`` answers batched point lookups on a backend from the
-registry:
+``Index.build`` learns on the host (§4 sampling, mechanism fit, Eq. 3
+gap insertion, refit) and places the keys in the gapped array on one of
+two paths that give the same arrays: on the index's device
+(``kernels.place.build_gapped_device``) when that device is CUDA and
+the mechanism predicts through its PLM (``pgm``, ``fiting``), on the
+host otherwise (``gaps.build_gapped``, a copy of the reference's: CPU
+indexes, ``rmi``, ``btree``).  ``lookup`` answers batched point lookups
+on a backend from the registry:
 
 =============  ======  ==========  =========  ==========================
 name           device  wide keys   min batch  notes
@@ -234,8 +238,12 @@ class Index:
         device=None,
         **mech_kwargs,
     ):
-        """Build an index on the host; its device state lives on
-        ``device`` (cuda unless ``device="cpu"``).  ``payloads``
+        """Build an index; its device state lives on ``device`` (cuda
+        unless ``device="cpu"``).  The mechanism learns on the host.  A
+        gapped build places its keys on ``device`` when that is CUDA and
+        ``method`` is one of ``kernels.place.PLM_METHODS`` (``pgm``,
+        ``fiting``), on the host otherwise; both give the same arrays
+        (see the module doc).  ``payloads``
         overrides the stored payload per key (default: the key's
         position) — gapped builds only.  ``shards=`` builds the
         range-partitioned ``dist.ShardedIndex`` instead.
@@ -289,11 +297,15 @@ class Index:
                 rkw = dict(mech_kwargs)
                 rkw["eps"] = max(4.0, float(mech_kwargs["eps"]) / 16.0)
                 refit_factory = _mechanism_factory(method, **rkw)
-            gapped = _gaps.build_gapped(
-                factory, keys, payloads=payloads, rho=gap_rho,
-                sample_rate=sample_rate, rng=rng,
-                refit_factory=refit_factory,
-            )
+            from ..kernels import place as _place
+            kw = dict(payloads=payloads, rho=gap_rho,
+                      sample_rate=sample_rate, rng=rng,
+                      refit_factory=refit_factory)
+            if dev.type == "cuda" and method in _place.PLM_METHODS:
+                gapped = _place.build_gapped_device(factory, keys,
+                                                    device=dev, **kw)
+            else:
+                gapped = _gaps.build_gapped(factory, keys, **kw)
             mech = gapped.mech
         else:
             gapped = None

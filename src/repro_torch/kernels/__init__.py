@@ -32,6 +32,10 @@ ops_gap.py    — device Eq. 3 (``gap_positions_device``, its tables
                 ``prepare_gap_tables`` and the host oracle
                 ``gap_positions_oracle``) and the write path's entry
                 points ``ingest_place`` and ``fused_ingest``
+place.py      — ``build_gapped_device``: the build's placement (predict,
+                place, link, exact bounds) in torch ops on the index's
+                device; no Pallas counterpart (the reference builds on
+                the host)
 _build.py     — nvcc + ctypes build of csrc/*.cu at first use, and the
                 wrappers' per-call checks and launch
 
