@@ -13,8 +13,8 @@ Mamba-2 hybrid, an xLSTM), training over the learned-index data path
 and training sharded over a ``torch.distributed`` mesh — on the card,
 and holds each hand-written CUDA kernel against its plain torch
 version.  Prints one JSON line per phase (they run in the
-order 1-9, 11, 10, 12, 13, 14, 15, 16, 17: phase 11 reuses the read
-phase's keys and index):
+order 1-9, 11, 10, 18, 12, 13, 14, 15, 16, 17: phase 11 reuses the read
+phase's keys and index; ``--only-u64`` runs phase 18 alone):
 
 1. environment and kernel build (one nvcc per source, in parallel, into
    build/repro_torch/);
@@ -267,7 +267,20 @@ phase's keys and index):
    ``fake`` group of 256 (the tensor-parallel design) and
    ``roofline.HBM_BYTES`` against the card's ``total_memory``
    (``dryrun``, with the phase's seconds and the kernels' launch
-   counts, all 0).
+   counts, all 0);
+18. the exact 64-bit image behind the serving queue (``phase_u64``,
+   after phase 10): YCSB's record keys under ``insertorder=hashed``
+   (``fnvhash64`` of keynums 0 .. ``--u64-keys`` - 1, 20M by default,
+   below 2^63) built as the YCSB cell builds them (``pgm, eps=64,
+   gap_rho=0.15, sample_rate=0.01``), served by ``MicroBatchQueue``
+   over an ``EpochPipeline`` to 8 caller threads of 48 requests of
+   2,048 keys (records, and 256 neighbours ``k - 1`` / ``k + 1`` of
+   records), every answer held against ``repro_torch.plain_kv``; every
+   dispatch must take ``fused_lookup_u64``, one launch each, and none
+   ``fused_lookup``; then the kernel at each dispatch buffer the run
+   gave it against ``fused_lookup_u64_plain``, bit for bit, and timed
+   at the largest beside its plain version, its byte bound and
+   ``torch.searchsorted`` over the slot keys.
 
 Scale: SOSD's key sets (Marcus et al., Benchmarking Learned Indexes,
 VLDB 2020) hold 200M keys; the read phase cuts that to 32M so the host
@@ -4585,6 +4598,264 @@ def phase_dryrun(seed, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the 64-bit image behind the serving queue (YCSB's hashed keys)
+# ---------------------------------------------------------------------------
+
+U64_CALLERS = 8        # the YCSB cell's clients
+U64_CALL = 2048        # keys a request
+U64_NEAR = 256         # of them, neighbours k - 1 / k + 1 of records
+U64_ROUNDS = 48        # requests a caller in the counted run
+
+
+def u64_requests(rng, keys, n) -> list:
+    """``n`` requests of ``U64_CALL`` keys: records, and ``U64_NEAR``
+    neighbours of records (absent but where two keys are adjacent)."""
+    out = []
+    for _ in range(n):
+        rec = keys[rng.integers(0, keys.size, U64_CALL - U64_NEAR)]
+        near = keys[rng.integers(1, keys.size, U64_NEAR)]
+        near = np.where(rng.random(U64_NEAR) < 0.5, near - np.uint64(1),
+                        near + np.uint64(1))
+        out.append(rng.permutation(np.concatenate([rec, near])))
+    return out
+
+
+def u64_callers(queue, reqs_by_caller, max_wait_ms) -> list:
+    """Each caller thread submits its requests one at a time, waits out
+    the queue's deadline and takes its result; ``(keys, result)`` of
+    every request."""
+    done, errors = [], []
+    lock = threading.Lock()
+
+    def caller(reqs):
+        try:
+            for q in reqs:
+                t = queue.submit_lookup(q)
+                time.sleep(max_wait_ms / 1e3)
+                res = queue.result(t)
+                with lock:
+                    done.append((q, res))
+        except BaseException as e:   # re-raised below
+            with lock:
+                errors.append(e)
+
+    threads = [threading.Thread(target=caller, args=(r,), daemon=True)
+               for r in reqs_by_caller]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a u64 caller did not finish")
+    return done
+
+
+def kernel_case_u64(name, idx, q):
+    """``fused_lookup_u64`` against ``fused_lookup_u64_plain`` on the
+    engine's own inputs for the dispatch buffer ``q`` (a whole bucket),
+    as ``QueryEngine`` builds them."""
+    from repro_torch.core import keys64 as k64
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lookup import (fused_lookup_u64,
+                                            fused_lookup_u64_plain)
+    eng = idx.sync_device()
+    a = eng.arrays
+    b = q.shape[0]
+    assert eng.bucket(b) == b, "case batches are whole buckets"
+    qs = torch.sort(torch.from_numpy(k64.query_ordered(q)[0]).cuda()).values
+    q_tile = min(b, ops.auto_q_tile(b, a.n_slots, eng.w_tile))
+    args = ops.fused_args_u64(qs, a, eng._elo, eng._radix_table,
+                              eng._radix_key, eng._radix_scale,
+                              q_tile=q_tile, w_tile=eng.w_tile)
+    statics = dict(q_tile=q_tile, w_tile=eng.w_tile,
+                   flat_w=eng._fused_width_for(b), max_chain=a.max_chain,
+                   n_slots=a.n_slots, wide=a.wide)
+    got = fused_lookup_u64(*args, **statics)
+    want = fused_lookup_u64_plain(*args, **statics)
+    torch.cuda.synchronize()
+    err = compare_outputs(name, got, want)
+    return args, statics, got, err
+
+
+def fused_bytes_u64(args, statics, got) -> int:
+    """``fused_bytes`` of the 64-bit kernel: 8-byte queries and slot
+    keys, the small tables, each distinct window and answer slot once,
+    the outputs; link probes left out (a lower bound)."""
+    from repro_torch.kernels.lookup import window_base_u64
+    (q, tile_block, radix_table, radix_key, radix_scale, segk, slope, iclo,
+     _sk, _pay, _payhi, _off, _lk, _lp, _lph) = args
+    q_tile, w_tile, flat_w = (statics["q_tile"], statics["w_tile"],
+                              statics["flat_w"])
+    n_q = q.shape[0]
+    base = (tile_block.long() * w_tile).repeat_interleave(q_tile)
+    if flat_w:
+        lo0 = window_base_u64(q, radix_table, radix_key, radix_scale, segk,
+                              slope, iclo, n_slots=statics["n_slots"])
+        win = (lo0 - base)[:, None] + torch.arange(flat_w + 1,
+                                                   device=q.device)
+        win = base[:, None] + win.clamp(0, 2 * w_tile - 1)
+        small = sum(t.numel() * t.element_size()
+                    for t in (radix_table, radix_key, radix_scale, segk,
+                              slope, iclo))
+    else:
+        win = (tile_block.long().unique()[:, None] * w_tile
+               + torch.arange(2 * w_tile, device=q.device))
+        small = 0
+    n_win = int(torch.unique(win).numel())
+    pay_bytes = 8 if statics["wide"] else 4
+    slot = got[0].long()
+    n_ans = int(torch.unique(slot[slot >= 0]).numel())
+    inputs = (n_q * 8 + tile_block.numel() * 4 + small + n_win * 8
+              + n_ans * (pay_bytes + 8))
+    outputs = n_q * (4 * 4 + (4 if statics["wide"] else 0) + 1) \
+        + tile_block.numel() * 4
+    return inputs + outputs
+
+
+def u64_kernel_row(u64) -> dict:
+    """Phase 18's row of the kernels line."""
+    t = u64["timing"]
+    return {"name": "fused_lookup_u64", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_lookup.cu "
+                      "(fused_lookup64_kernel)",
+            "replaces": "src/repro/kernels/lookup.py:415 over the 64-bit "
+                        "image (the reference holds no 64-bit keys)",
+            "launches": u64["launches"]["fused_lookup_u64"],
+            "max_abs_err": u64["max_abs_err"],
+            **{k: t[k] for k in ("ms", "device_ms", "graph_ms", "host_us",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}
+
+
+def phase_u64(rng, seed, smi, n_keys) -> dict:
+    """Phase 18: YCSB's hashed record keys (the YCSB cell's
+    ``record_keys``: ``fnvhash64`` of keynums 0 .. n_keys - 1, below
+    2^63) on the 64-bit image, built as the YCSB cell
+    builds them, served by ``MicroBatchQueue`` over an ``EpochPipeline``
+    to 8 caller threads of 2,048-key requests (records and their
+    neighbours), every answer against ``repro_torch.plain_kv``; the
+    launch counts set to 0 just before the counted run and read just
+    after; then the kernel at every dispatch buffer the run gave it
+    against its plain version, bit for bit, and timed at the largest."""
+    from repro_torch.core import Index
+    from repro_torch.kernels.lookup import (fused_lookup, fused_lookup_u64,
+                                            fused_lookup_u64_plain)
+    from repro_torch.plain_kv import PlainKV
+    from repro_torch.serving import EpochPipeline, MicroBatchQueue
+    from portbench.harness import PB, load_module
+    t0 = time.perf_counter()
+    # the YCSB cell's own key draw
+    keys, _ = load_module(PB / "drivers" / "ycsb_hashed.py").record_keys(
+        n_keys)
+    pays = rng.integers(0, 2 ** 30, keys.size)
+    gen_s = time.perf_counter() - t0
+    idx = Index.build(keys, method="pgm", eps=64, gap_rho=0.15,
+                      sample_rate=0.01, payloads=pays,
+                      rng=np.random.default_rng(seed), device="cuda")
+    eng = idx.sync_device()
+    a = eng.arrays
+    if not a.key_u64:
+        raise AssertionError("hashed 63-bit keys did not take the 64-bit "
+                             "image")
+    emit("u64_build", card=smi, n_keys=int(keys.size),
+         n_slots=int(a.n_slots), device_bytes=int(idx.device_bytes()),
+         keygen_seconds=gen_s, build_seconds=idx.build_seconds,
+         freeze_seconds=idx.stats["freeze_seconds"])
+    pipe = EpochPipeline(idx, publish_every=1)
+    queue = MicroBatchQueue(pipe, max_wait_ms=2, max_depth=64)
+    seen = {}   # one dispatch buffer of each bucket size the queue sent
+    lookup = idx.lookup
+
+    def recording(q, *args, **kwargs):
+        seen[q.shape[0]] = np.array(q, copy=True)
+        return lookup(q, *args, **kwargs)
+
+    idx.lookup = recording
+    ref = PlainKV(keys, pays)
+    try:
+        # warm-up: every bucket 1..8 callers coalesce to, uncounted
+        for n in range(1, U64_CALLERS + 1):
+            for _ in range(3):
+                u64_callers(queue, [u64_requests(rng, keys, 1)
+                                    for _ in range(n)], 0.0)
+        reqs = [u64_requests(rng, keys, U64_ROUNDS)
+                for _ in range(U64_CALLERS)]
+        q0, s0, e0 = dict(queue.stats), dict(idx.stats), dict(eng.stats)
+        fused_lookup.launches = fused_lookup_u64.launches = 0
+        t1 = time.perf_counter()
+        done = u64_callers(queue, reqs, queue.max_wait_ms)
+        wall = time.perf_counter() - t1
+        launches = {"fused_lookup_u64": fused_lookup_u64.launches,
+                    "fused_lookup": fused_lookup.launches}
+        q1, s1 = queue.stats, idx.stats
+    finally:
+        queue.close()
+        pipe.close()
+        idx.lookup = lookup
+    dispatches = q1["lookup_dispatches"] - q0["lookup_dispatches"]
+    wrong = 0
+    for q, res in done:
+        want_pay, want_found = ref.answer(q)
+        wrong += int(np.count_nonzero((res.payloads != want_pay)
+                                      | (res.found != want_found)))
+    escapes = eng.stats["oracle_escapes"] - e0["oracle_escapes"]
+    run = {"requests": len(done), "keys": len(done) * U64_CALL,
+           "dispatches": dispatches,
+           "lookups_u64": s1["lookups_u64"] - s0.get("lookups_u64", 0),
+           "keys_per_dispatch": (q1["lookup_keys"] - q0["lookup_keys"])
+           / max(dispatches, 1),
+           "oracle_escapes": escapes, "wall_seconds": wall,
+           "keys_per_second": len(done) * U64_CALL / wall,
+           "launches": launches, "wrong_answers": wrong}
+    emit("u64_serve", card=smi, **run)
+    if wrong:
+        raise AssertionError(f"u64: {wrong} answers differ from the plain "
+                             "reference")
+    if run["lookups_u64"] != dispatches or launches["fused_lookup"]:
+        raise AssertionError(f"u64: dispatches off the 64-bit path: {run}")
+    if launches["fused_lookup_u64"] != dispatches:
+        raise AssertionError(f"u64: a dispatch without one launch: {run}")
+    # the kernel at every dispatch shape against its plain version;
+    # these launches are after the count was read
+    err, cases = 0, {}
+    for b in sorted(seen):
+        args, statics, got, e = kernel_case_u64(f"u64_dispatch_{b}", idx,
+                                                seen[b])
+        err = max(err, e)
+        cases[b] = {"q_tile": statics["q_tile"], "flat_w": statics["flat_w"],
+                    "escapes": int(got[4].sum()), "outputs_equal": 7}
+    emit("u64_kernel_vs_plain", card=smi, buckets=cases, tolerance=TOL)
+    b = max(seen)
+    args, statics, got, _ = kernel_case_u64("u64_timing", idx, seen[b])
+    k_t = kernel_times(lambda: fused_lookup_u64(*args, **statics),
+                       "fused_lookup64_kernel")
+    p_ms = cuda_ms(lambda: fused_lookup_u64_plain(*args, **statics),
+                   launches=5)
+    sk, qs = args[8], args[0]
+    lib_ms = cuda_ms(lambda: torch.searchsorted(sk, qs, right=True))
+    nbytes = fused_bytes_u64(args, statics, got)
+    per_q = statics["flat_w"] + 1 if statics["flat_w"] else 2 * statics[
+        "w_tile"]
+    nops = qs.shape[0] * (per_q + 10 + int(a.max_chain).bit_length())
+    timing = dict(
+        **k_t, plain_ms=p_ms, library_ms=lib_ms,
+        bound_ms=max(nbytes / H100_BYTES_PER_S,
+                     nops / H100_F32_OPS_PER_S) * 1e3,
+        bound_by=("bytes" if nbytes / H100_BYTES_PER_S
+                  >= nops / H100_F32_OPS_PER_S else "operations"),
+        max_abs_err=err, bytes=nbytes, ops=nops, batch=b,
+        flat_w=statics["flat_w"], q_tile=statics["q_tile"])
+    emit("u64_kernel_timing", card=smi, **timing,
+         library_call="torch.searchsorted(slot_key, q, right=True) over "
+                      "the ordered int64 slot keys: slot only",
+         kernel_vs_plain=TOL)
+    return {"launches": launches, "serve": run, "timing": timing,
+            "max_abs_err": err}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-keys", type=int, default=32_000_000)
@@ -4606,6 +4877,12 @@ def main() -> int:
                     help="keys in phase 10's builds (default: the largest "
                          "of 3.6M, 3.5M, 3.4M whose n_slots < 2^22) and "
                          "in phase 11's durability run (default 3.6M)")
+    ap.add_argument("--u64-keys", type=int, default=20_000_000,
+                    help="keynums hashed into phase 18's 64-bit keys")
+    ap.add_argument("--only-u64", action="store_true",
+                    help="run the kernel build, the launch floor and "
+                         "phase 18 alone, and print fused_lookup_u64's "
+                         "row of the kernels line")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace three lookups per batch size (read "
@@ -4639,6 +4916,14 @@ def main() -> int:
 
     floor = launch_floor(smi)
     rng = np.random.default_rng(args.seed)
+    if args.only_u64:
+        u64 = phase_u64(rng, args.seed, smi, args.u64_keys)
+        print(json.dumps({"kernels": [u64_kernel_row(u64)]}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     cases = phase_cases(rng)
     main_res = phase_main(rng, args.n_keys, args.seed, smi, args.profile)
     place_rows = phase_place_cases(rng)
@@ -4662,6 +4947,7 @@ def main() -> int:
                             Path(tmp), args.profile)
     del main_res["index"], main_res["keys"], main_res["queries"]
     serve = phase_serve(rng, args.seed, smi, args.serve_keys)
+    u64 = phase_u64(rng, args.seed, smi, args.u64_keys)
     consumers = phase_consumers(rng, args.seed, smi)
     decode = phase_decode(rng, args.seed, smi, args.profile)
     recurrent = phase_recurrent(rng, args.seed, smi, args.profile)
@@ -4751,7 +5037,7 @@ def main() -> int:
                            + [r["max_abs_err"] for r in legacy_rows
                               if r["kernel"] == "lookup_kernel"]),
         **times(legacy),
-    }]
+    }, u64_kernel_row(u64)]
     emit("summary", card=smi, cases=len(cases), place_cases=len(place_rows),
          launch_floor={k: floor[k] for k in ("ms", "device_ms", "graph_ms",
                                              "host_us")},
@@ -4767,6 +5053,8 @@ def main() -> int:
                       "pallas_served_by": legacy["pallas_served"],
                       "xla_windowed_ms": legacy["xla_ms"]},
          serve_path=serve["launches"],
+         u64_path={**u64["launches"], **{k: u64["serve"][k] for k in (
+             "dispatches", "keys_per_dispatch", "keys_per_second")}},
          serve={label: {k: m[k] for k in (
              "method", "lookup_ms_p50", "lookup_ms_p99",
              "pipeline_live_lookups", "pipeline_snapshot_lookups",

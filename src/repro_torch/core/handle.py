@@ -52,6 +52,15 @@ MDL auto-tuner, ``retrain`` refits the live state on a sample and
 ``mdl`` scores it.  A restore or a retrain leaves the device state
 empty; the first device lookup refreezes on ``device``.
 
+Keys are float64 as in the reference, or exact 64-bit integers: keys
+given as integers at or above 2^53 take the 64-bit image
+(``core.keys64``, module doc there), which holds them exactly on the
+host and on the device and is read through ``fused`` (its own kernel
+instantiation) and ``numpy-oracle``.  Such an index needs a gapped
+``pgm`` / ``fiting`` build; every write, and a sharded build, raises
+``ValueError`` naming the limit, as does every write entry point that
+meets such keys.  Float keys at or above 2^53 are refused at ``build``.
+
 The device is ``cuda`` unless the index is given ``device="cpu"``;
 without CUDA the default raises.  ``build(shards=...)`` returns the
 range-partitioned ``dist.ShardedIndex`` (same call surface, per-shard
@@ -73,6 +82,7 @@ import torch
 from ..device import resolve_device
 from ..spans import span
 from . import gaps as _gaps
+from . import keys64 as _k64
 from . import mdl as _mdl
 from . import sampling as _sampling
 from .mechanisms import MECHANISMS
@@ -224,6 +234,15 @@ class Index:
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
+    @property
+    def key_dtype(self) -> np.dtype:
+        """float64, or uint64 for an index on the 64-bit image."""
+        return self.keys.dtype
+
+    @property
+    def _u64(self) -> bool:
+        return _k64.is_u64(self.keys)
+
     # ------------------------------------------------------------------
     @classmethod
     def build(
@@ -261,11 +280,16 @@ class Index:
                 sample_rate=sample_rate, gap_rho=gap_rho, rng=rng,
                 payloads=payloads, device=device, **mech_kwargs)
         dev = resolve_device(device)
-        keys = np.asarray(keys, np.float64)
+        keys = _k64.build_keys(keys)
         if keys.ndim != 1 or keys.shape[0] < 2:
             raise ValueError("need a 1-D array of at least two keys")
-        if not bool(np.all(np.diff(keys) > 0)):
+        if not bool(np.all(keys[1:] > keys[:-1])):
             raise ValueError("keys must be sorted, strictly increasing (unique)")
+        u64 = _k64.is_u64(keys)
+        if u64 and (gap_rho <= 0.0 or method not in ("pgm", "fiting")):
+            raise ValueError(
+                "64-bit keys (integers at or above 2^53) need a gapped "
+                "build (gap_rho > 0) with method 'pgm' or 'fiting'")
         if payloads is not None:
             payloads = np.asarray(payloads, np.int64)
             if payloads.shape != keys.shape:
@@ -301,7 +325,7 @@ class Index:
             kw = dict(payloads=payloads, rho=gap_rho,
                       sample_rate=sample_rate, rng=rng,
                       refit_factory=refit_factory)
-            if dev.type == "cuda" and method in _place.PLM_METHODS:
+            if (dev.type == "cuda" or u64) and method in _place.PLM_METHODS:
                 gapped = _place.build_gapped_device(factory, keys,
                                                     device=dev, **kw)
             else:
@@ -376,6 +400,9 @@ class Index:
         cached = self._keycap_cache
         if cached is not None and cached[0] == self.epoch:
             return cached[1], cached[2]
+        if self._u64:   # the 64-bit image: wide, exact by construction
+            self._keycap_cache = (self.epoch, True, True, True)
+            return True, True
         from ..kernels import freeze as _fz
         if self.gapped is not None:
             arrs = (self.gapped.slot_key, self.gapped.links.chain_keys)
@@ -465,6 +492,11 @@ class Index:
                         f"backend {requested!r} cannot serve this index: "
                         f"mechanism {self.method!r} does not export a "
                         "piecewise linear model — use 'numpy-oracle'")
+                if self._u64 and spec.name != "fused":
+                    raise ValueError(
+                        f"backend {requested!r} cannot serve this index: "
+                        "its 64-bit keys are served by 'fused' and "
+                        "'numpy-oracle'")
                 wide, exact = self._key_caps()
                 if wide and not spec.wide_keys:
                     raise ValueError(
@@ -614,11 +646,21 @@ class Index:
         """
         with span("lookup"):
             with span("lookup.route"):
-                queries = np.asarray(queries, np.float64)
+                absent = None
+                if self._u64:   # ordered int64, exact (core.keys64)
+                    raw = np.atleast_1d(np.asarray(queries))
+                    queries, absent = _k64.query_ordered(raw)
+                else:
+                    queries = np.asarray(queries, np.float64)
                 spec = self.resolve_backend(queries.shape[0], backend)
                 self.stats["lookups"] += 1
                 engine = self.sync_device() if spec.device else None
             if engine is None:
+                if self._u64:
+                    pay, slots, found = self.gapped.lookup_batch(raw,
+                                                                 full=True)
+                    return host_lookup_result(pay, slots, found, spec.name,
+                                              self.epoch)
                 if self.gapped is not None:
                     pay, slots, found = self.gapped.lookup_batch(
                         queries, full=True)
@@ -643,6 +685,12 @@ class Index:
                 stage = {"fused": "fused", "pallas": "pallas",
                          "xla": "xla-windowed",
                          "oracle": "device-oracle"}[engine.last_stage]
+                if self._u64:
+                    self.stats["lookups_u64"] = (
+                        self.stats.get("lookups_u64", 0) + 1)
+                    if absent is not None:
+                        out = np.where(absent, -1, np.asarray(out))
+                        found = np.asarray(found, bool) & ~absent
                 return LookupResult(
                     payloads=np.asarray(out).astype(np.int64),
                     slots=np.asarray(slot).astype(np.int64),
@@ -940,7 +988,8 @@ class Index:
         REUSING its primitives, after a split-commit attempt."""
         self._need_gapped()
         t0 = time.perf_counter()
-        keys = np.atleast_1d(np.asarray(keys, np.float64))
+        keys = np.atleast_1d(_k64.write_keys(keys, "Index.ingest",
+                                             self._u64))
         payloads = np.atleast_1d(np.asarray(payloads, np.int64))
         prims = None
         placement = "host"
@@ -990,7 +1039,8 @@ class Index:
         """Batched delete; the device state follows lazily (the next
         device lookup delta-updates or refreezes as needed)."""
         self._need_gapped()
-        keys = np.atleast_1d(np.asarray(keys, np.float64))
+        keys = np.atleast_1d(_k64.write_keys(keys, "Index.remove",
+                                             self._u64))
         n = self.gapped.delete_batch(keys)
         self._roll_caps()
         self._log_touch(keys)
@@ -999,6 +1049,7 @@ class Index:
     # scalar host ops (thin delegates; epoch bumps via gapped.version)
     def insert(self, key: float, payload: int) -> str:
         self._need_gapped()
+        _k64.write_keys(np.array([key]), "Index.insert", self._u64)
         path = self.gapped.insert(key, payload)
         self._key_caps_after_batch(np.array([key], np.float64))
         self._log_touch(np.array([key], np.float64))
@@ -1008,12 +1059,14 @@ class Index:
         """Raw batched insert returning §5.3 path counts (host only; use
         ``ingest`` for the typed report + eager device sync)."""
         self._need_gapped()
+        keys = _k64.write_keys(keys, "Index.insert_batch", self._u64)
         counts = self.gapped.insert_batch(keys, payloads)
         self._log_touch(keys)
         return counts
 
     def delete(self, key: float) -> bool:
         self._need_gapped()
+        _k64.write_keys(np.array([key]), "Index.delete", self._u64)
         out = self.gapped.delete(key)
         self._roll_caps()
         self._log_touch(np.array([key], np.float64))
@@ -1021,6 +1074,7 @@ class Index:
 
     def delete_batch(self, keys: np.ndarray) -> int:
         self._need_gapped()
+        keys = _k64.write_keys(keys, "Index.delete_batch", self._u64)
         out = self.gapped.delete_batch(keys)
         self._roll_caps()
         self._log_touch(np.asarray(keys, np.float64))
@@ -1028,6 +1082,7 @@ class Index:
 
     def update(self, key: float, payload: int) -> bool:
         self._need_gapped()
+        _k64.write_keys(np.array([key]), "Index.update", self._u64)
         out = self.gapped.update(key, payload)
         self._roll_caps()  # payload-only: key capabilities unchanged
         return out
@@ -1036,8 +1091,9 @@ class Index:
         """Batched payload update (ONE epoch bump; payload-only, so the
         next device sync is a pure payload-scatter delta)."""
         self._need_gapped()
-        out = self.gapped.update_batch(np.asarray(keys, np.float64),
-                                       np.asarray(payloads, np.int64))
+        out = self.gapped.update_batch(
+            _k64.write_keys(keys, "Index.update_batch", self._u64),
+            np.asarray(payloads, np.int64))
         self._roll_caps()
         return out
 
@@ -1054,10 +1110,16 @@ class Index:
         epoch-keyed cache that refreezes lazily after ``restore``.
         ``wal_lsn`` records the ingest-WAL byte offset this snapshot is
         consistent with (recovery replays only records past it —
-        serving/wal.py).  Returns the published checkpoint directory."""
+        serving/wal.py).  Returns the published checkpoint directory.
+        An index on the 64-bit image writes its keys as uint64 and its
+        slot and chain keys in their ordered int64 form, exactly
+        (``key_image`` "u64" in the manifest), which the reference cannot
+        restore."""
         from ..train.checkpoint import CheckpointManager
+        u64 = self._u64
+        kdt = np.int64 if u64 else np.float64
         state = {
-            "keys": np.asarray(self.keys, np.float64),
+            "keys": np.asarray(self.keys, np.uint64 if u64 else np.float64),
             "mech_pickle": np.frombuffer(
                 _dump_mech(self.mech), np.uint8).copy(),
         }
@@ -1070,15 +1132,17 @@ class Index:
             "epoch": int(self.epoch),
             "wal_lsn": int(wal_lsn),
         }
+        if u64:
+            meta["key_image"] = "u64"
         ga = self.gapped
         if ga is not None:
             offsets, lkeys, lpays = ga.export_csr_links()
             state.update(
-                slot_key=np.asarray(ga.slot_key, np.float64),
+                slot_key=np.asarray(ga.slot_key, kdt),
                 occupied=np.asarray(ga.occupied, bool),
                 payload=np.asarray(ga.payload, np.int64),
                 offsets=np.asarray(offsets, np.int64),
-                chain_keys=np.asarray(lkeys, np.float64),
+                chain_keys=np.asarray(lkeys, kdt),
                 chain_payloads=np.asarray(lpays, np.int64),
             )
             meta["n_keys"] = int(ga.n_keys)
@@ -1111,7 +1175,15 @@ class Index:
         mech = _load_mech(
             np.asarray(state["mech_pickle"], np.uint8).tobytes())
         gapped = None
-        if meta.get("gapped"):
+        u64 = meta.get("key_image") == "u64"
+        if u64:
+            gapped = _k64.GappedArray64.from_arrays(
+                state["slot_key"], state["occupied"], state["payload"],
+                state["offsets"], state["chain_keys"],
+                state["chain_payloads"], mech=mech,
+                n_keys=int(meta["n_keys"]), rho=float(meta["rho"]),
+                version=int(meta["epoch"]))
+        elif meta.get("gapped"):
             slot_key = np.asarray(state["slot_key"], np.float64)
             gapped = _gaps.GappedArray(
                 slot_key=slot_key,
@@ -1126,7 +1198,9 @@ class Index:
                 n_keys=int(meta["n_keys"]),
                 rho=float(meta["rho"]),
                 version=int(meta["epoch"]))
-        idx = cls(keys=np.asarray(state["keys"], np.float64), mech=mech,
+        idx = cls(keys=np.asarray(state["keys"],
+                                  np.uint64 if u64 else np.float64),
+                  mech=mech,
                   method=meta["method"], gapped=gapped,
                   sample_rate=float(meta["sample_rate"]),
                   gap_rho=float(meta["gap_rho"]), device=dev)

@@ -65,6 +65,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..core import keys64 as _k64
 from ..core import sampling as _sampling
 from ..core.handle import Index
 from ..core.results import IngestReport, LookupResult
@@ -242,7 +243,7 @@ class ShardedIndex:
         ``device="cpu"``; without CUDA the default raises).
         """
         dev = resolve_device(device)
-        keys = np.asarray(keys, np.float64)
+        keys = _k64.write_keys(keys, "ShardedIndex.build")
         s = int(shards)
         if keys.ndim != 1:
             raise ValueError("need a 1-D key array")
@@ -372,7 +373,7 @@ class ShardedIndex:
         dispatch where that shard's engine allows; an abort falls back
         to THAT shard's host partition only), and the reports
         aggregate.  Finishes with the rebalance watermark check."""
-        keys = np.atleast_1d(np.asarray(keys, np.float64))
+        keys = np.atleast_1d(_k64.write_keys(keys, "ShardedIndex.ingest"))
         payloads = np.atleast_1d(np.asarray(payloads, np.int64))
         if keys.shape != payloads.shape:
             raise ValueError("payloads must match keys 1:1")

@@ -1,12 +1,16 @@
 """Device half of the port: freeze, window bounds, the lookup engine,
 the write path and the hand-written CUDA kernels.
 
-freeze.py     — padded f32/i32 images (``IndexArrays``) on one device
+freeze.py     — padded f32/i32 images (``IndexArrays``) on one device,
+                and the 64-bit image of exact integer keys (ordered
+                int64 keys, float64 segment lines; ``core/keys64.py``)
 bounds.py     — query-safe window bounds, radix and rank routers, tile
                 sizing
 ref.py        — the device oracle stage and the epilogue, plain torch
 lookup.py     — ``fused_lookup`` (launches csrc/fused_lookup.cu) and
                 ``fused_lookup_plain`` (the same function in torch ops);
+                ``fused_lookup_u64`` / ``fused_lookup_u64_plain``, the
+                same pair over the 64-bit image;
                 ``lookup_kernel`` / ``lookup_kernel_plain``, the legacy
                 narrow-key kernel (csrc/lookup_kernel.cu), and
                 ``lookup_kernel_brackets``, the tile brackets it stages

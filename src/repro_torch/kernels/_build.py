@@ -112,17 +112,18 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def entry(name: str, signature: str):
-    """``<name>_launch`` from ``csrc/<name>.cu`` with its argument types
-    set once: ``signature`` has one letter per argument before the
-    trailing stream (``p`` pointer, ``i`` int, ``f`` float); it returns
-    the CUDA error code as an int."""
-    fn = _entries.get(name)
+def entry(name: str, signature: str, symbol: Optional[str] = None):
+    """``<name>_launch`` (or ``symbol``) from ``csrc/<name>.cu`` with its
+    argument types set once: ``signature`` has one letter per argument
+    before the trailing stream (``p`` pointer, ``i`` int, ``f`` float);
+    it returns the CUDA error code as an int."""
+    symbol = symbol or f"{name}_launch"
+    fn = _entries.get(symbol)
     if fn is None:
-        fn = getattr(load(name), f"{name}_launch")
+        fn = getattr(load(name), symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = [_CTYPES[c] for c in signature] + [ctypes.c_void_p]
-        _entries[name] = fn
+        _entries[symbol] = fn
     return fn
 
 

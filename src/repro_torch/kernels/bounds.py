@@ -6,17 +6,22 @@ numpy copies of ``repro.kernels.ops``' ``query_window_bounds``,
 ``_bisect_trips``, ``_flat_width`` and ``_fused_flat_width``;
 tests/test_torch_freeze.py holds each equal to the reference's.
 ``build_radix_router`` reads ``IndexArrays`` tensors back to the host
-(its only change).
+(its only change).  ``query_window_bounds`` also serves the 64-bit
+image (``core.keys64``): over ordered keys it routes, predicts and
+spans segments with the kernel's exact arithmetic
+(``keys64.exact_dx``); ``build_radix_router_u64`` is that image's
+router.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..core import keys64 as _k64
 from .freeze import split_key_pair
 
-__all__ = ["query_window_bounds", "build_radix_router", "build_rank_router",
-           "auto_q_tile"]
+__all__ = ["query_window_bounds", "build_radix_router",
+           "build_radix_router_u64", "build_rank_router", "auto_q_tile"]
 
 
 def _host(t) -> np.ndarray:
@@ -52,6 +57,26 @@ def build_radix_router(arrays, r_size: int = 1 << 14):
     ).astype(np.int32)
     kmin_hi, kmin_lo = split_key_pair(np.array([kmin]))
     return table, np.array([kmin_hi[0], kmin_lo[0], scale], np.float32)
+
+
+def build_radix_router_u64(arrays, r_size: int = 1 << 14):
+    """``build_radix_router`` of the 64-bit image: ``(table, kmin,
+    scale)`` with ``kmin`` the ordered first segment key (int64) and
+    ``scale`` float64; a query's bucket is ``clip(exact_dx(q, kmin) *
+    scale)``, truncated, as the kernel computes it."""
+    segk = arrays.seg_first_key.detach().cpu().numpy()
+    sk = arrays.slot_key.detach().cpu().numpy()
+    segk = segk[segk != _k64.NO_KEY]
+    sk = sk[sk != _k64.NO_KEY]
+    kmin = segk[:1] if segk.size else np.zeros(1, np.int64)
+    kmax = sk[-1:] if sk.size else kmin
+    scale = (r_size - 1) / max(float(_k64.exact_dx(kmax, kmin)[0]), 1e-9)
+    buckets = np.arange(r_size, dtype=np.float64) / scale
+    table = np.clip(
+        np.searchsorted(_k64.exact_dx(segk, kmin[0]), buckets,
+                        side="right") - 1,
+        0, max(segk.shape[0] - 1, 0)).astype(np.int32)
+    return table, kmin.astype(np.int64), np.array([scale], np.float64)
 
 
 def build_rank_router(slot_key, slot_key_lo=None, r_bits: int = 16,
@@ -130,10 +155,22 @@ def query_window_bounds(index, max_widen: float = 32.0, segments=None,
     """
     plm = index.mech.plm
     K = int(plm.n_segments)
-    first_key = np.asarray(plm.seg_first_key, np.float64)
     slope = np.asarray(plm.slope, np.float64)
     icept = np.asarray(plm.icept, np.float64)
-    x = np.asarray(index.keys, np.float64)
+    if _k64.is_u64(index.keys):   # ordered keys, the kernel's arithmetic
+        first_key = _k64.seg_first_ordered(plm.seg_first_key)
+        x = _k64.to_ordered(index.keys)
+        key_dx = _k64.exact_dx
+
+        def predict(v):
+            return _k64.predict_ordered(plm, v, first_key)[0]
+    else:
+        first_key = np.asarray(plm.seg_first_key, np.float64)
+        x = np.asarray(index.keys, np.float64)
+        predict = index.mech.predict
+
+        def key_dx(a, b):
+            return a - b
     n = x.shape[0]
     if segments is None:
         seg_list = np.arange(K)
@@ -154,11 +191,12 @@ def query_window_bounds(index, max_widen: float = 32.0, segments=None,
     # key span per segment via key-boundary bisection (keys below the
     # first boundary clip into segment 0, matching plm.segment_of)
     b_lo_arr = first_key[seg_list]
-    b_hi_arr = np.where(seg_list + 1 < K,
-                        first_key[np.minimum(seg_list + 1, K - 1)], np.inf)
+    has_hi = seg_list + 1 < K    # the last segment has no upper boundary
+    b_hi_arr = first_key[np.minimum(seg_list + 1, K - 1)]
     i0_arr = np.where(seg_list == 0, 0,
                       np.searchsorted(x, b_lo_arr, side="left"))
-    i1_arr = np.searchsorted(x, b_hi_arr, side="left") - 1
+    i1_arr = np.where(has_hi, np.searchsorted(x, b_hi_arr, side="left"),
+                      n) - 1
 
     # slots + predictions only for the involved keys (each segment's
     # span plus its predecessor key)
@@ -177,19 +215,19 @@ def query_window_bounds(index, max_widen: float = 32.0, segments=None,
                                            side="right") - 1)
         else:
             slot_g[inv] = inv
-        y_g[inv] = np.asarray(index.mech.predict(x[inv]), np.float64)
+        y_g[inv] = np.asarray(predict(x[inv]), np.float64)
 
     def yhat_at(s, v):  # segment s's line evaluated at key value v
-        return slope[s] * (v - first_key[s]) + icept[s]
+        return slope[s] * key_dx(v, first_key[s]) + icept[s]
 
     for j, s in enumerate(seg_list):
         i0, i1 = int(i0_arr[j]), int(i1_arr[j])
         has_keys = i0 <= i1 and i0 < n
         p = i0 - 1  # last key strictly before segment s
-        b_lo, b_hi = b_lo_arr[j], b_hi_arr[j]
+        b_lo, b_hi, hi_ok = b_lo_arr[j], b_hi_arr[j], bool(has_hi[j])
         if slope[s] < 0:  # non-monotone line: conservative widening
             span = abs(slope[s]) * (
-                (b_hi - b_lo) if np.isfinite(b_hi) else 0.0)
+                float(key_dx(b_hi, b_lo)) if hi_ok else 0.0)
             err_lo[s] -= span
             err_hi[s] += span
             continue
@@ -201,10 +239,10 @@ def query_window_bounds(index, max_widen: float = 32.0, segments=None,
             if p >= 0:
                 err_lo[s] = min(err_lo[s], slot_g[p] - y_g[i0])
                 err_hi[s] = max(err_hi[s], slot_g[p] - yhat_at(s, b_lo))
-            if np.isfinite(b_hi):
+            if hi_ok:
                 err_lo[s] = min(err_lo[s], slot_g[i1] - yhat_at(s, b_hi))
         elif p >= 0:
-            if np.isfinite(b_hi):
+            if hi_ok:
                 err_lo[s] = min(err_lo[s], slot_g[p] - yhat_at(s, b_hi))
             err_hi[s] = max(err_hi[s], slot_g[p] - yhat_at(s, b_lo))
     if max_widen is not None:

@@ -16,6 +16,19 @@
 //
 // Compares are lexicographic on f32 (hi, lo) pairs when key_wide.
 //
+// fused_lookup64_kernel (entry fused_lookup64_launch) is the same
+// function over the 64-bit image: ordered int64 keys (the unsigned key
+// with its top bit flipped, so signed order is key order), compared
+// exactly in one op, and float64 segment lines.  The radix bucket and
+// the window base are taken from the exact difference q - k as
+// (q_hi - k_hi) * 2^32 + (q_lo - k_lo), two exact doubles summed, so
+// rounded once (exact_dx, as core/keys64.py computes it on the host).
+// Its flat rank is the coalesced count above on whole keys (a tie needs
+// no second load); whole-window mode bisects the window in place.
+// Queries equal to the no-key sentinel (INT64_MAX) are padding.  The
+// two kernels share their epilogue and compaction (the templates
+// epilogue and compact, over a key policy: F32Keys, I64Keys).
+//
 // What bounds it on this card: the latency of dependent DRAM gathers,
 // and the bytes of the windows.  A query waits on a chain of reads
 // (radix table -> segment tables -> window keys -> payload or CSR
@@ -136,6 +149,121 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n,
   } else {
     for (int k = t; k < n; k += nt) dst[k] = __ldg(src + k);
   }
+}
+
+// The keys the epilogue compares, one policy per image: f32 keys (an f32
+// (hi, lo) pair when key_wide; the window may sit in shared memory) ...
+struct F32Keys {
+  const float* wh;          // the tile's window: hi (or only) halves
+  const float* wl;          // lo halves when key_wide
+  const float* lk;
+  const float* lkl;
+  float q, ql;
+  int key_wide;
+  __device__ __forceinline__ bool window_eq(int s) const {
+    return wh[s] == q && (!key_wide || wl[s] == ql);
+  }
+  __device__ __forceinline__ bool link_le(int m) const {
+    return ple(__ldg(lk + m), key_wide ? __ldg(lkl + m) : 0.0f, q, ql,
+               key_wide);
+  }
+  __device__ __forceinline__ bool link_eq(int m) const {
+    return __ldg(lk + m) == q && (!key_wide || __ldg(lkl + m) == ql);
+  }
+};
+
+// ... and ordered int64 keys (the 64-bit image), compared in one op.
+struct I64Keys {
+  const long long* wk;      // the tile's window
+  const long long* lk;
+  long long q;
+  __device__ __forceinline__ bool window_eq(int s) const {
+    return __ldg(wk + s) == q;
+  }
+  __device__ __forceinline__ bool link_le(int m) const {
+    return __ldg(lk + m) <= q;
+  }
+  __device__ __forceinline__ bool link_eq(int m) const {
+    return __ldg(lk + m) == q;
+  }
+};
+
+// Both kernels' epilogue for query i of a live tile: found (from the
+// flat count when found_known, else the key at slot), payload, the CSR
+// chain bisect of a.trips trips when not found, and the five outputs.
+template <class A, class K>
+__device__ __forceinline__ void epilogue(const A& a, const K& k, int i,
+                                         int base, int slot, bool fb,
+                                         bool found_known, bool found_flat) {
+  const int two_w = 2 * a.w_tile;
+  const int sloc = slot - base;
+  const bool okx = slot >= 0 && sloc >= 0 && sloc < two_w;
+  const int slc = min(max(sloc, 0), two_w - 1);
+  const bool found = found_known ? okx && found_flat
+                                 : okx && k.window_eq(slc);
+  int out = found ? __ldg(a.pay + base + slc) : -1;
+  int out_hi = (a.wide && found) ? __ldg(a.payhi + base + slc) : -1;
+  bool resolved = found;
+  if (a.trips > 0 && okx && !found) {
+    const int start = __ldg(a.off + base + slc);
+    const int end = __ldg(a.off + base + slc + 1);
+    if (end > start) {
+      const int l_max = a.l_size - 1;
+      int lo = start - 1, hi = end - 1;
+      for (int trip = 0; trip < a.trips && lo < hi; ++trip) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (k.link_le(min(max(mid, 0), l_max))) lo = mid; else hi = mid - 1;
+      }
+      const int locc = min(max(lo, 0), l_max);
+      if (lo >= start && k.link_eq(locc)) {
+        out = __ldg(a.lp + locc);
+        if (a.wide) out_hi = __ldg(a.lph + locc);
+        resolved = true;
+      }
+    }
+  }
+  a.slot[i] = slot;
+  a.res[i] = resolved ? 1 : 0;
+  a.out[i] = out;
+  if (a.wide) a.outhi[i] = out_hi;
+  a.fb[i] = fb ? 1 : 0;
+}
+
+// Both kernels' per-tile compaction of the escape flags into fb_loc /
+// fb_cnt: ballot + prefix over the tile's warps (a one-warp tile by
+// ballot alone, with no CTA barrier).  Every thread of the CTA calls it.
+template <class A>
+__device__ __forceinline__ void compact(const A& a, int* warp_cnt, int t,
+                                        int tl, int loc, int tile, bool live,
+                                        bool fb) {
+  const int qt = a.q_tile;
+  const int lane = t & 31;
+  const unsigned mask = __ballot_sync(kFull, fb);
+  if (qt == 32) {                           // one warp, no barrier
+    if (!live) return;
+    int* tile_loc = a.fbloc + static_cast<size_t>(tile) * 32;
+    const int count = __popc(mask);
+    if (fb) tile_loc[__popc(mask & ((1u << lane) - 1u))] = loc;
+    if (loc >= count) tile_loc[loc] = 32;
+    if (loc == 0) a.fbcnt[tile] = count;
+    return;
+  }
+  const int warp = t >> 5;
+  if (lane == 0) warp_cnt[warp] = __popc(mask);
+  __syncthreads();
+  if (!live) return;
+  const int w0 = (tl * qt) >> 5;            // the tile's first warp
+  const int n_warps = qt >> 5;
+  int before = 0, count = 0;
+  for (int w = 0; w < n_warps; ++w) {
+    const int c = warp_cnt[w0 + w];
+    before += (w0 + w < warp) ? c : 0;
+    count += c;
+  }
+  int* tile_loc = a.fbloc + static_cast<size_t>(tile) * qt;
+  if (fb) tile_loc[before + __popc(mask & ((1u << lane) - 1u))] = loc;
+  if (loc >= count) tile_loc[loc] = qt;
+  if (loc == 0) a.fbcnt[tile] = count;
 }
 
 template <int kMaxThreads, int kMinBlocks>
@@ -269,79 +397,10 @@ fused_lookup_kernel(Args a) {
       fb = (rank == 0 && base > 0) || rank == two_w;
     }
     fb = fb && finite;
-
-    // ---- epilogue: found + payload + CSR chain bisect ----------------
-    const int sloc = slot - base;
-    const bool okx = slot >= 0 && sloc >= 0 && sloc < two_w;
-    const int slc = min(max(sloc, 0), two_w - 1);
-    bool found;
-    if (found_known) {
-      found = okx && found_flat;
-    } else {
-      found = okx && wh[slc] == q;
-      if (a.key_wide) found = found && wl[slc] == ql;
-    }
-    int out = found ? __ldg(a.pay + base + slc) : -1;
-    int out_hi = (a.wide && found) ? __ldg(a.payhi + base + slc) : -1;
-    bool resolved = found;
-    if (a.trips > 0 && okx && !found) {
-      const int start = __ldg(a.off + base + slc);
-      const int end = __ldg(a.off + base + slc + 1);
-      if (end > start) {
-        const int l_max = a.l_size - 1;
-        int lo = start - 1, hi = end - 1;
-        for (int trip = 0; trip < a.trips && lo < hi; ++trip) {
-          const int mid = (lo + hi + 1) >> 1;
-          const int midc = min(max(mid, 0), l_max);
-          const float kh = __ldg(a.lk + midc);
-          const float kl = a.key_wide ? __ldg(a.lkl + midc) : 0.0f;
-          if (ple(kh, kl, q, ql, a.key_wide)) lo = mid; else hi = mid - 1;
-        }
-        const int locc = min(max(lo, 0), l_max);
-        bool eq = __ldg(a.lk + locc) == q;
-        if (a.key_wide) eq = eq && __ldg(a.lkl + locc) == ql;
-        if (lo >= start && eq) {
-          out = __ldg(a.lp + locc);
-          if (a.wide) out_hi = __ldg(a.lph + locc);
-          resolved = true;
-        }
-      }
-    }
-
-    a.slot[i] = slot;
-    a.res[i] = resolved ? 1 : 0;
-    a.out[i] = out;
-    if (a.wide) a.outhi[i] = out_hi;
-    a.fb[i] = fb ? 1 : 0;
+    const F32Keys k{wh, wl, a.lk, a.lkl, q, ql, a.key_wide};
+    epilogue(a, k, i, base, slot, fb, found_known, found_flat);
   }
-
-  // ---- per-tile compaction: ballot + prefix over the tile's warps -----
-  const unsigned mask = __ballot_sync(kFull, fb);
-  if (qt == 32) {                           // one warp, no barrier
-    if (!live) return;
-    int* tile_loc = a.fbloc + static_cast<size_t>(tile) * 32;
-    const int count = __popc(mask);
-    if (fb) tile_loc[__popc(mask & ((1u << lane) - 1u))] = loc;
-    if (loc >= count) tile_loc[loc] = 32;
-    if (loc == 0) a.fbcnt[tile] = count;
-    return;
-  }
-  const int warp = t >> 5;
-  if (lane == 0) warp_cnt[warp] = __popc(mask);
-  __syncthreads();
-  if (!live) return;
-  const int w0 = (tl * qt) >> 5;            // the tile's first warp
-  const int n_warps = qt >> 5;
-  int before = 0, count = 0;
-  for (int w = 0; w < n_warps; ++w) {
-    const int c = warp_cnt[w0 + w];
-    before += (w0 + w < warp) ? c : 0;
-    count += c;
-  }
-  int* tile_loc = a.fbloc + static_cast<size_t>(tile) * qt;
-  if (fb) tile_loc[before + __popc(mask & ((1u << lane) - 1u))] = loc;
-  if (loc >= count) tile_loc[loc] = qt;
-  if (loc == 0) a.fbcnt[tile] = count;
+  compact(a, warp_cnt, t, tl, loc, tile, live, fb);
 }
 
 }  // namespace
@@ -415,6 +474,204 @@ extern "C" int fused_lookup_launch(
   if (num_tiles > 0) {
     const int ctas = (num_tiles + tiles_per_cta - 1) / tiles_per_cta;
     kernel<<<ctas, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------
+// The 64-bit image: ordered int64 keys, float64 segment lines.
+// ---------------------------------------------------------------------
+
+namespace {
+
+constexpr long long kNoKey = 0x7fffffffffffffffLL;
+
+struct Args64 {
+  const long long* q;         // (Qpad,) sorted, kNoKey padded
+  const int* tile_block;      // (Qpad / q_tile,)
+  const int* radix_table;     // (r_size,)
+  const long long* radix_key; // (1,) kmin
+  const double* radix_scale;  // (1,)
+  const long long* segk;      // (Kpad,)
+  const double* slope;        // (Kpad,)
+  const double* iclo;         // (Kpad,) icept + err_lo - 1
+  const long long* sk;        // (Mpad,)
+  const int* pay;             // (Mpad,)
+  const int* payhi;           // (Mpad,) when wide
+  const int* off;             // (Mpad + w_tile,)
+  const long long* lk;        // (Lpad,)
+  const int* lp;              // (Lpad,)
+  const int* lph;             // (Lpad,) when wide
+  int* slot;
+  int* res;
+  int* out;
+  int* outhi;
+  uint8_t* fb;
+  int* fbloc;
+  int* fbcnt;
+  int num_tiles;
+  int q_tile;
+  int tiles_per_cta;
+  int r_size;
+  int l_size;
+  int w_tile;
+  int flat_w;
+  int trips;
+  int slot_hi;                // n_slots - 1, the clip bound
+  int wide;
+};
+
+// float64(a - b), rounded once (see the header)
+__device__ __forceinline__ double exact_dx(long long a, long long b) {
+  const double hi = (double)((a >> 32) - (b >> 32));
+  const double lo = (double)((a & 0xffffffffLL) - (b & 0xffffffffLL));
+  return __dadd_rn(__dmul_rn(hi, 4294967296.0), lo);
+}
+
+__device__ __forceinline__ double clip_d(double v, double hi) {
+  // fmax maps NaN to 0, as torch.clamp + nan_to_num does
+  return fmin(fmax(v, 0.0), hi);
+}
+
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+fused_lookup64_kernel(Args64 a) {
+  __shared__ int warp_cnt[kMaxWarps];
+  const int qt = a.q_tile;
+  const int t = threadIdx.x;
+  const int tl = t / qt;
+  const int loc = t - tl * qt;
+  const int tile = blockIdx.x * a.tiles_per_cta + tl;
+  const bool live = tile < a.num_tiles;
+  const int lane = t & 31;
+  const int two_w = 2 * a.w_tile;
+  const int base = live ? __ldg(a.tile_block + tile) * a.w_tile : 0;
+  const long long* wk = a.sk + base;
+
+  const int i = tile * qt + loc;
+  int slot = 0;
+  bool fb = false;
+  bool found_known = false, found_flat = false;
+  if (live) {
+    const long long q = __ldg(a.q + i);
+    const bool real = q != kNoKey;
+
+    if (a.flat_w > 0) {
+      const double x = exact_dx(q, __ldg(a.radix_key));
+      const int bkt = (int)clip_d(__dmul_rn(x, __ldg(a.radix_scale)),
+                                  (double)(a.r_size - 1));
+      const int seg = __ldg(a.radix_table + bkt);
+      const double v = floor(__dadd_rn(
+          __dmul_rn(__ldg(a.slope + seg), exact_dx(q, __ldg(a.segk + seg))),
+          __ldg(a.iclo + seg)));
+      const int lo0 = (int)clip_d(v, (double)a.slot_hi);
+      const int loc0 = lo0 - base;
+
+      // rank = the count of window keys <= q: full rounds count one
+      // query's 32 consecutive keys at a time across the warp
+      int rank = 0;
+      bool anyeq = false;
+      const int full = (a.flat_w + 1) >> 5;
+      for (int r = 0; r < full; ++r) {
+#pragma unroll 2
+        for (int s = 0; s < 32; ++s) {
+          const long long qs = __shfl_sync(kFull, q, s);
+          const int idx = __shfl_sync(kFull, loc0, s) + (r << 5) + lane;
+          const bool inb = idx >= 0 && idx < two_w;
+          const long long kv = inb ? __ldg(wk + idx) : 0;
+          const int c = __popc(__ballot_sync(kFull, inb && kv <= qs));
+          const unsigned eq = __ballot_sync(kFull, inb && kv == qs);
+          if (lane == s) {
+            rank += c;
+            anyeq = anyeq || eq != 0u;
+          }
+        }
+      }
+      for (int j = full << 5; j <= a.flat_w; ++j) {
+        const int idx = loc0 + j;
+        if (idx >= 0 && idx < two_w) {
+          const long long kv = __ldg(wk + idx);
+          if (kv <= q) {
+            ++rank;
+            anyeq = anyeq || kv == q;
+          }
+        }
+      }
+      slot = lo0 - 1 + min(rank, a.flat_w);
+      const bool window_ok = loc0 >= 0 && loc0 + a.flat_w + 1 <= two_w;
+      fb = (rank == 0 && lo0 > 0) || rank == a.flat_w + 1 || !window_ok;
+      found_known = loc0 >= 0 && rank >= 1 && rank <= a.flat_w;
+      found_flat = anyeq;
+    } else {
+      int lo = 0, hi = two_w;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (__ldg(wk + mid) <= q) lo = mid + 1; else hi = mid;
+      }
+      slot = base + lo - 1;
+      fb = (lo == 0 && base > 0) || lo == two_w;
+    }
+    fb = fb && real;
+    const I64Keys k{wk, a.lk, q};
+    epilogue(a, k, i, base, slot, fb, found_known, found_flat);
+  }
+  compact(a, warp_cnt, t, tl, loc, tile, live, fb);
+}
+
+}  // namespace
+
+// The 64-bit image's launch: ``outs`` and ``fb`` as fused_lookup_launch
+// lays them out; no shared memory beyond the warp counts.
+extern "C" int fused_lookup64_launch(
+    const void* q, const void* tile_block, const void* radix_table,
+    const void* radix_key, const void* radix_scale, const void* segk,
+    const void* slope, const void* iclo, const void* sk, const void* pay,
+    const void* payhi, const void* off, const void* lk, const void* lp,
+    const void* lph, void* outs, void* fb, int num_tiles, int q_tile,
+    int tiles_per_cta, int r_size, int l_size, int w_tile, int flat_w,
+    int trips, int slot_hi, int wide, void* stream) {
+  Args64 a;
+  a.q = static_cast<const long long*>(q);
+  a.tile_block = static_cast<const int*>(tile_block);
+  a.radix_table = static_cast<const int*>(radix_table);
+  a.radix_key = static_cast<const long long*>(radix_key);
+  a.radix_scale = static_cast<const double*>(radix_scale);
+  a.segk = static_cast<const long long*>(segk);
+  a.slope = static_cast<const double*>(slope);
+  a.iclo = static_cast<const double*>(iclo);
+  a.sk = static_cast<const long long*>(sk);
+  a.pay = static_cast<const int*>(pay);
+  a.payhi = static_cast<const int*>(payhi);
+  a.off = static_cast<const int*>(off);
+  a.lk = static_cast<const long long*>(lk);
+  a.lp = static_cast<const int*>(lp);
+  a.lph = static_cast<const int*>(lph);
+  const size_t n = static_cast<size_t>(num_tiles) * q_tile;
+  int* o = static_cast<int*>(outs);
+  a.slot = o;
+  a.res = o + n;
+  a.out = o + 2 * n;
+  a.fbloc = o + 3 * n;
+  a.fbcnt = o + 4 * n;
+  a.outhi = o + 4 * n + num_tiles;
+  a.fb = static_cast<uint8_t*>(fb);
+  a.num_tiles = num_tiles;
+  a.q_tile = q_tile;
+  a.tiles_per_cta = tiles_per_cta;
+  a.r_size = r_size;
+  a.l_size = l_size;
+  a.w_tile = w_tile;
+  a.flat_w = flat_w;
+  a.trips = trips;
+  a.slot_hi = slot_hi;
+  a.wide = wide;
+  const int threads = tiles_per_cta * q_tile;
+  void (*kernel)(Args64) = threads <= kSmallCta
+      ? fused_lookup64_kernel<kSmallCta, kSmallCtaPerSm>
+      : fused_lookup64_kernel<kMaxWarps * 32, 1>;
+  if (num_tiles > 0) {
+    const int ctas = (num_tiles + tiles_per_cta - 1) / tiles_per_cta;
+    kernel<<<ctas, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -71,7 +71,8 @@ def freeze_state(index, device, *, w_tile: int = 2048,
     the seconds of each stage: ``images`` (the padded host images),
     ``upload`` (to the device), ``bounds`` (the query-safe window
     bounds), ``routers`` (the engine: its bounds upload and its radix
-    and rank routers) and ``mirror`` (the host mirror's copies)."""
+    and rank routers) and ``mirror`` (the host mirror's copies).  The
+    64-bit image serves no write, so its mirror holds no copies."""
     from .ops import QueryEngine
     with span("freeze.images", stages):
         np_arrays, statics = freeze_numpy_headroom(index, w_tile=w_tile,
@@ -87,11 +88,12 @@ def freeze_state(index, device, *, w_tile: int = 2048,
         ga = getattr(index, "gapped", None)
         total = ga.links.total if ga is not None else 0
         n_keys = ga.n_keys if ga is not None else int(index.keys.shape[0])
-        images = {f: np_arrays[f].copy() for f in DELTA_FIELDS
-                  if np_arrays[f].size}
-        mirror = HostMirror(sources=snapshot_sources(index), images=images,
-                            statics=statics, links_at_freeze=total,
-                            n_keys_at_freeze=n_keys)
+        u64 = arrays.key_u64
+        images = {} if u64 else {f: np_arrays[f].copy()
+                                 for f in DELTA_FIELDS if np_arrays[f].size}
+        mirror = HostMirror(sources={} if u64 else snapshot_sources(index),
+                            images=images, statics=statics,
+                            links_at_freeze=total, n_keys_at_freeze=n_keys)
     return engine, mirror
 
 

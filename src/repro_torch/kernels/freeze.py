@@ -10,6 +10,12 @@ Keys that exceed f32 exactness (> 2^24) ride an (hi, lo) f32 pair with
 ``lo = key - f64(hi)``: lexicographic pair order is numeric order, and
 the pair is exact for integer keys below 2^48.  Payloads wider than
 int32 ride an i32 (lo, hi) pair.
+
+64-bit keys (``core.keys64``) take a third image, ``key_u64``: the slot,
+chain and segment first keys as ordered int64 (``NO_KEY`` padded), the
+segment slopes and intercepts as float64, no ``*_lo`` halves
+(``_freeze_numpy_u64``).  It is 8 B a key, as the pair is.  The numpy
+helpers above it stay the reference's.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..core import keys64 as _k64
 
 __all__ = ["IndexArrays", "freeze_numpy_headroom", "keys_need_pair",
            "keys_pair_exact", "pair_alias_free", "split_key_pair"]
@@ -109,6 +117,10 @@ def _freeze_numpy(index, *, w_tile: int = 2048, seg_chunk: int = 512,
     plm = getattr(index.mech, "plm", None)
     if plm is None:
         raise ValueError("mechanism does not export a piecewise linear model")
+    if isinstance(index.gapped, _k64.GappedArray64):
+        return _freeze_numpy_u64(index, w_tile=w_tile, seg_chunk=seg_chunk,
+                                 max_chain=max_chain, link_cap=link_cap,
+                                 force_wide=force_wide)
     if index.gapped is not None:
         ga = index.gapped
         slot_key = np.asarray(ga.slot_key, np.float64)
@@ -218,11 +230,87 @@ def _freeze_numpy(index, *, w_tile: int = 2048, seg_chunk: int = 512,
     return arrays, statics
 
 
+def _freeze_numpy_u64(index, *, w_tile, seg_chunk, max_chain, link_cap,
+                      force_wide):
+    """``_freeze_numpy`` of a ``keys64.GappedArray64``: the 64-bit image
+    (see the module doc), the same shapes, capacities and payload
+    halves as the float images."""
+    plm = index.mech.plm
+    ga = index.gapped
+    payload = np.asarray(ga.payload, np.int64)
+    offsets, lkeys, lpay = ga.export_csr_links()
+    chain = ga.links.max_chain
+    live = payload[np.asarray(ga.occupied, bool)]
+    if max_chain is None:
+        max_chain = int(chain)
+    elif chain > max_chain:
+        raise _CapacityError(f"max_chain {chain} > frozen {max_chain}")
+    wide = bool(
+        (live.size and (live.min() < _I32_MIN or live.max() > _I32_MAX))
+        or (lpay.size and (lpay.min() < _I32_MIN or lpay.max() > _I32_MAX))
+    )
+    if force_wide is not None:
+        if wide and not force_wide:
+            raise _CapacityError("payloads outgrew the narrow i32 freeze")
+        wide = force_wide
+    if link_cap is None:
+        link_cap = int(lkeys.shape[0])
+    elif lkeys.shape[0] > link_cap:
+        raise _CapacityError(
+            f"links {lkeys.shape[0]} > frozen capacity {link_cap}")
+    no_key = _k64.NO_KEY
+    n_slots = ga.n_slots
+    skp = _pad_pow(np.asarray(ga.slot_key, np.int64), w_tile, no_key)
+    skp = np.concatenate([skp, np.full(w_tile, no_key, np.int64)])
+    pay_lo, pay_hi = _split_i64(payload)
+    m_extra = skp.shape[0] - pay_lo.shape[0]
+    pay_lo = np.concatenate([pay_lo, np.full(m_extra, -1, np.int32)])
+    pay_hi = np.concatenate([pay_hi, np.full(m_extra, -1, np.int32)])
+    l_extra = link_cap - lkeys.shape[0]
+    lk = np.concatenate([np.asarray(lkeys, np.int64),
+                         np.full(l_extra, no_key, np.int64)])
+    lpay_lo, lpay_hi = _split_i64(lpay)
+    lpay_lo = np.concatenate([lpay_lo, np.full(l_extra, -1, np.int32)])
+    lpay_hi = np.concatenate([lpay_hi, np.full(l_extra, -1, np.int32)])
+    offp = np.concatenate(
+        [offsets, np.full(skp.shape[0] + w_tile - offsets.shape[0],
+                          offsets[-1])]).astype(np.int32)
+    none32f = np.zeros(0, np.float32)
+    none32i = np.zeros(0, np.int32)
+    arrays = {
+        "seg_first_key": _pad_pow(_k64.seg_first_ordered(plm.seg_first_key),
+                                  seg_chunk, no_key),
+        "seg_first_key_lo": none32f,
+        "seg_slope": _pad_pow(np.asarray(plm.slope, np.float64), seg_chunk,
+                              0.0),
+        "seg_icept": _pad_pow(np.asarray(plm.icept, np.float64), seg_chunk,
+                              float(n_slots - 1)),
+        "seg_slope_lo": none32f,
+        "seg_icept_lo": none32f,
+        "slot_key": skp,
+        "slot_key_lo": none32f,
+        "payload": pay_lo,
+        "payload_hi": pay_hi if wide else none32i,
+        "link_offsets": offp,
+        "link_keys": lk,
+        "link_keys_lo": none32f,
+        "link_payloads": lpay_lo,
+        "link_payload_hi": lpay_hi if wide else none32i,
+    }
+    statics = {"n_slots": n_slots, "max_chain": int(max_chain),
+               "wide": wide, "key_wide": False, "key_u64": True,
+               "w_tile": w_tile, "seg_chunk": seg_chunk,
+               "link_cap": int(link_cap)}
+    return arrays, statics
+
+
 @dataclasses.dataclass(frozen=True)
 class IndexArrays:
     """Frozen device-side index state: f32/i32 tensors on one device.
 
     Narrow builds keep the ``*_lo`` / ``*_hi`` tensors zero-length.
+    The 64-bit image (``key_u64``) holds the key tensors as ordered
+    int64 and the segment lines as float64 (see the module doc).
     """
 
     seg_first_key: torch.Tensor     # (Kpad,) f32, +inf padded
@@ -244,6 +332,7 @@ class IndexArrays:
     max_chain: int
     wide: bool
     key_wide: bool
+    key_u64: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -261,6 +350,7 @@ def to_device(arrays: dict, statics: dict, device) -> IndexArrays:
            for f in _NP_FIELDS},
         n_slots=statics["n_slots"], max_chain=statics["max_chain"],
         wide=statics["wide"], key_wide=statics["key_wide"],
+        key_u64=statics.get("key_u64", False),
     )
 
 

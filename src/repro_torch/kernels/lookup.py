@@ -15,6 +15,14 @@ raises on anything the kernel does not take; for CPU tensors it runs
 ``fused_lookup_plain``, which computes the same function with torch
 ops.  ``fused_lookup.launches`` counts kernel launches.
 
+``fused_lookup_u64`` / ``fused_lookup_u64_plain`` are the same pair for
+the 64-bit image (``freeze.IndexArrays.key_u64``): the same function
+over ordered int64 keys (``core.keys64``), compared exactly, with the
+window base taken from ``keys64.exact_dx`` and float64 segment lines
+(``window_base_u64``); ``keys64.NO_KEY`` pads the queries.  Its kernel,
+``fused_lookup64_kernel`` in the same source, has a name of its own in
+a trace.
+
 ``lookup_kernel`` / ``lookup_kernel_plain`` are the same pair for the
 legacy narrow-key kernel ``csrc/lookup_kernel.cu``, the counterpart of
 ``repro.kernels.lookup.lookup_kernel_call`` (the TPU kernel
@@ -31,12 +39,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.keys64 import NO_KEY
 from . import _build
 from .ref import _bisect, _ple
 
 __all__ = ["fused_launch_shape", "fused_lookup", "fused_lookup_plain",
-           "lookup_kernel", "lookup_kernel_brackets", "lookup_kernel_plain",
-           "window_base"]
+           "fused_lookup_u64", "fused_lookup_u64_plain", "lookup_kernel",
+           "lookup_kernel_brackets", "lookup_kernel_plain", "window_base",
+           "window_base_u64"]
 
 _ARG_NAMES = ("queries_sorted", "queries_lo", "tile_block", "radix_table",
               "radix_scale", "seg_first_key", "seg_first_key_lo",
@@ -253,23 +263,36 @@ def fused_lookup_plain(
     """The kernel's function in plain torch ops on any device: the
     same arithmetic in the same order, one query per row."""
     del win_chunk
-    q, ql = queries_sorted, queries_lo
-    sk, skl = slot_key_padded, slot_key_lo
+    lo0 = (window_base(queries_sorted, queries_lo, radix_table, radix_scale,
+                       seg_first_key, seg_first_key_lo, seg_slope,
+                       icept_lo_fold, n_slots=n_slots, key_wide=key_wide)
+           if flat_w else None)
+    return _search_plain(
+        queries_sorted, queries_lo, lo0, torch.isfinite(queries_sorted),
+        tile_block, slot_key_padded, slot_key_lo, payload, payload_hi,
+        link_offsets, link_keys, link_keys_lo, link_payloads,
+        link_payload_hi, q_tile=q_tile, w_tile=w_tile, flat_w=flat_w,
+        max_chain=max_chain, key_wide=key_wide, wide=wide)
+
+
+def _search_plain(q, ql, lo0, finite, tile_block, sk, skl, payload,
+                  payload_hi, link_offsets, link_keys, link_keys_lo,
+                  link_payloads, link_payload_hi, *, q_tile, w_tile, flat_w,
+                  max_chain, key_wide, wide):
+    """Both kernels' search, epilogue and compaction from the window
+    base ``lo0`` (flat mode) and the mask of real queries ``finite``:
+    compares are the keys' own (f32, an f32 pair, or ordered int64)."""
     dev = q.device
     n_q = q.shape[0]
     num_tiles = n_q // q_tile
     two_w = 2 * w_tile
     base = (tile_block.long() * w_tile).repeat_interleave(q_tile)
-    finite = torch.isfinite(q)
 
     def wgather(arr, loc):
         """Gather at window-local ``loc`` (pre-clipped to [0, 2w))."""
         return arr[base.view(-1, *([1] * (loc.dim() - 1))) + loc]
 
     if flat_w:
-        lo0 = window_base(q, ql, radix_table, radix_scale, seg_first_key,
-                          seg_first_key_lo, seg_slope, icept_lo_fold,
-                          n_slots=n_slots, key_wide=key_wide)
         loc0 = lo0 - base
         idxl = loc0[:, None] + torch.arange(flat_w + 1, device=dev)
         inb = (idxl >= 0) & (idxl < two_w)
@@ -346,6 +369,177 @@ def fused_lookup_plain(
     fb_loc[t_idx, pos[t_idx, j_idx]] = j_idx.int()
     return (slot.int(), resolved.int(), out, out_hi, fb, fb_loc.view(-1),
             fb_cnt)
+
+
+# ---------------------------------------------------------------------------
+# the 64-bit image (ordered int64 keys)
+# ---------------------------------------------------------------------------
+
+_U64_ARG_NAMES = ("queries_sorted", "tile_block", "radix_table",
+                  "radix_key", "radix_scale", "seg_first_key", "seg_slope",
+                  "icept_lo_fold", "slot_key_padded", "payload",
+                  "payload_hi", "link_offsets", "link_keys",
+                  "link_payloads", "link_payload_hi")
+_U64_ARG_DTYPES = (torch.int64, torch.int32, torch.int32, torch.int64,
+                   torch.float64, torch.int64, torch.float64, torch.float64,
+                   torch.int64, torch.int32, torch.int32, torch.int32,
+                   torch.int64, torch.int32, torch.int32)
+
+
+def exact_dx(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``core.keys64.exact_dx`` in torch ops: ``float64(a - b)`` of
+    ordered int64 keys, rounded once."""
+    hi = ((a >> 32) - (b >> 32)).double() * 4294967296.0
+    return hi + ((a & 0xFFFFFFFF) - (b & 0xFFFFFFFF)).double()
+
+
+def window_line_u64(q, radix_table, radix_key, radix_scale, seg_first_key,
+                    seg_slope, icept_lo_fold):
+    """The 64-bit image's window line per query (float64): the radix
+    bucket ``clip(exact_dx(q, kmin) * scale)``, truncated, then ``slope
+    * exact_dx(q, seg_first_key) + icept_fold`` of its segment, one
+    separate op a step (the kernel's arithmetic)."""
+    bkt = _clip(exact_dx(q, radix_key[0]) * radix_scale[0],
+                float(radix_table.shape[0] - 1)).long()
+    seg = radix_table[bkt].long()
+    return (seg_slope[seg] * exact_dx(q, seg_first_key[seg])
+            + icept_lo_fold[seg])
+
+
+def window_base_u64(q, radix_table, radix_key, radix_scale, seg_first_key,
+                    seg_slope, icept_lo_fold, *, n_slots: int):
+    """``window_base`` of the 64-bit image (int64): ``lo0 =
+    clip(floor(window_line_u64(...)))``."""
+    v = window_line_u64(q, radix_table, radix_key, radix_scale,
+                        seg_first_key, seg_slope, icept_lo_fold)
+    return _clip(torch.floor(v), float(n_slots - 1)).long()
+
+
+def _check_u64(args, *, q_tile, w_tile, flat_w, wide):
+    dev = _build.check_1d(args, _U64_ARG_NAMES, _U64_ARG_DTYPES, "queries")
+    (q, tile_block, radix_table, radix_key, radix_scale, segk, slope, iclo,
+     sk, pay, payhi, off, lk, lp, lph) = args
+    n_q, m_pad = q.shape[0], sk.shape[0]
+    if q_tile < 32 or q_tile > 1024 or q_tile % 32:
+        raise ValueError(f"q_tile {q_tile} must be a multiple of 32 in "
+                         "[32, 1024]")
+    if n_q % q_tile:
+        raise ValueError("pad queries to a multiple of q_tile")
+    if m_pad % w_tile or m_pad < 2 * w_tile:
+        raise ValueError("slot keys must be padded to >= 2 w_tile blocks")
+    if tile_block.shape[0] != n_q // q_tile:
+        raise ValueError("tile_block needs one entry per tile")
+    if pay.shape[0] != m_pad or off.shape[0] < m_pad + w_tile:
+        raise ValueError("payload / link_offsets do not match slot_key")
+    if wide and (payhi.shape[0] != m_pad or lph.shape[0] != lp.shape[0]):
+        raise ValueError("wide needs the hi half of every payload array")
+    if lp.shape[0] != lk.shape[0]:
+        raise ValueError("link_payloads must match link_keys")
+    if flat_w:
+        if (radix_key.shape[0] != 1 or radix_scale.shape[0] != 1
+                or radix_table.shape[0] < 1):
+            raise ValueError("flat mode needs the radix table, key and "
+                             "scale")
+        if slope.shape[0] != segk.shape[0] or iclo.shape[0] != segk.shape[0]:
+            raise ValueError("segment tables differ in length")
+    return dev
+
+
+def fused_lookup_u64(
+    queries_sorted,    # (Qpad,) ordered int64, sorted, NO_KEY padded
+    tile_block,        # (Qpad // q_tile,) i32 window block per tile
+    radix_table,       # (R,) i32 bucket -> segment (flat mode)
+    radix_key,         # (1,) int64 kmin, the radix origin
+    radix_scale,       # (1,) f64 buckets per key unit
+    seg_first_key,     # (Kpad,) ordered int64, NO_KEY padded
+    seg_slope,         # (Kpad,) f64
+    icept_lo_fold,     # (Kpad,) f64 — icept + err_lo - 1 pre-folded
+    slot_key_padded,   # (Mpad,) ordered int64, Mpad % w_tile == 0
+    payload,           # (Mpad,) i32
+    payload_hi,        # (Mpad,) i32 when wide else (0,)
+    link_offsets,      # (Mpad + w_tile,) i32
+    link_keys,         # (Lpad,) ordered int64
+    link_payloads,     # (Lpad,) i32
+    link_payload_hi,   # (Lpad,) i32 when wide else (0,)
+    *,
+    q_tile: int,
+    w_tile: int,
+    flat_w: int,
+    max_chain: int,
+    n_slots: int,
+    wide: bool,
+):
+    """One launch of the fused lookup kernel over the 64-bit image:
+    ``fused_lookup``'s outputs.  CPU tensors run
+    ``fused_lookup_u64_plain``; CUDA tensors launch the kernel or
+    raise."""
+    args = (queries_sorted, tile_block, radix_table, radix_key,
+            radix_scale, seg_first_key, seg_slope, icept_lo_fold,
+            slot_key_padded, payload, payload_hi, link_offsets, link_keys,
+            link_payloads, link_payload_hi)
+    statics = dict(q_tile=q_tile, w_tile=w_tile, flat_w=flat_w,
+                   max_chain=max_chain, n_slots=n_slots, wide=wide)
+    dev = _check_u64(args, q_tile=q_tile, w_tile=w_tile, flat_w=flat_w,
+                     wide=wide)
+    if dev.type == "cpu":
+        return fused_lookup_u64_plain(*args, **statics)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_lookup_u64 runs on cuda or cpu, not {dev}")
+    return _launch_u64(args, dev, **statics)
+
+
+fused_lookup_u64.launches = 0
+
+
+def _launch_u64(args, dev, *, q_tile, w_tile, flat_w, max_chain, n_slots,
+                wide):
+    """One launch of ``fused_lookup64_kernel`` (outputs as in
+    ``_launch``).  The window is read in place: no shared memory."""
+    fn = _build.entry("fused_lookup", "p" * 17 + "i" * 8 + "ii",
+                      symbol="fused_lookup64_launch")
+    n_q = args[0].shape[0]
+    num_tiles = n_q // q_tile
+    link_keys = args[12]
+    has_links = link_keys.shape[0] > 0 and max_chain > 0
+    n_hi = n_q if wide else 0
+    buf = torch.empty(4 * n_q + num_tiles + n_hi + n_q // 4,
+                      dtype=torch.int32, device=dev)
+    slot, res, out, fb_loc, fb_cnt, out_hi, fb_words = buf.split(
+        [n_q, n_q, n_q, n_q, num_tiles, n_hi, n_q // 4])
+    fb = fb_words.view(torch.bool)
+    tiles, _ = fused_launch_shape(num_tiles, q_tile, w_tile, flat_w, True,
+                                  _sm_count(dev))
+    err = _build.launch(
+        fn, dev, *[t.data_ptr() for t in args], buf.data_ptr(),
+        fb.data_ptr(), num_tiles, q_tile, tiles, args[2].shape[0],
+        link_keys.shape[0], w_tile, flat_w,
+        int(max_chain).bit_length() if has_links else 0, n_slots - 1,
+        int(wide))
+    if err != 0:
+        raise RuntimeError(f"fused_lookup_u64 kernel launch failed: CUDA "
+                           f"error {err}")
+    fused_lookup_u64.launches += 1
+    return slot, res, out, out_hi, fb, fb_loc, fb_cnt
+
+
+def fused_lookup_u64_plain(
+    queries_sorted, tile_block, radix_table, radix_key, radix_scale,
+    seg_first_key, seg_slope, icept_lo_fold, slot_key_padded, payload,
+    payload_hi, link_offsets, link_keys, link_payloads, link_payload_hi,
+    *, q_tile: int, w_tile: int, flat_w: int, max_chain: int,
+    n_slots: int, wide: bool,
+):
+    """The 64-bit kernel's function in plain torch ops on any device."""
+    q = queries_sorted
+    lo0 = (window_base_u64(q, radix_table, radix_key, radix_scale,
+                           seg_first_key, seg_slope, icept_lo_fold,
+                           n_slots=n_slots) if flat_w else None)
+    empty = q.new_zeros(0)
+    return _search_plain(
+        q, empty, lo0, q != NO_KEY, tile_block, slot_key_padded, empty,
+        payload, payload_hi, link_offsets, link_keys, empty, link_payloads,
+        link_payload_hi, q_tile=q_tile, w_tile=w_tile, flat_w=flat_w,
+        max_chain=max_chain, key_wide=False, wide=wide)
 
 
 # ---------------------------------------------------------------------------

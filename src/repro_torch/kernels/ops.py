@@ -38,6 +38,13 @@ search and the epilogue) and the host patch of the flagged queries
 as the reference's does; so does the engine's ``"fused"`` stage under
 ``QueryEngine(fused_impl="xla")``, and the shard fan-out
 (``shard_fanout.py``) over stacked shard images.
+
+The 64-bit image (``IndexArrays.key_u64``, ``core.keys64``) is served by
+``QueryEngine`` on two stages: ``"fused"`` (one launch of
+``lookup.fused_lookup_u64``, ``fused_args_u64``) and ``"oracle"``; its
+queries are ordered int64, sorted with one int64 sort, and the fixup and
+the oracle are the narrow-key ones, whose compares and
+``torch.searchsorted`` are exact on int64.
 """
 
 from __future__ import annotations
@@ -51,11 +58,12 @@ import torch
 from ..device import resolve_device
 from ..spans import span
 from .bounds import (_bisect_trips, _flat_width, _fused_flat_width,
-                     auto_q_tile, build_radix_router, build_rank_router,
-                     query_window_bounds)
+                     auto_q_tile, build_radix_router, build_radix_router_u64,
+                     build_rank_router, query_window_bounds)
 from .freeze import IndexArrays, _pad_pow, split_key_pair
-from .lookup import (_clip, _slot_clip_hi, fused_lookup, lookup_kernel,
-                     route_segment)
+from .lookup import (NO_KEY, _clip, _slot_clip_hi, fused_lookup,
+                     fused_lookup_u64, lookup_kernel, route_segment,
+                     window_line_u64)
 from .ref import (_bisect, _pair_bisect, _peq, _ple, _take, epilogue,
                   epilogue_parts, oracle_search, predict_ref)
 
@@ -66,6 +74,7 @@ __all__ = ["QueryEngine", "batched_lookup", "BACKENDS", "FUSED_IMPLS",
 
 FB_FRAC = 0.02  # compaction buffer sizing: ~2% of the batch
 _NO_F32 = np.zeros(0, np.float32)
+U64_STAGES = ("fused", "oracle")   # the stages of the 64-bit image
 
 
 def split_queries(queries, key_wide: bool):
@@ -121,6 +130,22 @@ def fused_args(qs, qls, a: IndexArrays, err_lo_pad, radix_table,
             a.slot_key, a.slot_key_lo, a.payload, a.payload_hi,
             a.link_offsets, a.link_keys, a.link_keys_lo, a.link_payloads,
             a.link_payload_hi)
+
+
+def fused_args_u64(qs, a: IndexArrays, err_lo_pad, radix_table, radix_key,
+                   radix_scale, *, q_tile: int, w_tile: int) -> tuple:
+    """``fused_args`` of the 64-bit image: ``fused_lookup_u64``'s 15
+    tensor arguments.  The tile schedule takes each query's window base
+    as the kernel does (``lookup.window_line_u64``, clipped)."""
+    icept_fold = a.seg_icept + err_lo_pad - 1.0
+    lo = _clip(window_line_u64(qs, radix_table, radix_key, radix_scale,
+                               a.seg_first_key, a.seg_slope, icept_fold),
+               float(a.n_slots - 1))
+    tile_block = tile_blocks(lo, a, q_tile=q_tile, w_tile=w_tile)
+    return (qs, tile_block, radix_table, radix_key, radix_scale,
+            a.seg_first_key, a.seg_slope, icept_fold, a.slot_key,
+            a.payload, a.payload_hi, a.link_offsets, a.link_keys,
+            a.link_payloads, a.link_payload_hi)
 
 
 def fused_statics(a: IndexArrays, *, q_tile: int, w_tile: int,
@@ -436,13 +461,17 @@ STAGES = ("fused", "pallas", "xla", "oracle")
 def pipeline(qh, ql, a: IndexArrays, err_lo_pad, radix_table, radix_scale,
              *, stage: str, q_tile: int, w_tile: int, flat_w: int,
              fb_cap: int, assume_sorted: bool, err_hi_pad=None,
-             trips: int = 1, radix: bool = False):
+             trips: int = 1, radix: bool = False, radix_key=None):
     """One batch through ``stage`` (one of ``STAGES``).  Returns
     ``(out, out_hi, slot, resolved, fb_count, overflow)`` as tensors on
     the index's device (counts as ints).  ``err_hi_pad`` / ``trips`` /
-    ``radix`` (radix routing) serve the "xla" stage."""
+    ``radix`` (radix routing) serve the "xla" stage; ``radix_key``
+    (the radix origin) the 64-bit image's "fused" stage."""
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}")
+    if a.key_u64 and stage not in U64_STAGES:
+        raise ValueError(f"the 64-bit key image is served by the "
+                         f"{U64_STAGES} stages, not {stage!r}")
     if stage == "oracle":
         with span("lookup.search"):
             slot, found = oracle_search(qh, ql, a.slot_key, a.slot_key_lo,
@@ -480,11 +509,21 @@ def pipeline(qh, ql, a: IndexArrays, err_lo_pad, radix_table, radix_scale,
             qs = qh[order]
     if stage == "fused":
         with span("lookup.search"):
-            slot, res, out, out_hi, _fb, fb_loc, fb_cnt = fused_lookup(
-                *fused_args(qs, qls, a, err_lo_pad, radix_table,
-                            radix_scale, q_tile=q_tile, w_tile=w_tile),
-                **fused_statics(a, q_tile=q_tile, w_tile=w_tile,
-                                flat_w=flat_w))
+            if a.key_u64:
+                slot, res, out, out_hi, _fb, fb_loc, fb_cnt = \
+                    fused_lookup_u64(
+                        *fused_args_u64(qs, a, err_lo_pad, radix_table,
+                                        radix_key, radix_scale,
+                                        q_tile=q_tile, w_tile=w_tile),
+                        q_tile=q_tile, w_tile=w_tile, flat_w=flat_w,
+                        max_chain=a.max_chain, n_slots=a.n_slots,
+                        wide=a.wide)
+            else:
+                slot, res, out, out_hi, _fb, fb_loc, fb_cnt = fused_lookup(
+                    *fused_args(qs, qls, a, err_lo_pad, radix_table,
+                                radix_scale, q_tile=q_tile, w_tile=w_tile),
+                    **fused_statics(a, q_tile=q_tile, w_tile=w_tile,
+                                    flat_w=flat_w))
         with span("lookup.fixup"):
             resolved = res.bool()
             fb_count, overflow = fused_fixup(qs, qls, slot, resolved, out,
@@ -513,10 +552,10 @@ def pipeline(qh, ql, a: IndexArrays, err_lo_pad, radix_table, radix_scale,
                 fb_count, overflow)
 
 
-def _pad_bounds(err, k_pad: int, device) -> torch.Tensor:
-    err = np.asarray(err, np.float32)
+def _pad_bounds(err, k_pad: int, device, dtype=np.float32) -> torch.Tensor:
+    err = np.asarray(err, dtype)
     return torch.from_numpy(
-        np.ascontiguousarray(_pad_pow(err, k_pad, np.float32(0))[:k_pad])
+        np.ascontiguousarray(_pad_pow(err, k_pad, dtype(0))[:k_pad])
     ).to(device)
 
 
@@ -579,6 +618,9 @@ def batched_lookup(arrays: IndexArrays, err_lo_by_seg, queries, *,
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     a = arrays
+    if a.key_u64:
+        raise ValueError("batched_lookup serves the float key images; "
+                         "QueryEngine serves the 64-bit image")
     if backend == "pallas" and a.key_wide:
         backend = "xla"  # the legacy kernel is narrow-only
     qh_np, ql_np = split_queries(queries, a.key_wide)
@@ -666,6 +708,11 @@ class QueryEngine:
       ``gap_place.ingest_place_graph`` and the fused ingest over it.
 
     Nothing selects ``"xla"`` but the caller.
+
+    Over the 64-bit image (``arrays.key_u64``) the engine takes ordered
+    int64 queries (``core.keys64.query_ordered``), runs ``"fused"`` (the
+    kernel only) or ``"oracle"``, keeps its bounds in float64 and has no
+    rank router: that image serves no write.
     """
 
     def __init__(self, arrays: IndexArrays, err_lo_by_seg,
@@ -678,6 +725,11 @@ class QueryEngine:
         if fused_impl not in FUSED_IMPLS:
             raise ValueError(f"unknown fused_impl {fused_impl!r}; "
                              f"expected one of {FUSED_IMPLS}")
+        self.u64 = bool(arrays.key_u64)
+        if self.u64 and fused_impl != "kernel":
+            raise ValueError("the 64-bit key image is served by the "
+                             "fused kernel (fused_impl='kernel')")
+        self._bound_dtype = np.float64 if self.u64 else np.float32
         self.fused_impl = fused_impl
         self.arrays = arrays
         # the fused stage is the default; the legacy "pallas" / "xla"
@@ -691,9 +743,9 @@ class QueryEngine:
         # full search they avoid)
         self.xla_min_bucket = int(xla_min_bucket)
         self.fused_flat_max_bucket = int(fused_flat_max_bucket)
-        self.err_lo = np.asarray(err_lo_by_seg, np.float32)
+        self.err_lo = np.asarray(err_lo_by_seg, self._bound_dtype)
         self.err_hi = (None if err_hi_by_seg is None
-                       else np.asarray(err_hi_by_seg, np.float32))
+                       else np.asarray(err_hi_by_seg, self._bound_dtype))
         err_hi_np = (np.zeros_like(self.err_lo) if self.err_hi is None
                      else self.err_hi)
         dev = arrays.device
@@ -701,20 +753,30 @@ class QueryEngine:
         self._trips = _bisect_trips(self.err_lo, err_hi_np)
         self._flat_w = _flat_width(self.err_lo, err_hi_np)
         self._fused_flat_w = _fused_flat_width(self.err_lo, err_hi_np)
-        table, scale = build_radix_router(arrays)
-        self._radix_table = torch.from_numpy(table).to(dev)
-        self._radix_scale = torch.from_numpy(scale).to(dev)
-        # bucket -> slot-rank table of the fused graph (``fused_impl=
-        # "xla"``); the fused ingest refreshes it in-graph and delta
-        # syncs refresh its rows, as the reference's engine does
-        self._rank_np, rk_scale, self._rank_trips, self._rank_meta = \
-            build_rank_router(
-                arrays.slot_key.cpu().numpy(),
-                arrays.slot_key_lo.cpu().numpy() if arrays.key_wide
-                else None)
-        self._rank_table = torch.from_numpy(self._rank_np.copy()).to(dev)
-        self._rank_scale = torch.from_numpy(rk_scale).to(dev)
         self._rank_bounds_pair = None
+        self._radix_key = None
+        if self.u64:
+            table, kmin, scale = build_radix_router_u64(arrays)
+            self._radix_table = torch.from_numpy(table).to(dev)
+            self._radix_key = torch.from_numpy(kmin).to(dev)
+            self._radix_scale = torch.from_numpy(scale).to(dev)
+            self._rank_np = self._rank_table = self._rank_scale = None
+            self._rank_trips, self._rank_meta = 1, None
+        else:
+            table, scale = build_radix_router(arrays)
+            self._radix_table = torch.from_numpy(table).to(dev)
+            self._radix_scale = torch.from_numpy(scale).to(dev)
+            # bucket -> slot-rank table of the fused graph (``fused_impl=
+            # "xla"``); the fused ingest refreshes it in-graph and delta
+            # syncs refresh its rows, as the reference's engine does
+            self._rank_np, rk_scale, self._rank_trips, self._rank_meta = \
+                build_rank_router(
+                    arrays.slot_key.cpu().numpy(),
+                    arrays.slot_key_lo.cpu().numpy() if arrays.key_wide
+                    else None)
+            self._rank_table = torch.from_numpy(self._rank_np.copy()).to(
+                dev)
+            self._rank_scale = torch.from_numpy(rk_scale).to(dev)
         # sticky per-bucket escape-capacity boost: a workload that once
         # overflowed gets a larger buffer next time instead of paying
         # the oracle re-dispatch on every call
@@ -754,12 +816,12 @@ class QueryEngine:
     def _upload_bounds(self, err_lo: np.ndarray, err_hi: np.ndarray):
         k_pad = int(self.arrays.seg_first_key.shape[0])
         dev = self.arrays.device
-        self._elo = _pad_bounds(err_lo, k_pad, dev)
-        self._ehi = _pad_bounds(err_hi, k_pad, dev)
+        self._elo = _pad_bounds(err_lo, k_pad, dev, self._bound_dtype)
+        self._ehi = _pad_bounds(err_hi, k_pad, dev, self._bound_dtype)
 
     def _set_bound_statics(self, err_lo, err_hi) -> None:
-        self.err_lo = np.asarray(err_lo, np.float32)
-        self.err_hi = np.asarray(err_hi, np.float32)
+        self.err_lo = np.asarray(err_lo, self._bound_dtype)
+        self.err_hi = np.asarray(err_hi, self._bound_dtype)
         self._trips = _bisect_trips(self.err_lo, self.err_hi)
         self._flat_w = _flat_width(self.err_lo, self.err_hi)
         self._fused_flat_w = _fused_flat_width(self.err_lo, self.err_hi)
@@ -884,7 +946,8 @@ class QueryEngine:
                         self._radix_scale, stage=stage, q_tile=q_tile,
                         w_tile=self.w_tile, flat_w=flat_w, fb_cap=fb_cap,
                         assume_sorted=queries_sorted, err_hi_pad=self._ehi,
-                        trips=self._trips, radix=stage in ("xla", "fused"))
+                        trips=self._trips, radix=stage in ("xla", "fused"),
+                        radix_key=self._radix_key)
 
     def lookup(self, queries, *, queries_sorted: bool = False,
                backend: Optional[str] = None, force_backend: bool = False):
@@ -896,13 +959,17 @@ class QueryEngine:
         the oracle stage unless ``force_backend``."""
         a = self.arrays
         with span("lookup.prepare"):
-            qh, ql = split_queries(queries, a.key_wide)
+            if self.u64:
+                qh, ql = np.asarray(queries, np.int64), _NO_F32
+            else:
+                qh, ql = split_queries(queries, a.key_wide)
             n_q = qh.shape[0]
             b = self.bucket(n_q)
             if b == n_q:
                 qp, qlp = qh, ql
             else:
-                qp = np.full(b, np.inf, np.float32)
+                qp = (np.full(b, NO_KEY, np.int64) if self.u64
+                      else np.full(b, np.inf, np.float32))
                 qp[:n_q] = qh  # +inf tail keeps sorted batches sorted
                 if a.key_wide:
                     qlp = np.zeros(b, np.float32)
@@ -913,6 +980,9 @@ class QueryEngine:
             stage = backend or self.backend
             if stage not in STAGES:
                 raise ValueError(f"unknown backend {stage!r}")
+            if self.u64 and stage not in U64_STAGES:
+                raise ValueError(f"the 64-bit key image is served by the "
+                                 f"{U64_STAGES} stages, not {stage!r}")
             if stage == "pallas" and a.key_wide:
                 stage = "xla"  # capability fallback (the legacy kernel)
             if (stage == "xla" and b < self.xla_min_bucket

@@ -43,6 +43,16 @@ Chunks give what one pass gives:
   occupied slot, so an unoccupied slot finds its carried key (the
   first occupied key to its right) inside the chunk; slots past the
   last occupied slot carry ``inf``.
+
+64-bit keys (uint64, ``core.keys64``): steps 1-3 learn on
+``float64(key)``, as the reference does, each float64 value once (keys
+past 2^53 that round together keep the last one's position); step 4
+places the ordered
+int64 keys in their exact order.  A key's segment is routed over the
+exact segment first keys and its prediction is ``slope *
+keys64.exact_dx(x, first) + icept``, which the window bounds and the
+kernel compute the same way; slots past the last occupied one carry
+``keys64.NO_KEY``.  The result is a ``keys64.GappedArray64``.
 """
 
 from __future__ import annotations
@@ -52,9 +62,11 @@ import time
 import numpy as np
 import torch
 
+from ..core import keys64 as _k64
 from ..core import sampling as _sampling
 from ..core.gaps import _EMPTY, GappedArray, gap_positions
 from ..core.links import CSRLinks
+from .lookup import exact_dx
 
 __all__ = ["build_gapped_device", "PLM_METHODS", "CHUNK_KEYS",
            "SLOT_WINDOW"]
@@ -93,23 +105,41 @@ def _running_max(v: torch.Tensor, floor: int) -> torch.Tensor:
     return w.view(-1)[:n].clamp_(min=floor)
 
 
+def _predict(xd, first, slope, icept):
+    """``(y_hat, seg)`` of a chunk: the reference's float line, or over
+    ordered keys ``keys64.predict_ordered``'s."""
+    k = first.shape[0]
+    seg = torch.searchsorted(first, xd, right=True).sub_(1)
+    seg.clamp_(0, k - 1)
+    if xd.dtype == torch.int64:
+        dx = exact_dx(xd, first[seg])
+    else:
+        dx = xd - first[seg]
+    return dx.mul_(slope[seg]).add_(icept[seg]), seg
+
+
 def _place(x, payloads, plm, m, dev, refinalize):
     """Step 4 and the refinalize on ``dev``: ``(slot_key, occupied,
     payload, links, err_lo, err_hi)`` as host arrays (the bounds None
-    without ``refinalize``); see the module doc."""
+    without ``refinalize``); see the module doc.  ``x`` is float64, or
+    ordered int64 for 64-bit keys."""
     n = x.shape[0]
     k = plm.n_segments
-    first, slope, icept = (torch.as_tensor(a, dtype=torch.float64,
-                                           device=dev)
-                           for a in (plm.seg_first_key, plm.slope,
-                                     plm.icept))
+    exact = x.dtype == np.int64
+    kdt = np.int64 if exact else np.float64
+    slope, icept = (torch.as_tensor(a, dtype=torch.float64, device=dev)
+                    for a in (plm.slope, plm.icept))
+    first = (torch.from_numpy(_k64.seg_first_ordered(plm.seg_first_key))
+             .to(dev) if exact else
+             torch.as_tensor(plm.seg_first_key, dtype=torch.float64,
+                             device=dev))
     err_lo = torch.zeros(k, dtype=torch.float64, device=dev)
     err_hi = torch.zeros(k, dtype=torch.float64, device=dev)
-    slot_key = np.empty(m, np.float64)
+    slot_key = np.empty(m, kdt)
     occupied = np.empty(m, bool)
     payload = np.empty(m, np.int64)
     offsets = np.empty(m + 1, np.int64)
-    chain_keys = np.empty(n, np.float64)   # the first n_chained hold
+    chain_keys = np.empty(n, kdt)          # the first n_chained hold
     chain_pays = np.empty(n, np.int64)     # (untouched pages stay unmapped)
     stage = torch.empty(SLOT_WINDOW * 8, dtype=torch.uint8,
                         pin_memory=dev.type == "cuda")
@@ -118,9 +148,7 @@ def _place(x, payloads, plm, m, dev, refinalize):
     for a in range(0, n, CHUNK_KEYS):
         xd = torch.from_numpy(x[a:a + CHUNK_KEYS]).to(dev)
         pd = torch.from_numpy(payloads[a:a + CHUNK_KEYS]).to(dev)
-        seg = torch.searchsorted(first, xd, right=True).sub_(1)
-        seg.clamp_(0, k - 1)
-        yhat = (xd - first[seg]).mul_(slope[seg]).add_(icept[seg])
+        yhat, seg = _predict(xd, first, slope, icept)
         pred = torch.round(yhat).clamp_(0, m - 1).long()
         cm = _running_max(pred, cursor)
         if refinalize:
@@ -151,12 +179,12 @@ def _place(x, payloads, plm, m, dev, refinalize):
             del slots, j, hit
         n_chained += targets.shape[0]
         cursor = last
-    slot_key[cursor + 1:] = np.inf
+    slot_key[cursor + 1:] = _k64.NO_KEY if exact else np.inf
     occupied[cursor + 1:] = False
     payload[cursor + 1:] = _EMPTY
     offsets[cursor + 1:] = n_chained
-    links = CSRLinks(m, offsets, chain_keys[:n_chained],
-                     chain_pays[:n_chained])
+    links = (_k64._links if exact else CSRLinks)(
+        m, offsets, chain_keys[:n_chained], chain_pays[:n_chained])
     if not refinalize:
         return slot_key, occupied, payload, links, None, None
     return (slot_key, occupied, payload, links,
@@ -179,9 +207,12 @@ def build_gapped_device(
     whose ``build_timings`` adds ``"place_device"``, the device type.
     The refit mechanism must be one of ``PLM_METHODS``.  On a CUDA
     device the allocator's cache is emptied afterwards, so what follows
-    allocates as it would after a host build."""
+    allocates as it would after a host build.  uint64 keys give a
+    ``keys64.GappedArray64`` (see the module doc)."""
     global device_builds
-    x = np.asarray(x, np.float64)
+    u64 = _k64.is_u64(x)
+    xo = _k64.to_ordered(x) if u64 else None
+    x = x.astype(np.float64) if u64 else np.asarray(x, np.float64)
     n = x.shape[0]
     y = np.arange(n, dtype=np.float64)
     if payloads is None:
@@ -193,6 +224,9 @@ def build_gapped_device(
         xs, ys = _sampling.sample_pairs(x, y, rate=sample_rate, rng=rng)
     else:
         xs, ys = x, y
+    if u64:   # keys that round to one float64 are learned once (the last)
+        keep = np.r_[xs[1:] > xs[:-1], True]
+        xs, ys = xs[keep], ys[keep]
     base = mechanism_factory()
     base.fit(xs, ys)
     base_plm = getattr(base, "plm", None)
@@ -216,14 +250,16 @@ def build_gapped_device(
     dev = torch.device(device)
     m = int(np.ceil(yg[-1])) + 2
     slot_key, occupied, payload, links, lo, hi = _place(
-        x, np.asarray(payloads, np.int64), mech.plm, m, dev, refinalize)
+        x if xo is None else xo, np.asarray(payloads, np.int64), mech.plm,
+        m, dev, refinalize)
     if refinalize:
         mech.plm.err_lo, mech.plm.err_hi = lo, hi
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     device_builds += 1
-    ga = GappedArray(slot_key=slot_key, occupied=occupied, payload=payload,
-                     links=links, mech=mech, n_keys=n, rho=rho)
+    ga = (_k64.GappedArray64 if u64 else GappedArray)(
+        slot_key=slot_key, occupied=occupied, payload=payload, links=links,
+        mech=mech, n_keys=n, rho=rho)
     ga.build_timings = {
         "learn_seconds": learn_seconds,
         "place_seconds": time.perf_counter() - t1,

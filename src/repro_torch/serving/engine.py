@@ -33,8 +33,22 @@ queue amortizes that overhead across CALLERS instead of across keys:
 * results demultiplex back per ticket, in submission order, as typed
   ``LookupResult``/``IngestReport`` slices.
 
-The class is the reference's ``repro.serving.engine.MicroBatchQueue``,
-unchanged (tests/test_torch_freeze.py holds its syntax tree equal).
+The class is the reference's ``repro.serving.engine.MicroBatchQueue``
+with three departures (tests/test_torch_freeze.py holds the rest of its
+syntax tree equal):
+
+* it keeps the index's key dtype (``key_dtype``: float64, or uint64 for
+  an index on the exact 64-bit image, ``core.keys64``) from
+  ``submit_lookup`` through its staging buffers, so 64-bit keys reach
+  the index unrounded; ``submit_ingest`` refuses keys that need that
+  image (``keys64.write_keys``);
+* each coalesced lookup dispatch is a root span ``queue.flush`` with the
+  stages ``queue.stage`` (concatenate and pad into the bucket),
+  ``queue.dispatch`` (the index call, ``Index.lookup``'s spans nested)
+  and ``queue.scatter`` (answers back to the tickets);
+* ``stats`` adds ``lookup_keys`` (the keys dispatched, padding left
+  out) and ``lookup_wait_ms_sum`` (per lookup request, from its submit
+  to the start of the flush that dispatches it, summed).
 
 The ``max_wait_ms`` deadline flush runs on a daemon timer thread, so a
 flush launches the CUDA kernels from that thread: each launch takes the
@@ -55,9 +69,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core import keys64 as _k64
 from ..core.results import Overloaded
 from ..device import resolve_device
 from ..models import Model
+from ..spans import span
 from .kv_cache import _PAGE_SHIFT, PagedKVCache
 
 __all__ = ["MicroBatchQueue", "Request", "ServingEngine"]
@@ -139,7 +155,8 @@ class MicroBatchQueue:
                       "ingest_dispatches": 0, "coalesced_lookups": 0,
                       "coalesced_ingests": 0, "deadline_flushes": 0,
                       "shed": 0, "ingest_retries": 0,
-                      "host_fallbacks": 0}
+                      "host_fallbacks": 0, "lookup_keys": 0,
+                      "lookup_wait_ms_sum": 0.0}
 
     def _ticket(self) -> int:
         """lock-held: _lock (every issuer is a locked public method)."""
@@ -193,8 +210,11 @@ class MicroBatchQueue:
             except BaseException as e:  # surfaced on the next caller
                 self._async_error = e   # touch — never lost silently
 
+    def _key_dtype(self):
+        return getattr(self.index, "key_dtype", np.dtype(np.float64))
+
     def submit_lookup(self, keys) -> int:
-        keys = np.atleast_1d(np.asarray(keys, np.float64))
+        keys = np.atleast_1d(_k64.lookup_keys(keys, self._key_dtype()))
         if keys.shape[0] == 0:
             raise ValueError("submit_lookup: empty key batch")
         with self._lock:
@@ -203,12 +223,14 @@ class MicroBatchQueue:
                     and self._depth() >= self.max_depth):
                 return self._shed("lookup")
             t = self._ticket()
-            self._lookups.append((t, keys))
+            self._lookups.append((t, keys, time.perf_counter()))
             self._arm_deadline()
             return t
 
     def submit_ingest(self, keys, payloads) -> int:
-        keys = np.atleast_1d(np.asarray(keys, np.float64))
+        keys = np.atleast_1d(_k64.write_keys(
+            keys, "MicroBatchQueue.submit_ingest",
+            self._key_dtype() == np.uint64))
         payloads = np.atleast_1d(np.asarray(payloads, np.int64))
         if keys.shape[0] == 0:
             raise ValueError("submit_ingest: empty key batch")
@@ -232,10 +254,11 @@ class MicroBatchQueue:
 
     def _stage(self, name: str, bucket: int, dtype) -> np.ndarray:
         """lock-held: _lock (only reached from flush())."""
-        buf = self._staging.get((name, bucket))
+        key = (name, bucket, np.dtype(dtype).str)
+        buf = self._staging.get(key)
         if buf is None:
             buf = np.empty(bucket, dtype)
-            self._staging[(name, bucket)] = buf
+            self._staging[key] = buf
         return buf
 
     def _ingest_with_retry(self, keys, pays):
@@ -305,27 +328,41 @@ class MicroBatchQueue:
                         % self.audit_every == 0):
                     self.auditor.assert_ok(self.index)
             if self._lookups:
-                pend, self._lookups = self._lookups, []
-                sizes = [k.shape[0] for _, k in pend]
-                n = int(sum(sizes))
-                bucket = self._bucket(n)
-                buf = self._stage("lookup", bucket, np.float64)
-                off = 0
-                for _, k in pend:
-                    buf[off: off + k.shape[0]] = k
-                    off += k.shape[0]
-                buf[off:] = buf[off - 1]  # pad: repeat the last real key
-                res = self.index.lookup(buf)
-                off = 0
-                for (t, k), sz in zip(pend, sizes):
-                    sl = slice(off, off + sz)
-                    self._results[t] = dataclasses.replace(
-                        res, payloads=res.payloads[sl],
-                        slots=res.slots[sl], found=res.found[sl])
-                    off += sz
-                self.stats["lookup_dispatches"] += 1
-                self.stats["coalesced_lookups"] += len(pend)
+                with span("queue.flush"):
+                    self._flush_lookups()
             self.stats["flushes"] += 1
+
+    def _flush_lookups(self) -> None:
+        """One coalesced lookup dispatch of everything pending.
+
+        lock-held: _lock (only reached from flush())."""
+        t_take = time.perf_counter()
+        pend, self._lookups = self._lookups, []
+        with span("queue.stage"):
+            sizes = [k.shape[0] for _, k, _ in pend]
+            n = int(sum(sizes))
+            bucket = self._bucket(n)
+            buf = self._stage("lookup", bucket, self._key_dtype())
+            off = 0
+            for _, k, _ in pend:
+                buf[off: off + k.shape[0]] = k
+                off += k.shape[0]
+            buf[off:] = buf[off - 1]  # pad: repeat the last real key
+        with span("queue.dispatch"):
+            res = self.index.lookup(buf)
+        with span("queue.scatter"):
+            off = 0
+            for (t, k, _), sz in zip(pend, sizes):
+                sl = slice(off, off + sz)
+                self._results[t] = dataclasses.replace(
+                    res, payloads=res.payloads[sl],
+                    slots=res.slots[sl], found=res.found[sl])
+                off += sz
+        self.stats["lookup_dispatches"] += 1
+        self.stats["coalesced_lookups"] += len(pend)
+        self.stats["lookup_keys"] += n
+        self.stats["lookup_wait_ms_sum"] += 1e3 * sum(
+            t_take - ts for _, _, ts in pend)
 
     def result(self, ticket: int):
         """Pop a ticket's typed result (flushing pending work first if
@@ -337,7 +374,7 @@ class MicroBatchQueue:
             self._raise_async_error()
             if ticket in self._results:
                 return self._results.pop(ticket)
-            pending = (any(t == ticket for t, _ in self._lookups)
+            pending = (any(t == ticket for t, _, _ in self._lookups)
                        or any(t == ticket for t, _, _ in self._ingests))
             if pending:
                 self.flush()

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..core import Index
+from ..core.keys64 import write_keys
 
 _PAGE_SHIFT = 20  # up to 2^20 pages per request
 
@@ -78,9 +79,9 @@ class PagedKVCache:
     def alloc(self, request_id: int, logical_page: int) -> int:
         if not self.free_pages:
             raise MemoryError("KV cache out of pages")
-        phys = self.free_pages.pop()
         key = table_key(request_id, logical_page)
-        kf = float(key)
+        kf = float(write_keys(np.array([key]), "PagedKVCache.alloc")[0])
+        phys = self.free_pages.pop()
         if self.index.gapped.lookup(kf) is not None:
             self.index.update(kf, phys)       # skeleton slot: claim it
         else:
@@ -113,7 +114,7 @@ class PagedKVCache:
         if len(self.free_pages) < n:
             raise MemoryError("KV cache out of pages")
         keys = (request_ids << _PAGE_SHIFT) | logical_pages
-        kf = keys.astype(np.float64)
+        kf = write_keys(keys, "PagedKVCache.alloc_batch")
         phys = np.array(self.free_pages[: -n - 1: -1], np.int64)
         del self.free_pages[-n:]
         existing = self.index.gapped.contains_batch(kf)  # skeleton: claim
@@ -137,8 +138,9 @@ class PagedKVCache:
         wide-key decode batches stay on device with no host-only
         guard).
         """
-        keys = ((request_ids.astype(np.int64) << _PAGE_SHIFT)
-                | logical_pages.astype(np.int64)).astype(np.float64)
+        keys = write_keys((request_ids.astype(np.int64) << _PAGE_SHIFT)
+                          | logical_pages.astype(np.int64),
+                          "PagedKVCache.lookup_batch")
         backend = None
         if device is True:
             backend = "fused"

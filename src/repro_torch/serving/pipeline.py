@@ -34,6 +34,12 @@ is logged *before* it is applied (write-ahead), ``publish`` fences the
 epoch (fsync), and ``checkpoint()`` snapshots the live index through
 ``Index.save_snapshot`` with the current WAL offset — crash recovery
 is ``serving.wal.recover_index``.
+
+The module is the reference's, with one departure: it keeps the index's
+key dtype (``key_dtype``: float64, or uint64 for an index on the exact
+64-bit image, ``core.keys64``) through ``IndexSnapshot.lookup``, and
+``ingest`` refuses keys that need that image before the WAL logs them
+(``keys64.write_keys``), so nothing rounds a 64-bit key.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..core import keys64 as _k64
 from ..core.results import LookupResult
 
 __all__ = ["EpochPipeline", "IndexSnapshot", "ShardedSnapshot",
@@ -65,6 +72,7 @@ class IndexSnapshot:
                 "snapshot serving needs a gapped build (gap_rho > 0); "
                 "a static index has no mutation to isolate against")
         self.epoch = int(index.epoch)
+        self._u64 = _k64.is_u64(index.keys)
         self._snap = index.gapped.pin_snapshot()
         self._refs = 1
         self._refs_lock = threading.Lock()
@@ -74,7 +82,8 @@ class IndexSnapshot:
         return self._snap.n_keys
 
     def lookup(self, queries) -> LookupResult:
-        queries = np.atleast_1d(np.asarray(queries, np.float64))
+        queries = np.atleast_1d(np.asarray(queries) if self._u64 else
+                                np.asarray(queries, np.float64))
         pay, slot, found = self._snap.lookup_batch(queries, full=True)
         return LookupResult(payloads=pay, slots=slot, found=found,
                             backend="snapshot", epoch=self.epoch)
@@ -235,6 +244,10 @@ class EpochPipeline:
         return int(self.index.epoch)
 
     @property
+    def key_dtype(self) -> np.dtype:
+        return getattr(self.index, "key_dtype", np.dtype(np.float64))
+
+    @property
     def lag(self) -> int:
         """Mutations applied to the live index but not yet published.
         Live and snapshot epochs are read under the lock — one
@@ -275,7 +288,8 @@ class EpochPipeline:
         even with the deadline-timer thread ingesting concurrently."""
         if self.faults is not None:
             self.faults.check("pipeline.ingest")
-        keys = np.atleast_1d(np.asarray(keys, np.float64))
+        keys = np.atleast_1d(_k64.write_keys(
+            keys, "EpochPipeline.ingest", self.key_dtype == np.uint64))
         payloads = np.atleast_1d(np.asarray(payloads, np.int64))
         with self._lock:
             if self.wal is not None:

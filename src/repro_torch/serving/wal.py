@@ -43,6 +43,8 @@ from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 
+from ..core.keys64 import write_keys
+
 __all__ = ["IngestWAL", "WALRecord", "replay", "truncate_torn_tail",
            "recover_index"]
 
@@ -145,7 +147,7 @@ class IngestWAL:
 
     def append(self, keys, payloads) -> int:
         keys = np.ascontiguousarray(np.atleast_1d(
-            np.asarray(keys, np.float64)))
+            write_keys(keys, "IngestWAL.append")))
         pays = np.ascontiguousarray(np.atleast_1d(
             np.asarray(payloads, np.int64)))
         if keys.shape != pays.shape:

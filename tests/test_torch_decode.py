@@ -91,7 +91,11 @@ def test_serving_engine_matches_reference(arch):
     rg, pg = ref.kv_pages.index.gapped, port.kv_pages.index.gapped
     assert np.array_equal(rg.slot_key, pg.slot_key)
     assert np.array_equal(rg.payload, pg.payload)
-    assert port.aggregator.stats == ref.aggregator.stats
+    # the reference's queue counters; the port's adds lookup_keys (one
+    # key a page lookup) and lookup_wait_ms_sum
+    qs = port.aggregator.stats
+    assert {k: qs[k] for k in ref.aggregator.stats} == ref.aggregator.stats
+    assert qs["lookup_keys"] == ps["page_lookups"]
     # the CPU run resolves pages on the kernel's plain version
     assert fused_lookup.launches == launches0
     # 10 requests through 4 slots: slots were taken again, and the

@@ -401,7 +401,14 @@ def test_queue_over_pipeline_with_wal_equals_the_reference(tmp_path, wide):
     _same(a[1], b[1])
     qa, pa, wa = a[2]
     qb, pb, wb = b[2]
-    assert qa == qb and pa == pb
+    # the port's queue counts more (``lookup_keys``, the keys it
+    # dispatched, and ``lookup_wait_ms_sum``): the reference's counters
+    # are equal, the port's own count what was sent
+    assert {k: qb[k] for k in qa} == qa and pa == pb
+    assert set(qb) - set(qa) == {"lookup_keys", "lookup_wait_ms_sum"}
+    assert qb["lookup_keys"] == sum(
+        3 * (300 + len(range(0, (r + 1) * 200, 7))) for r in range(6))
+    assert qb["lookup_wait_ms_sum"] >= 0.0
     assert wa["records"] == wb["records"] and wa["fences"] == wb["fences"]
     assert a[3] == b[3]                      # the same log, byte for byte
     assert pb["retrains"] == 1 and pb["snapshot_lookups"] > 0

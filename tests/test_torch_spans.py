@@ -107,3 +107,85 @@ def test_freeze_stages_and_build_timings(built):
     idx.refreeze()
     assert set(idx.stats["freeze_stages"]) == FREEZE_STAGES
     assert idx.stats["freeze_stages"] is not stages
+
+
+QUEUE_STAGES = ("queue.stage", "queue.dispatch", "queue.scatter")
+
+
+@pytest.fixture(scope="module")
+def built64():
+    """A 64-bit index (keys past 2^63) and 3 callers' lookups."""
+    rng = np.random.default_rng(30)
+    keys = np.unique(rng.integers(2 ** 63, 2 ** 64 - 2, 30_000,
+                                  dtype=np.uint64))
+    idx = Index.build(keys, method="pgm", eps=64, gap_rho=0.15,
+                      sample_rate=0.1, payloads=rng.permutation(keys.size),
+                      rng=np.random.default_rng(1), device="cpu")
+    idx.sync_device()
+    return idx, [keys[rng.integers(0, keys.size, n)]
+                 for n in (700, 900, 500)]
+
+
+def test_traced_queue_flush_nests_its_stages(built64):
+    """One coalesced dispatch under a recording profiler: the root span
+    ``queue.flush`` holds ``queue.stage``, ``queue.dispatch`` (with
+    ``Index.lookup``'s ``lookup`` span inside) and ``queue.scatter``, one
+    after another on one thread; the answers are the untraced ones."""
+    from repro_torch.serving import EpochPipeline, MicroBatchQueue
+    idx, batches = built64
+    q = MicroBatchQueue(EpochPipeline(idx))
+    want = [q.result(t) for t in [q.submit_lookup(b) for b in batches]]
+    tickets = [q.submit_lookup(b) for b in batches]
+    with torch.profiler.profile() as prof:
+        q.flush()
+    for t, w in zip(tickets, want):
+        _same(q.result(t), w)
+    ev = [e for e in prof.events()
+          if e.name.startswith("queue.") or e.name == "lookup"]
+    roots = [e for e in ev if e.name == "queue.flush"]
+    assert len(roots) == 1
+    root = roots[0]
+    inner = sorted((e for e in ev if e is not root),
+                   key=lambda e: e.time_range.start)
+    assert [e.name for e in inner] == ["queue.stage", "queue.dispatch",
+                                       "lookup", "queue.scatter"]
+    for e in inner:
+        assert e.thread == root.thread
+        assert root.time_range.start <= e.time_range.start
+        assert e.time_range.end <= root.time_range.end
+    stages = [e for e in inner if e.name in QUEUE_STAGES]
+    for a, b in zip(stages, stages[1:]):
+        assert a.time_range.end <= b.time_range.start
+    dispatch, lookup = inner[1], inner[2]
+    assert dispatch.time_range.start <= lookup.time_range.start
+    assert lookup.time_range.end <= dispatch.time_range.end
+    q.close()
+
+
+def test_queue_counters_and_lookups_u64_count_what_was_sent(built64):
+    """``lookup_keys`` counts the keys dispatched (padding left out),
+    ``lookup_wait_ms_sum`` each request's wait from its submit to its
+    flush, ``Index.stats["lookups_u64"]`` the device lookups on the
+    64-bit image (a lookup below the device batch runs on the host)."""
+    import time as _time
+    from repro_torch.serving import EpochPipeline, MicroBatchQueue
+    idx, batches = built64
+    q = MicroBatchQueue(EpochPipeline(idx))
+    u0 = idx.stats.get("lookups_u64", 0)
+    t0 = _time.perf_counter()
+    tickets = [q.submit_lookup(b) for b in batches]
+    _time.sleep(0.02)
+    q.flush()
+    waited = _time.perf_counter() - t0
+    tickets.append(q.submit_lookup(batches[0]))
+    q.flush()
+    for t in tickets:
+        q.result(t)
+    st = q.stats
+    assert st["lookup_dispatches"] == 2 and st["coalesced_lookups"] == 4
+    assert st["lookup_keys"] == sum(b.size for b in batches) + 700
+    assert 3 * 20.0 <= st["lookup_wait_ms_sum"] <= 4 * waited * 1e3
+    assert idx.stats["lookups_u64"] - u0 == 2
+    idx.lookup(batches[0][:100])           # below the device batch
+    assert idx.stats["lookups_u64"] - u0 == 2
+    q.close()
