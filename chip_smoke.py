@@ -320,8 +320,12 @@ enqueue time); a one-element torch op is timed the same way as the
 launch floor.
 
 Each path runs with the kernels' launch counts set to 0 just before it
-and read just after.  Then the kernels' JSON line, the card's name and
-power limit as nvidia-smi gives them, and last ``{"ok": true,
+and read just after.  After each phase that builds or writes an index,
+a ``device_freezes`` line counts the freezes it ran on the card
+(``kernels.delta.device_freezes``: the build's freeze and every
+refreeze of a CUDA index under ``pgm`` / ``fiting``).  Then the
+kernels' JSON line, the card's name and power limit as nvidia-smi
+gives them, and last ``{"ok": true,
 "device": ...}``.  Any failure exits nonzero.  Needs CUDA and the
 repository's ``src/``.
 """
@@ -4916,8 +4920,18 @@ def main() -> int:
 
     floor = launch_floor(smi)
     rng = np.random.default_rng(args.seed)
+    from repro_torch.kernels import delta
+    freezes = {}
+
+    def counted(name, phase, *a, **kw):
+        n0 = delta.device_freezes
+        out = phase(*a, **kw)
+        freezes[name] = delta.device_freezes - n0
+        emit("device_freezes", card=smi, after=name, count=freezes[name])
+        return out
+
     if args.only_u64:
-        u64 = phase_u64(rng, args.seed, smi, args.u64_keys)
+        u64 = counted("u64", phase_u64, rng, args.seed, smi, args.u64_keys)
         print(json.dumps({"kernels": [u64_kernel_row(u64)]}))
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -4925,30 +4939,34 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     cases = phase_cases(rng)
-    main_res = phase_main(rng, args.n_keys, args.seed, smi, args.profile)
+    main_res = counted("main", phase_main, rng, args.n_keys, args.seed, smi,
+                       args.profile)
     place_rows = phase_place_cases(rng)
-    fused_res = phase_fused(rng, args.seed, smi, args.fused_keys,
-                            args.fused_batches or 10 ** 9, args.profile)
+    fused_res = counted("fused", phase_fused, rng, args.seed, smi,
+                        args.fused_keys, args.fused_batches or 10 ** 9,
+                        args.profile)
     fused_idx = fused_res.pop("index")
     lo, hi = fused_idx.keys[0], fused_idx.keys[-1]
     fused_timing = time_place(
         fused_idx, np.floor(rng.uniform(lo, hi, 16_384)), smi, "fused")
     del fused_idx
-    two_res = phase_two_dispatch(rng, args.seed, smi, args.place_keys,
-                                 args.place_batches, args.profile)
+    two_res = counted("two_dispatch", phase_two_dispatch, rng, args.seed,
+                      smi, args.place_keys, args.place_batches, args.profile)
     place_timing = time_place(two_res.pop("index"),
                               two_res["held_left"][:16_384], smi,
                               "two_dispatch")
     legacy_rows = phase_legacy_cases(rng) + phase_bracket_cases()
     eq3 = phase_eq3(main_res, smi)
-    legacy = phase_legacy(rng, args.seed, smi, args.narrow_keys, main_res)
+    legacy = counted("legacy", phase_legacy, rng, args.seed, smi,
+                     args.narrow_keys, main_res)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
-        shard = phase_shard(rng, args.seed, smi, main_res, args.serve_keys,
-                            Path(tmp), args.profile)
+        shard = counted("shard", phase_shard, rng, args.seed, smi, main_res,
+                        args.serve_keys, Path(tmp), args.profile)
     del main_res["index"], main_res["keys"], main_res["queries"]
-    serve = phase_serve(rng, args.seed, smi, args.serve_keys)
-    u64 = phase_u64(rng, args.seed, smi, args.u64_keys)
-    consumers = phase_consumers(rng, args.seed, smi)
+    serve = counted("serve", phase_serve, rng, args.seed, smi,
+                    args.serve_keys)
+    u64 = counted("u64", phase_u64, rng, args.seed, smi, args.u64_keys)
+    consumers = counted("consumers", phase_consumers, rng, args.seed, smi)
     decode = phase_decode(rng, args.seed, smi, args.profile)
     recurrent = phase_recurrent(rng, args.seed, smi, args.profile)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -5041,6 +5059,7 @@ def main() -> int:
     emit("summary", card=smi, cases=len(cases), place_cases=len(place_rows),
          launch_floor={k: floor[k] for k in ("ms", "device_ms", "graph_ms",
                                              "host_us")},
+         device_freezes=freezes,
          read_path=main_res["main"],
          read_path_ms={"kernel_engine": main_res["lookup_ms"],
                        "xla_engine": main_res["xla_ms"]},

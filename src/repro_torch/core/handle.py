@@ -537,6 +537,7 @@ class Index:
         self.stats["refreezes"] += 1
         self.stats["freeze_seconds"] = time.perf_counter() - t0
         self.stats["freeze_stages"] = stages
+        self.stats["freeze_device"] = self._mirror.freeze_device
         return self._engine
 
     def _log_touch(self, keys) -> None:

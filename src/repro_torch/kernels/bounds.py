@@ -11,17 +11,32 @@ image (``core.keys64``): over ordered keys it routes, predicts and
 spans segments with the kernel's exact arithmetic
 (``keys64.exact_dx``); ``build_radix_router_u64`` is that image's
 router.
+
+The freeze of a CUDA index takes its passes over every key and slot to
+the card, with results equal bit for bit: ``query_window_bounds_device``
+is the full recompute of ``query_window_bounds`` in torch ops.  The
+routers read the slot images where they are: ``build_rank_router``
+counts on the images' device, the radix routers read the segment first
+keys and one slot key.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core import keys64 as _k64
+from ..spans import span
+from . import place as _place
 from .freeze import split_key_pair
+from .lookup import exact_dx as _exact_dx_t
 
-__all__ = ["query_window_bounds", "build_radix_router",
-           "build_radix_router_u64", "build_rank_router", "auto_q_tile"]
+__all__ = ["query_window_bounds", "query_window_bounds_device",
+           "build_radix_router", "build_radix_router_u64",
+           "build_rank_router", "auto_q_tile"]
+
+_I64_MIN = np.iinfo(np.int64).min
+RANK_CHUNK = 1 << 14   # slot keys a rank count reads at once (128 KB)
 
 
 def _host(t) -> np.ndarray:
@@ -29,6 +44,23 @@ def _host(t) -> np.ndarray:
     if hasattr(t, "detach"):
         t = t.detach().cpu().numpy()
     return np.asarray(t, np.float64)
+
+
+def _last_slot(arrays) -> int:
+    """Position of the last slot that holds a key (-1 if none): the slot
+    image is sorted, its key-less slots (+inf, or ``NO_KEY`` on the
+    64-bit image) last, so one search on the device finds it."""
+    sk = arrays.slot_key
+    end = sk.new_full((1,), _k64.NO_KEY if arrays.key_u64 else np.inf)
+    return int(torch.searchsorted(sk, end)) - 1
+
+
+def _slot_f64(arrays, i: int) -> float:
+    """The float64 key of slot ``i`` of a float image (``hi + lo``)."""
+    v = arrays.slot_key[i:i + 1].double()
+    if arrays.key_wide:
+        v = v + arrays.slot_key_lo[i:i + 1].double()
+    return float(v)
 
 
 def build_radix_router(arrays, r_size: int = 1 << 14):
@@ -43,12 +75,9 @@ def build_radix_router(arrays, r_size: int = 1 << 14):
     if arrays.key_wide:
         segk = segk + _host(arrays.seg_first_key_lo)
     finite = segk[np.isfinite(segk)]
-    sk = _host(arrays.slot_key)
-    if arrays.key_wide:
-        sk = sk + _host(arrays.slot_key_lo)
-    sk_fin = sk[np.isfinite(sk)]
     kmin = float(finite[0]) if finite.size else 0.0
-    kmax = float(sk_fin[-1]) if sk_fin.size else kmin + 1.0
+    last = _last_slot(arrays)
+    kmax = _slot_f64(arrays, last) if last >= 0 else kmin + 1.0
     scale = (r_size - 1) / max(kmax - kmin, 1e-9)
     buckets = kmin + np.arange(r_size, dtype=np.float64) / scale
     table = np.clip(
@@ -65,11 +94,11 @@ def build_radix_router_u64(arrays, r_size: int = 1 << 14):
     ``scale`` float64; a query's bucket is ``clip(exact_dx(q, kmin) *
     scale)``, truncated, as the kernel computes it."""
     segk = arrays.seg_first_key.detach().cpu().numpy()
-    sk = arrays.slot_key.detach().cpu().numpy()
     segk = segk[segk != _k64.NO_KEY]
-    sk = sk[sk != _k64.NO_KEY]
     kmin = segk[:1] if segk.size else np.zeros(1, np.int64)
-    kmax = sk[-1:] if sk.size else kmin
+    last = _last_slot(arrays)
+    kmax = (arrays.slot_key[last:last + 1].cpu().numpy() if last >= 0
+            else kmin)
     scale = (r_size - 1) / max(float(_k64.exact_dx(kmax, kmin)[0]), 1e-9)
     buckets = np.arange(r_size, dtype=np.float64) / scale
     table = np.clip(
@@ -94,26 +123,54 @@ def build_rank_router(slot_key, slot_key_lo=None, r_bits: int = 16,
     validation in ``_fused_search`` — sound, fallback-only), and
     ``meta`` the f64 (kmin, scale, r_size) used for incremental row
     refreshes (``QueryEngine.refresh_rank_rows``).
+
+    The images may be tensors, searched on their device, or arrays.
+    The keys ``hi + lo`` are sorted, their finite run where ``hi`` is
+    finite, so two searches of ``hi`` find ``kmin`` and ``kmax``, and a
+    boundary's rank is the count of keys below it, summed over chunks
+    of ``RANK_CHUNK`` keys of that run: nothing is read back but the
+    table, and the device holds under 1 MB beyond it.
     """
-    sk = np.asarray(slot_key, np.float64)
-    if slot_key_lo is not None and np.asarray(slot_key_lo).size:
-        sk = sk + np.asarray(slot_key_lo, np.float64)
-    fin = sk[np.isfinite(sk)]
-    kmin = float(fin[0]) if fin.size else 0.0
-    kmax = float(fin[-1]) if fin.size else kmin + 1.0
+    hi = _tensor(slot_key)
+    lo = (_tensor(slot_key_lo) if slot_key_lo is not None
+          and len(slot_key_lo) else None)
+
+    def keys(a, b):   # float64 keys of slots [a, b)
+        v = hi[a:b].to(torch.float64, copy=True)
+        return v if lo is None else v.add_(lo[a:b])
+
+    first = int(torch.searchsorted(hi, hi.new_tensor([-np.inf]),
+                                   right=True))
+    end = int(torch.searchsorted(hi, hi.new_tensor([np.inf])))
+    if end > first:
+        kmin, kmax = float(keys(first, first + 1)), float(keys(end - 1, end))
+    else:
+        kmin, kmax = 0.0, 1.0
     r_size = 1 << r_bits
     scale = r_size / max(kmax - kmin, 1e-9)
-    bounds = kmin + np.arange(r_size + 1, dtype=np.float64) / scale
-    table = np.searchsorted(sk, bounds, side="left").astype(np.int32)
+    bounds = kmin + np.arange(r_size, dtype=np.float64) / scale
+    bd = torch.from_numpy(bounds).to(hi.device)
+    table = torch.full((r_size,), first, dtype=torch.int32,
+                       device=hi.device)
+    rank = torch.empty_like(table)
+    for a in range(first, end, RANK_CHUNK):
+        torch.searchsorted(keys(a, min(a + RANK_CHUNK, end)), bd,
+                           out_int32=True, out=rank)
+        table += rank
     # top boundary: include every slot <= kmax (duplicated max keys)
-    table[-1] = np.searchsorted(sk, kmax, side="right")
+    table = np.append(table.cpu().numpy(), np.int32(end))
     occ = (table[1:] - table[:-1]).astype(np.float64)
     p = float(np.percentile(occ, trips_pct)) if occ.size else 1.0
     trips = int(max(1, np.ceil(np.log2(p + 3.0)) + 1))
-    trips = min(trips, int(np.ceil(np.log2(max(sk.shape[0], 2)))) + 1)
+    trips = min(trips, int(np.ceil(np.log2(max(hi.shape[0], 2)))) + 1)
     kmin_hi, kmin_lo = split_key_pair(np.array([kmin]))
     return (table, np.array([kmin_hi[0], kmin_lo[0], scale], np.float32),
             trips, (kmin, scale, r_size))
+
+
+def _tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.require(a, requirements=("C", "W")))
 
 
 def query_window_bounds(index, max_widen: float = 32.0, segments=None,
@@ -252,6 +309,113 @@ def query_window_bounds(index, max_widen: float = 32.0, segments=None,
         err_hi[seg_list] = np.minimum(
             err_hi[seg_list],
             np.asarray(plm.err_hi, np.float64)[seg_list] + max_widen)
+    return err_lo, err_hi
+
+
+def query_window_bounds_device(index, slot_key: torch.Tensor,
+                               max_widen: float = 32.0, stages=None):
+    """``query_window_bounds(index)``, the full recompute, with its
+    passes over the keys on ``slot_key``'s device: the same float64
+    ``(err_lo, err_hi)``, bit for bit, on the host.
+
+    ``slot_key`` is the gapped array's slot keys (float64, or ordered
+    int64 for 64-bit keys) on the device; the index's mechanism predicts
+    through its PLM (``place.PLM_METHODS``).  Keys stream in chunks of
+    ``place.CHUNK_KEYS``: a key's slot is ``searchsorted(slot_key, x,
+    right) - 1`` and its prediction ``place.route_predict``'s, the
+    host's arithmetic op for op.  Slots rise with the keys, so per
+    segment the last key's slot is the segment's largest, and the slot
+    of the key before a segment (``p`` in ``query_window_bounds``) is
+    the largest slot of the segments before it.  The pair terms carry
+    one key across chunks; every term is a ``scatter_reduce`` min or max
+    over segment ids (no term is -0.0, so the order of the minima leaves
+    their bits as the host's are).  The negative-slope widening and
+    the clamp run on the host over the K rows.  ``stages`` gains the
+    keys' copies as ``upload`` and the rest as ``bounds``."""
+    plm = index.mech.plm
+    K = int(plm.n_segments)
+    dev = slot_key.device
+    u64 = _k64.is_u64(index.keys)
+    # uint64 keys go up as int64 and are ordered (top bit flipped) there
+    x = (index.keys.view(np.int64) if u64
+         else np.asarray(index.keys, np.float64))
+    f64, i64 = torch.float64, torch.int64
+    with span("freeze.bounds", stages):
+        first, slope, icept = _place.plm_tables(plm, dev, u64)
+        inf = torch.full((K,), np.inf, dtype=f64, device=dev)
+        pair_lo = inf.clone()
+        y_first = inf.clone()
+        last = torch.full((K,), _I64_MIN, dtype=i64, device=dev)
+        has = torch.zeros(K, dtype=torch.bool, device=dev)
+        carry_seg = torch.full((1,), -1, dtype=i64, device=dev)
+        carry_slot = torch.zeros(1, dtype=i64, device=dev)
+    step = _place.CHUNK_KEYS
+    for a in range(0, x.shape[0], step):
+        with span("freeze.upload", stages):
+            xd = torch.from_numpy(np.ascontiguousarray(x[a:a + step])
+                                  ).to(dev)
+        with span("freeze.bounds", stages):
+            if u64:   # not in place: on the host, xd is the keys' memory
+                xd = xd ^ int(_I64_MIN)
+            slot = torch.searchsorted(slot_key, xd, right=True).sub_(1)
+            y, seg = _place.route_predict(xd, first, slope, icept)
+            del xd
+            same = seg == torch.cat([carry_seg, seg[:-1]])
+            # consecutive pairs inside a segment: slot_i - y_hat(x_i+1)
+            # (masks by where, not by indexing: no sync with the host)
+            term = torch.cat([carry_slot, slot[:-1]]).double().sub_(y)
+            pair_lo.scatter_reduce_(0, seg, term.masked_fill_(~same, np.inf),
+                                    "amin")
+            # a segment's first key is the one key starting it
+            y_first.scatter_reduce_(0, seg, y.masked_fill_(same, np.inf),
+                                    "amin")
+            has[seg] = True
+            last.scatter_reduce_(0, seg, slot, "amax")
+            carry_seg, carry_slot = seg[-1:].clone(), slot[-1:].clone()
+            del y, seg, slot, same, term
+    with span("freeze.bounds", stages):
+        s = torch.arange(K, device=dev)
+        has_hi = s + 1 < K
+        nxt = first[(s + 1).clamp_(max=K - 1)]
+        dx = _exact_dx_t if u64 else torch.sub
+        y_lo = slope * dx(first, first) + icept   # the line at b_lo
+        y_hi = slope * dx(nxt, first) + icept     # ... at b_hi
+        # the slot of the last key before each segment, where one is
+        incl = _place._running_max(last, int(_I64_MIN))
+        p_slot = torch.cat([incl.new_full((1,), _I64_MIN),
+                            incl[:-1]]).double()
+        has_p = (torch.cumsum(has, 0) - has.long()) > 0
+        last_d = last.double()
+        t_lo = pair_lo
+        for mask, term in ((has & has_p, p_slot - y_first),
+                           (has & has_hi, last_d - y_hi),
+                           (~has & has_p & has_hi, p_slot - y_hi)):
+            t_lo = torch.minimum(t_lo, torch.where(mask, term, inf))
+        t_hi = torch.where(has_p, p_slot - y_lo, -inf)
+        t_lo, t_hi = t_lo.cpu().numpy(), t_hi.cpu().numpy()
+
+        slope_h = np.asarray(plm.slope, np.float64)
+        if u64:
+            first_h = _k64.seg_first_ordered(plm.seg_first_key)
+            dx_h = _k64.exact_dx
+        else:
+            first_h = np.asarray(plm.seg_first_key, np.float64)
+            dx_h = np.subtract
+        b_hi = first_h[np.minimum(np.arange(K) + 1, K - 1)]
+        widen = np.abs(slope_h) * np.where(np.arange(K) + 1 < K,
+                                           dx_h(b_hi, first_h), 0.0)
+        err_lo = np.array(plm.err_lo, np.float64)
+        err_hi = np.array(plm.err_hi, np.float64)
+        neg = slope_h < 0   # non-monotone line: conservative widening
+        err_lo = np.where(neg, err_lo - widen,
+                          np.where(t_lo < err_lo, t_lo, err_lo))
+        err_hi = np.where(neg, err_hi + widen,
+                          np.where(t_hi > err_hi, t_hi, err_hi))
+        if max_widen is not None:
+            err_lo = np.maximum(
+                err_lo, np.asarray(plm.err_lo, np.float64) - max_widen)
+            err_hi = np.minimum(
+                err_hi, np.asarray(plm.err_hi, np.float64) + max_widen)
     return err_lo, err_hi
 
 

@@ -9,6 +9,14 @@ reference's, so the handle's labels and stats match it.  What differs:
 the reference pads a sparse diff to a fixed capacity so XLA compiles
 one scatter; here a sparse diff is one indexed assignment into the
 device tensor, in place (nothing else holds the old images).
+
+A CUDA index freezes on the card (``freezes_on_device``): the window
+bounds (``bounds.query_window_bounds_device``) and the images
+(``freeze.freeze_headroom_device``) are derived there from the index's
+host arrays, uploaded in chunks, the engine's routers read the images
+there, and the mirror's images are the card's, read back.
+Every other device keeps the host path; both give the same engine and
+mirror.
 """
 
 from __future__ import annotations
@@ -19,13 +27,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import keys64 as _k64
 from ..spans import span
-from .bounds import query_window_bounds
+from .bounds import query_window_bounds, query_window_bounds_device
 from .freeze import (_I32_MAX, _I32_MIN, IndexArrays, _pad_pow, _split_i64,
-                     freeze_numpy_headroom, keys_need_pair, split_key_pair,
-                     to_device)
+                     freeze_headroom_device, freeze_numpy_headroom,
+                     key_wide_device, keys_need_pair,
+                     split_key_pair, to_device)
+from .place import PLM_METHODS
 
-__all__ = ["HostMirror", "freeze_state", "delta_update", "DELTA_FIELDS"]
+__all__ = ["HostMirror", "freeze_state", "freezes_on_device",
+           "delta_update", "DELTA_FIELDS"]
 
 # fields a host mutation can change (mech/seg tables never move)
 DELTA_FIELDS = ("slot_key", "slot_key_lo", "payload", "payload_hi",
@@ -35,6 +47,8 @@ DELTA_FIELDS = ("slot_key", "slot_key_lo", "payload", "payload_hi",
 # a diff up to this many elements is scattered; a larger one uploads
 # the patched image (the reference's fixed scatter capacity)
 _SCATTER_CAP = 8192
+
+device_freezes = 0   # freezes run on the device (``freezes_on_device``)
 
 
 @dataclasses.dataclass
@@ -47,7 +61,8 @@ class HostMirror:
     dense diff uploads an already-built image (None after a fused
     commit: rebuilt lazily by the next host delta).  ``statics``: the
     frozen capacities.  ``links_at_freeze``/``n_keys_at_freeze``: the
-    refreeze policy's growth baseline.
+    refreeze policy's growth baseline.  ``freeze_device``: where the
+    freeze ran, ``"host"`` or the device type (``freezes_on_device``).
     """
 
     sources: dict
@@ -55,11 +70,21 @@ class HostMirror:
     statics: dict
     links_at_freeze: int
     n_keys_at_freeze: int
+    freeze_device: str = "host"
 
 
 def _upload(img: np.ndarray, device) -> torch.Tensor:
     """A device copy that never shares memory with the host image."""
     return torch.from_numpy(img).to(device, copy=True)
+
+
+def freezes_on_device(index, device) -> bool:
+    """Whether ``freeze_state`` takes ``index`` to ``device``: a CUDA
+    device and a gapped index whose mechanism predicts through its PLM
+    (``place.PLM_METHODS``, as every 64-bit index does)."""
+    return (torch.device(device).type == "cuda"
+            and getattr(index, "gapped", None) is not None
+            and getattr(index.mech, "name", None) in PLM_METHODS)
 
 
 def freeze_state(index, device, *, w_tile: int = 2048,
@@ -68,12 +93,18 @@ def freeze_state(index, device, *, w_tile: int = 2048,
     """Freeze an index into a ``QueryEngine`` + ``HostMirror`` pair,
     capacities frozen with headroom (``freeze.freeze_numpy_headroom``)
     so delta updates keep the shapes.  ``stages``, when given, gains
-    the seconds of each stage: ``images`` (the padded host images),
-    ``upload`` (to the device), ``bounds`` (the query-safe window
-    bounds), ``routers`` (the engine: its bounds upload and its radix
-    and rank routers) and ``mirror`` (the host mirror's copies).  The
-    64-bit image serves no write, so its mirror holds no copies."""
+    the seconds of each stage: ``images`` (the padded images),
+    ``upload`` (the copies to the device), ``bounds`` (the query-safe
+    window bounds), ``routers`` (the engine: its bounds upload and its
+    radix and rank routers) and ``mirror`` (the host mirror's copies).
+    The 64-bit image serves no write, so its mirror holds no copies.
+    Where ``freezes_on_device``, ``freeze_on_device`` derives them on
+    the device."""
     from .ops import QueryEngine
+    if freezes_on_device(index, device):
+        return freeze_on_device(index, device, w_tile=w_tile,
+                                seg_chunk=seg_chunk, stages=stages,
+                                **engine_kwargs)
     with span("freeze.images", stages):
         np_arrays, statics = freeze_numpy_headroom(index, w_tile=w_tile,
                                                    seg_chunk=seg_chunk)
@@ -85,16 +116,59 @@ def freeze_state(index, device, *, w_tile: int = 2048,
         engine = QueryEngine(arrays, err_lo, err_hi, w_tile=w_tile,
                              **engine_kwargs)
     with span("freeze.mirror", stages):
-        ga = getattr(index, "gapped", None)
-        total = ga.links.total if ga is not None else 0
-        n_keys = ga.n_keys if ga is not None else int(index.keys.shape[0])
-        u64 = arrays.key_u64
-        images = {} if u64 else {f: np_arrays[f].copy()
-                                 for f in DELTA_FIELDS if np_arrays[f].size}
-        mirror = HostMirror(sources={} if u64 else snapshot_sources(index),
-                            images=images, statics=statics,
-                            links_at_freeze=total, n_keys_at_freeze=n_keys)
+        images = {} if arrays.key_u64 else {
+            f: np_arrays[f].copy() for f in DELTA_FIELDS if np_arrays[f].size}
+        mirror = _mirror(index, arrays, images, statics, "host")
     return engine, mirror
+
+
+def freeze_on_device(index, device, *, w_tile: int = 2048,
+                     seg_chunk: int = 512, stages: Optional[dict] = None,
+                     **engine_kwargs):
+    """``freeze_state``'s engine and mirror with the passes over every
+    key and slot on ``device`` (see the module doc), for an index that
+    ``freezes_on_device`` allows (tests run it on the CPU).  The slot
+    keys go up whole for the window bounds and ``key_wide``, and are
+    freed before the first image is allocated; from
+    there the device holds no more than the images and a small chunk
+    (``freeze.freeze_headroom_device``)."""
+    global device_freezes
+    from .ops import QueryEngine
+    ga = index.gapped
+    u64 = isinstance(ga, _k64.GappedArray64)
+    dev = torch.device(device)
+    with span("freeze.upload", stages):
+        slot_key = torch.from_numpy(np.ascontiguousarray(
+            ga.slot_key, np.int64 if u64 else np.float64)).to(dev)
+    err_lo, err_hi = query_window_bounds_device(index, slot_key,
+                                                stages=stages)
+    key_wide = False if u64 else key_wide_device(index, slot_key, stages)
+    del slot_key
+    arrays, statics = freeze_headroom_device(
+        index, dev, key_wide=key_wide, w_tile=w_tile, seg_chunk=seg_chunk,
+        stages=stages)
+    with span("freeze.routers", stages):
+        engine = QueryEngine(arrays, err_lo, err_hi, w_tile=w_tile,
+                             **engine_kwargs)
+    with span("freeze.mirror", stages):
+        # the write path's dense diffs patch the host images: one copy
+        # of each device image
+        images = {} if u64 else {
+            f: getattr(arrays, f).to("cpu", copy=True).numpy()
+            for f in DELTA_FIELDS if getattr(arrays, f).numel()}
+        mirror = _mirror(index, arrays, images, statics, dev.type)
+    device_freezes += 1
+    return engine, mirror
+
+
+def _mirror(index, arrays, images, statics, where) -> HostMirror:
+    ga = getattr(index, "gapped", None)
+    total = ga.links.total if ga is not None else 0
+    n_keys = ga.n_keys if ga is not None else int(index.keys.shape[0])
+    return HostMirror(
+        sources={} if arrays.key_u64 else snapshot_sources(index),
+        images=images, statics=statics, links_at_freeze=total,
+        n_keys_at_freeze=n_keys, freeze_device=where)
 
 
 def snapshot_sources(index) -> dict:

@@ -16,6 +16,15 @@ chain and segment first keys as ordered int64 (``NO_KEY`` padded), the
 segment slopes and intercepts as float64, no ``*_lo`` halves
 (``_freeze_numpy_u64``).  It is 8 B a key, as the pair is.  The numpy
 helpers above it stay the reference's.
+
+``freeze_headroom_device`` writes the images of
+``freeze_numpy_headroom`` straight into the ``IndexArrays`` tensors on
+the index's device: the host arrays go up in chunks of ``IMAGE_CHUNK``
+and are split and padded there, and ``wide`` and ``key_wide``
+(``key_wide_device``) are device reductions.  The images are allocated
+one by one, the last filled in small chunks, so the device never holds
+more than the images and a small chunk.  The segment tables, a few KB,
+are the host's.
 """
 
 from __future__ import annotations
@@ -27,9 +36,16 @@ import numpy as np
 import torch
 
 from ..core import keys64 as _k64
+from ..spans import span
 
-__all__ = ["IndexArrays", "freeze_numpy_headroom", "keys_need_pair",
-           "keys_pair_exact", "pair_alias_free", "split_key_pair"]
+__all__ = ["IndexArrays", "freeze_numpy_headroom", "freeze_headroom_device",
+           "key_wide_device", "keys_need_pair",
+           "keys_pair_exact", "pair_alias_free", "split_key_pair",
+           "split_key_pair_t", "IMAGE_CHUNK", "TAIL_CHUNK"]
+
+IMAGE_CHUNK = 1 << 21   # elements a device freeze streams at once
+                        # (16 MB of float64 or int64 source)
+TAIL_CHUNK = 1 << 15    # ... into its last image (384 KB of transient)
 
 _I32_MIN = np.iinfo(np.int32).min
 _I32_MAX = np.iinfo(np.int32).max
@@ -190,9 +206,45 @@ def _freeze_numpy(index, *, w_tile: int = 2048, seg_chunk: int = 512,
     none32f = np.zeros(0, np.float32)
     none32i = np.zeros(0, np.int32)
 
+    arrays = {
+        **_seg_images(plm, n_slots, seg_chunk, key_wide),
+        "slot_key": skp,
+        "slot_key_lo": sklp if key_wide else none32f,
+        "payload": pay_lo,
+        "payload_hi": pay_hi if wide else none32i,
+        "link_offsets": offp,
+        "link_keys": lk_hi,
+        "link_keys_lo": lk_lo if key_wide else none32f,
+        "link_payloads": lpay_lo,
+        "link_payload_hi": lpay_hi if wide else none32i,
+    }
+    statics = {"n_slots": n_slots, "max_chain": int(max_chain),
+               "wide": wide, "key_wide": key_wide, "w_tile": w_tile,
+               "seg_chunk": seg_chunk, "link_cap": int(link_cap)}
+    return arrays, statics
+
+
+def _seg_images(plm, n_slots: int, seg_chunk: int, key_wide: bool,
+                u64: bool = False) -> dict:
+    """The padded segment tables of ``_freeze_numpy`` (``u64``: of
+    ``_freeze_numpy_u64``)."""
+    none32f = np.zeros(0, np.float32)
+    if u64:
+        return {
+            "seg_first_key": _pad_pow(
+                _k64.seg_first_ordered(plm.seg_first_key), seg_chunk,
+                _k64.NO_KEY),
+            "seg_first_key_lo": none32f,
+            "seg_slope": _pad_pow(np.asarray(plm.slope, np.float64),
+                                  seg_chunk, 0.0),
+            "seg_icept": _pad_pow(np.asarray(plm.icept, np.float64),
+                                  seg_chunk, float(n_slots - 1)),
+            "seg_slope_lo": none32f,
+            "seg_icept_lo": none32f,
+        }
     sfk = np.asarray(plm.seg_first_key, np.float64)
     sfk_hi, sfk_lo = split_key_pair(sfk)
-    arrays = {
+    return {
         "seg_first_key": _pad_pow(sfk_hi, seg_chunk, np.float32(np.inf)),
         "seg_first_key_lo": (
             np.concatenate([sfk_lo,
@@ -214,20 +266,7 @@ def _freeze_numpy(index, *, w_tile: int = 2048, seg_chunk: int = 512,
             (np.asarray(plm.icept, np.float64)
              - np.asarray(plm.icept, np.float32).astype(np.float64)
              ).astype(np.float32), seg_chunk, np.float32(0)),
-        "slot_key": skp,
-        "slot_key_lo": sklp if key_wide else none32f,
-        "payload": pay_lo,
-        "payload_hi": pay_hi if wide else none32i,
-        "link_offsets": offp,
-        "link_keys": lk_hi,
-        "link_keys_lo": lk_lo if key_wide else none32f,
-        "link_payloads": lpay_lo,
-        "link_payload_hi": lpay_hi if wide else none32i,
     }
-    statics = {"n_slots": n_slots, "max_chain": int(max_chain),
-               "wide": wide, "key_wide": key_wide, "w_tile": w_tile,
-               "seg_chunk": seg_chunk, "link_cap": int(link_cap)}
-    return arrays, statics
 
 
 def _freeze_numpy_u64(index, *, w_tile, seg_chunk, max_chain, link_cap,
@@ -278,15 +317,7 @@ def _freeze_numpy_u64(index, *, w_tile, seg_chunk, max_chain, link_cap,
     none32f = np.zeros(0, np.float32)
     none32i = np.zeros(0, np.int32)
     arrays = {
-        "seg_first_key": _pad_pow(_k64.seg_first_ordered(plm.seg_first_key),
-                                  seg_chunk, no_key),
-        "seg_first_key_lo": none32f,
-        "seg_slope": _pad_pow(np.asarray(plm.slope, np.float64), seg_chunk,
-                              0.0),
-        "seg_icept": _pad_pow(np.asarray(plm.icept, np.float64), seg_chunk,
-                              float(n_slots - 1)),
-        "seg_slope_lo": none32f,
-        "seg_icept_lo": none32f,
+        **_seg_images(plm, n_slots, seg_chunk, False, u64=True),
         "slot_key": skp,
         "slot_key_lo": none32f,
         "payload": pay_lo,
@@ -375,10 +406,174 @@ def freeze_numpy_headroom(index, *, w_tile: int = 2048, seg_chunk: int = 512,
     x``chain_headroom``, link storage x``link_headroom``, power of two)
     so later delta updates keep the shapes.  Returns ``(numpy arrays,
     statics)``; ``delta.freeze_state`` uploads them."""
+    max_chain, link_cap = _headroom(index, chain_headroom, link_headroom)
+    return _freeze_numpy(index, w_tile=w_tile, seg_chunk=seg_chunk,
+                         max_chain=max_chain, link_cap=link_cap)
+
+
+def _headroom(index, chain_headroom, link_headroom):
+    """``(max_chain, link_cap)`` frozen with headroom."""
     ga = getattr(index, "gapped", None)
     chain = ga.links.max_chain if ga is not None else 0
     total = ga.links.total if ga is not None else 0
     max_chain = max(4, chain_headroom * max(chain, 1))
     link_cap = _round_pow2(max(64, int(link_headroom * max(total, 1))))
-    return _freeze_numpy(index, w_tile=w_tile, seg_chunk=seg_chunk,
-                         max_chain=max_chain, link_cap=link_cap)
+    return max_chain, link_cap
+
+
+def _stream(arrays, dev, stages, chunk=None):
+    """``(start, chunks)`` over equal-length host ``arrays``: chunks of
+    ``chunk`` (default ``IMAGE_CHUNK``) elements on ``dev``, each copy
+    timed as the freeze's ``upload`` stage (on the host, a chunk is the
+    array's memory)."""
+    chunk = chunk or IMAGE_CHUNK
+    for a in range(0, arrays[0].shape[0], chunk):
+        with span("freeze.upload", stages):
+            chunks = [torch.from_numpy(np.ascontiguousarray(
+                x[a:a + chunk])).to(dev) for x in arrays]
+        yield a, chunks
+
+
+def split_key_pair_t(k: torch.Tensor):
+    """``split_key_pair`` of a float64 tensor, on its device."""
+    hi = k.to(torch.float32)
+    lo = torch.where(torch.isfinite(k), k - hi.double(), 0.0)
+    return hi, lo.to(torch.float32)
+
+
+def _needs_pair_t(k: torch.Tensor) -> torch.Tensor:
+    """``keys_need_pair`` of a float64 tensor, as a device bool."""
+    return (torch.isfinite(k) & (k.to(torch.float32).double() != k)).any()
+
+
+def _outside_i32_t(p: torch.Tensor) -> torch.Tensor:
+    """Whether any of the int64 ``p`` leaves int32, as a device bool."""
+    return ((p < _I32_MIN) | (p > _I32_MAX)).any()
+
+
+def key_wide_device(index, slot_key: torch.Tensor, stages=None) -> bool:
+    """``key_wide`` of a float index's images: whether its slot keys
+    (``slot_key``, float64 on the device) or its chain keys need the f32
+    pair (``keys_need_pair``), reduced on the device in chunks of
+    ``IMAGE_CHUNK``.  ``stages`` gains the chain keys' copies as
+    ``upload`` and the rest as ``images``."""
+    with span("freeze.images", stages):
+        need = torch.zeros((), dtype=torch.bool, device=slot_key.device)
+        for a in range(0, slot_key.shape[0], IMAGE_CHUNK):
+            need |= _needs_pair_t(slot_key[a:a + IMAGE_CHUNK])
+        if bool(need):
+            return True
+        lkeys = np.asarray(index.gapped.export_csr_links()[1], np.float64)
+    for _a, (k,) in _stream((lkeys,), slot_key.device, stages):
+        with span("freeze.images", stages):
+            need |= _needs_pair_t(k)
+    with span("freeze.images", stages):
+        return bool(need)
+
+
+def freeze_headroom_device(index, device, *, key_wide: bool,
+                           w_tile: int = 2048, seg_chunk: int = 512,
+                           chain_headroom: int = 2,
+                           link_headroom: float = 2.0, stages=None):
+    """``to_device(*freeze_numpy_headroom(index, ...), device)`` of a
+    gapped index, written on ``device``: ``(IndexArrays, statics)``, the
+    same tensors element for element and the same statics.  ``key_wide``
+    is the caller's (``key_wide_device``; False for 64-bit keys).
+
+    Each image is allocated padded just before the host arrays stream
+    into it, in chunks of ``IMAGE_CHUNK`` split there.  The link offsets
+    come last, in chunks of ``TAIL_CHUNK``: until then the device holds
+    less than the images, so the freeze's peak stays the images' bytes
+    plus a ``TAIL_CHUNK`` chunk.  ``wide`` is reduced while the low
+    payload halves stream; when set, the high halves take a second
+    pass.  ``stages`` gains the copies as ``upload`` and the rest as
+    ``images``."""
+    ga = index.gapped
+    plm = index.mech.plm
+    dev = torch.device(device)
+    u64 = isinstance(ga, _k64.GappedArray64)
+    i32, f32 = torch.int32, torch.float32
+    img = {}
+
+    def alloc(name, n, value, dtype=i32):
+        with span("freeze.images", stages):
+            img[name] = torch.full((n,), value, dtype=dtype, device=dev)
+
+    def fill(srcs, write, chunk=None):
+        # the chunks are this call's locals: freed when it returns
+        for a, chunks in _stream(srcs, dev, stages, chunk):
+            with span("freeze.images", stages):
+                write(a, *chunks)
+
+    with span("freeze.images", stages):
+        max_chain, link_cap = _headroom(index, chain_headroom,
+                                        link_headroom)
+        offsets, lkeys, lpay = ga.export_csr_links()
+        kdt = np.int64 if u64 else np.float64
+        payload = np.asarray(ga.payload, np.int64)
+        lpay = np.asarray(lpay, np.int64)
+        n_slots = int(ga.slot_key.shape[0])
+        # whole w_tile blocks plus one +inf block, as ``_freeze_numpy``
+        m_pad = -(-n_slots // w_tile) * w_tile + w_tile
+        no_key, key_t = ((int(_k64.NO_KEY), torch.int64) if u64
+                         else (np.inf, f32))
+        wide = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def keys(name):
+        def write(a, k):
+            if u64:
+                img[name][a:a + k.shape[0]] = k
+                return
+            hi, lo = split_key_pair_t(k)
+            img[name][a:a + k.shape[0]] = hi
+            if key_wide:
+                img[name + "_lo"][a:a + k.shape[0]] = lo
+        return write
+
+    def low_halves(name):
+        def write(a, p, *occ):
+            img[name][a:a + p.shape[0]] = p.to(i32)
+            wide.logical_or_(_outside_i32_t(p.where(occ[0], 0) if occ
+                                            else p))
+        return write
+
+    def high_halves(name):
+        def write(a, p):
+            img[name][a:a + p.shape[0]] = (p >> 32).to(i32)
+        return write
+
+    for name, src, n in (("slot_key", ga.slot_key, m_pad),
+                         ("link_keys", lkeys, link_cap)):
+        alloc(name, n, no_key, key_t)
+        alloc(name + "_lo", n if key_wide else 0, 0, f32)
+        fill((np.asarray(src, kdt),), keys(name))
+    alloc("payload", m_pad, -1)
+    fill((payload, np.asarray(ga.occupied, bool)), low_halves("payload"))
+    alloc("link_payloads", link_cap, -1)
+    fill((lpay,), low_halves("link_payloads"))
+    with span("freeze.images", stages):
+        wide = bool(wide)
+    for name, src, n in (("payload_hi", payload, m_pad),
+                         ("link_payload_hi", lpay, link_cap)):
+        alloc(name, n if wide else 0, -1)
+        if wide:   # the high payload halves: a second pass
+            fill((src,), high_halves(name))
+    offsets = np.asarray(offsets, np.int64)
+    alloc("link_offsets", m_pad + w_tile,
+          int(offsets[-1].astype(np.int32)))
+
+    def offsets_into(a, o):
+        img["link_offsets"][a:a + o.shape[0]] = o.to(i32)
+
+    fill((offsets,), offsets_into, TAIL_CHUNK)
+    with span("freeze.images", stages):
+        seg = _seg_images(plm, n_slots, seg_chunk, key_wide, u64=u64)
+    with span("freeze.upload", stages):
+        img.update({f: torch.from_numpy(a).to(dev) for f, a in seg.items()})
+    statics = {"n_slots": n_slots, "max_chain": int(max_chain),
+               "wide": wide, "key_wide": key_wide, "w_tile": w_tile,
+               "seg_chunk": seg_chunk, "link_cap": int(link_cap)}
+    if u64:
+        statics["key_u64"] = True
+    return IndexArrays(**img, n_slots=n_slots, max_chain=int(max_chain),
+                       wide=wide, key_wide=key_wide, key_u64=u64), statics

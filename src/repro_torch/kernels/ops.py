@@ -575,8 +575,7 @@ def _rank_router(arrays: IndexArrays):
     cached = getattr(arrays, "_rank_router_cache", None)
     if cached is None:
         table, scale, trips, _meta = build_rank_router(
-            _np(arrays.slot_key),
-            _np(arrays.slot_key_lo) if arrays.key_wide else None)
+            arrays.slot_key, arrays.slot_key_lo if arrays.key_wide else None)
         dev = arrays.device
         cached = (torch.from_numpy(table).to(dev),
                   torch.from_numpy(scale).to(dev), trips)
@@ -771,9 +770,8 @@ class QueryEngine:
             # syncs refresh its rows, as the reference's engine does
             self._rank_np, rk_scale, self._rank_trips, self._rank_meta = \
                 build_rank_router(
-                    arrays.slot_key.cpu().numpy(),
-                    arrays.slot_key_lo.cpu().numpy() if arrays.key_wide
-                    else None)
+                    arrays.slot_key,
+                    arrays.slot_key_lo if arrays.key_wide else None)
             self._rank_table = torch.from_numpy(self._rank_np.copy()).to(
                 dev)
             self._rank_scale = torch.from_numpy(rk_scale).to(dev)

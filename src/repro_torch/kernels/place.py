@@ -68,8 +68,8 @@ from ..core.gaps import _EMPTY, GappedArray, gap_positions
 from ..core.links import CSRLinks
 from .lookup import exact_dx
 
-__all__ = ["build_gapped_device", "PLM_METHODS", "CHUNK_KEYS",
-           "SLOT_WINDOW"]
+__all__ = ["build_gapped_device", "plm_tables", "route_predict",
+           "PLM_METHODS", "CHUNK_KEYS", "SLOT_WINDOW"]
 
 PLM_METHODS = ("pgm", "fiting")   # mechanisms whose predict is plm.predict
 CHUNK_KEYS = 1 << 21              # keys a chunk streams to the device
@@ -105,9 +105,24 @@ def _running_max(v: torch.Tensor, floor: int) -> torch.Tensor:
     return w.view(-1)[:n].clamp_(min=floor)
 
 
-def _predict(xd, first, slope, icept):
+def plm_tables(plm, dev, exact: bool):
+    """``(first, slope, icept)`` of ``plm`` on ``dev``: the segment first
+    keys as float64, or for 64-bit keys (``exact``) as ordered int64
+    (``keys64.seg_first_ordered``); slopes and intercepts as float64."""
+    first = (torch.from_numpy(_k64.seg_first_ordered(plm.seg_first_key))
+             .to(dev) if exact else
+             torch.as_tensor(plm.seg_first_key, dtype=torch.float64,
+                             device=dev))
+    slope, icept = (torch.as_tensor(a, dtype=torch.float64, device=dev)
+                    for a in (plm.slope, plm.icept))
+    return first, slope, icept
+
+
+def route_predict(xd, first, slope, icept):
     """``(y_hat, seg)`` of a chunk: the reference's float line, or over
-    ordered keys ``keys64.predict_ordered``'s."""
+    ordered keys ``keys64.predict_ordered``'s.  The build's placement and
+    the freeze's window bounds (``bounds.query_window_bounds_device``)
+    share it."""
     k = first.shape[0]
     seg = torch.searchsorted(first, xd, right=True).sub_(1)
     seg.clamp_(0, k - 1)
@@ -127,12 +142,7 @@ def _place(x, payloads, plm, m, dev, refinalize):
     k = plm.n_segments
     exact = x.dtype == np.int64
     kdt = np.int64 if exact else np.float64
-    slope, icept = (torch.as_tensor(a, dtype=torch.float64, device=dev)
-                    for a in (plm.slope, plm.icept))
-    first = (torch.from_numpy(_k64.seg_first_ordered(plm.seg_first_key))
-             .to(dev) if exact else
-             torch.as_tensor(plm.seg_first_key, dtype=torch.float64,
-                             device=dev))
+    first, slope, icept = plm_tables(plm, dev, exact)
     err_lo = torch.zeros(k, dtype=torch.float64, device=dev)
     err_hi = torch.zeros(k, dtype=torch.float64, device=dev)
     slot_key = np.empty(m, kdt)
@@ -148,7 +158,7 @@ def _place(x, payloads, plm, m, dev, refinalize):
     for a in range(0, n, CHUNK_KEYS):
         xd = torch.from_numpy(x[a:a + CHUNK_KEYS]).to(dev)
         pd = torch.from_numpy(payloads[a:a + CHUNK_KEYS]).to(dev)
-        yhat, seg = _predict(xd, first, slope, icept)
+        yhat, seg = route_predict(xd, first, slope, icept)
         pred = torch.round(yhat).clamp_(0, m - 1).long()
         cm = _running_max(pred, cursor)
         if refinalize:

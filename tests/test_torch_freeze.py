@@ -5,8 +5,9 @@ and data copies, the trainer's fault primitives, with
 and ``MicroBatchQueue`` keep the index's key dtype for exact 64-bit
 keys, and the queue adds spans and two counters: each departure is
 named below as text and undone before the comparison),
-the copied numpy freeze/sizing helpers, the copied ``configs/``, and
-whole builds at sample_rate 1.0 and 0.01 with equal seeds.  Inputs are
+the copied numpy freeze/sizing helpers and the device freeze's
+functions (run on the CPU) on the same builds, the copied ``configs/``,
+and whole builds at sample_rate 1.0 and 0.01 with equal seeds.  Inputs are
 made with numpy from a seed and handed to both."""
 
 import ast
@@ -14,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import Index as RefIndex
 from repro.kernels import ops as ref_ops
@@ -256,9 +258,47 @@ def test_build_equals_reference(sample_rate):
     _assert_same_build(ref, port)
 
 
+def _bits(a):
+    return np.asarray(a, np.float64).view(np.int64)
+
+
+def _assert_device_freeze_equals_reference(ref, port, monkeypatch):
+    """The device freeze's functions, run on the CPU, against the
+    reference on the same build: the window bounds bit for bit, the
+    images at the device freeze's headroom element for element, and the
+    radix and rank routers of its images; the rank router also at
+    chunks of 97 slot keys."""
+    slot_key = torch.from_numpy(port.gapped.slot_key.copy())
+    rlo, rhi = ref_ops.query_window_bounds(ref)
+    dlo, dhi = bounds.query_window_bounds_device(port, slot_key)
+    assert np.array_equal(_bits(rlo), _bits(dlo))
+    assert np.array_equal(_bits(rhi), _bits(dhi))
+    key_wide = freeze.key_wide_device(port, slot_key)
+    arrays, statics = freeze.freeze_headroom_device(port, "cpu",
+                                                    key_wide=key_wide)
+    images, r_statics = ref_ops._freeze_numpy(
+        ref, max_chain=statics["max_chain"], link_cap=statics["link_cap"])
+    assert r_statics == statics
+    for f, img in images.items():
+        t = getattr(arrays, f).numpy()
+        assert t.dtype == img.dtype and np.array_equal(t, img), f
+    for a, b in zip(ref_ops.build_radix_router(
+                        ref_ops.from_learned_index(ref)),
+                    bounds.build_radix_router(arrays)):
+        assert np.array_equal(a, b)
+    r_rank = ref_ops.build_rank_router(
+        images["slot_key"], images["slot_key_lo"] if key_wide else None)
+    for chunk in (bounds.RANK_CHUNK, 97):
+        monkeypatch.setattr(bounds, "RANK_CHUNK", chunk)
+        p_rank = bounds.build_rank_router(
+            arrays.slot_key, arrays.slot_key_lo if key_wide else None)
+        for a, b in zip(r_rank, p_rank):
+            assert np.array_equal(a, b)
+
+
 @pytest.mark.parametrize("name,seed,span,wpay", CASES,
                          ids=[c[0] for c in CASES])
-def test_freeze_helpers_equal_reference(name, seed, span, wpay):
+def test_freeze_helpers_equal_reference(name, seed, span, wpay, monkeypatch):
     keys, ref, port = _pair(seed, span, wide_payloads=wpay)
     _assert_same_build(ref, port)
     # split_key_pair on keys, absent queries and non-finite values
@@ -295,6 +335,7 @@ def test_freeze_helpers_equal_reference(name, seed, span, wpay):
         ra.slot_key, ra.slot_key_lo if ra.key_wide else None)
     for a, b in zip(r_rank, p_rank):
         assert np.array_equal(a, b)
+    _assert_device_freeze_equals_reference(ref, port, monkeypatch)
     for fn in ("_bisect_trips", "_flat_width", "_fused_flat_width"):
         assert getattr(ref_ops, fn)(rlo, rhi) == getattr(bounds, fn)(plo,
                                                                      phi)

@@ -36,7 +36,8 @@ def _report(rep):
 
 def _stats(idx):
     return {k: v for k, v in idx.stats.items()
-            if k not in ("retrains", "freeze_seconds", "freeze_stages")}
+            if k not in ("retrains", "freeze_seconds", "freeze_stages",
+                         "freeze_device")}
 
 
 def _both(keys, fused, **kw):
